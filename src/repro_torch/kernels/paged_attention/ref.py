@@ -1,0 +1,49 @@
+"""Plain PyTorch version of paged decode attention.
+
+Semantics: one query token per sequence attends over its paged KV cache.
+``block_tables`` holds PHYSICAL frame ids (outputs of the block-table
+translation); -1 marks absent blocks.  Token t of sequence b lives in slab
+frame ``block_tables[b, t // bt]`` at slot ``t % bt``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -2.0 ** 30
+
+
+def paged_attention_ref(q: torch.Tensor, k_slabs: torch.Tensor,
+                        v_slabs: torch.Tensor, block_tables: torch.Tensor,
+                        seq_lens: torch.Tensor, *,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,H,hd]; k/v_slabs: [N,bt,K,hd]; block_tables: [B,MB];
+    seq_lens: [B] (valid tokens per sequence).  Returns [B,H,hd] f32."""
+    B, H, hd = q.shape
+    _, bt, K, _ = k_slabs.shape
+    MB = block_tables.shape[1]
+    G = H // K
+    scale = scale if scale is not None else hd ** -0.5
+
+    tables = block_tables.long()
+    lens = seq_lens.long()
+    frames = tables.clamp_min(0)
+    k = k_slabs[frames].reshape(B, MB * bt, K, hd).float()    # [B,T,K,hd]
+    v = v_slabs[frames].reshape(B, MB * bt, K, hd).float()
+    qg = q.reshape(B, K, G, hd).float()
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k) * scale
+    t = torch.arange(MB * bt, device=q.device)
+    valid = t[None, :] < lens[:, None]
+    valid &= (tables >= 0).repeat_interleave(bt, dim=1)
+    if window is not None:
+        valid &= t[None, :] >= (lens[:, None] - window)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    # a masked slot's probability is exactly 0 unless the whole row is
+    # masked; zero it there too, so a row with no live block returns 0
+    probs = probs * valid[:, None, None, :]
+    out = torch.einsum("bkgt,btkd->bkgd", probs, v)
+    return out.reshape(B, H, hd)

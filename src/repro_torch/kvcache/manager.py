@@ -1,0 +1,165 @@
+"""Paged KV-cache manager: sequences -> logical blocks -> physical frames.
+
+The serving-side owner of the numaPTE substrate.  Each active sequence holds
+a list of *logical* blocks (stable ids, the VMA analogue); the
+``HostBlockManager`` maps them to physical KV frames and maintains the
+per-pod replicas, sharer masks and invalidation filtering.  Every decode
+step translates the logical tables to physical tables — the page walk — and
+hands the physical tables to the paged-attention kernel.
+
+The walk runs on the device: the manager keeps a device-resident copy of the
+host's canonical table ``[n_tables, entries_per_table]`` int32, brings it up
+to date before each walk by draining the host's mutation buffer into
+``apply_mutations``, and translates with the ``pte_gather`` kernel.  The
+host loop still records every access (the protocol and its counters).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..kernels.pte_gather.ops import pte_gather
+from ..pagedpt import BlockTableSpec, HostBlockManager, apply_mutations
+from ..pagedpt.blocktable import CoherenceMode
+
+
+@dataclasses.dataclass
+class ServingStats:
+    steps: int = 0
+    tokens: int = 0
+    seqs_started: int = 0
+    seqs_finished: int = 0
+
+
+class PagedKVManager:
+    """Host-side manager for a fixed-capacity paged KV pool."""
+
+    def __init__(self, *, n_frames: int, block_tokens: int = 16,
+                 max_blocks_per_seq: int, n_pods: int = 1,
+                 mode: CoherenceMode = CoherenceMode.NUMAPTE,
+                 entries_per_table: int = 512, prefetch_degree: int = 3,
+                 device: DeviceLike = None):
+        # table pages are metadata (one per active sequence at minimum, each
+        # sequence opens its own VMA/table): keep a healthy pool
+        n_tables = max(64, -(-n_frames // entries_per_table))
+        self.spec = BlockTableSpec(
+            n_pods=n_pods, n_tables=n_tables,
+            entries_per_table=entries_per_table,
+            prefetch_degree=prefetch_degree)
+        self.host = HostBlockManager(self.spec, mode,
+                                     block_tokens=block_tokens)
+        # The host's free list spans every table entry, which can be more
+        # than the slabs hold.  A frame id beyond the slabs would make the
+        # attention kernel read out of bounds, so only the slabs' frames are
+        # handed out (in the same order) and running out raises MemoryError.
+        self.host.free_frames = list(range(n_frames))[::-1]
+        self.block_tokens = block_tokens
+        self.max_blocks = max_blocks_per_seq
+        self.n_frames = n_frames
+        self._seq_pod: Dict[int, int] = {}
+        #: the scheduler's pod: it walks every row's tail block to commit
+        #: appended tokens (see ``physical_tables``)
+        self.scheduler_pod = 0
+        self.stats = ServingStats()
+        self.device = resolve_device(device)
+        #: device-resident copy of ``host.canonical``, the table the walk reads
+        self.device_table = torch.full((n_tables, entries_per_table), -1,
+                                       dtype=torch.int32, device=self.device)
+
+    # ------------------------------------------------------------- lifecycle
+    def start_sequence(self, seq_id: int, prompt_len: int, pod: int = 0
+                       ) -> None:
+        n_blocks = max(1, -(-prompt_len // self.block_tokens))
+        self.host.alloc_sequence(seq_id, n_blocks, pod)
+        self._seq_pod[seq_id] = pod
+        self.stats.seqs_started += 1
+
+    def maybe_extend(self, seq_id: int, new_len: int) -> None:
+        have = len(self.host.seqs[seq_id].logical_blocks)
+        need = -(-new_len // self.block_tokens)
+        if need > have:
+            self.host.extend_sequence(seq_id, need - have)
+
+    def finish_sequence(self, seq_id: int) -> None:
+        self.host.free_sequence(seq_id)
+        self._seq_pod.pop(seq_id, None)
+        self.stats.seqs_finished += 1
+
+    # ------------------------------------------------------------ tables
+    def logical_tables(self, seq_ids: List[int]) -> np.ndarray:
+        """[len(seq_ids), max_blocks] logical block ids, -1 padded.  A
+        negative seq id is an inactive batch row (wave padding): its table
+        stays all -1 so the device masks it out of update and gather."""
+        out = np.full((len(seq_ids), self.max_blocks), -1, np.int32)
+        for r, sid in enumerate(seq_ids):
+            if sid < 0:
+                continue
+            blocks = self.host.seqs[sid].logical_blocks
+            out[r, :len(blocks)] = blocks[:self.max_blocks]
+        return out
+
+    def sync_device_table(self) -> None:
+        """Apply every pending host mutation to the device table, in order.
+        One drain returns at most ``mutation_budget`` entries and a prefill
+        wave can queue more, so drain until the buffer is empty."""
+        while True:
+            tables, idx, val, valid = self.host.drain_mutation_buffer()
+            if not valid.any():
+                return
+            buf = torch.from_numpy(np.stack([tables, idx, val])).to(self.device)
+            mask = torch.from_numpy(valid).to(self.device)
+            apply_mutations(self.device_table, buf[0], buf[1], buf[2], mask)
+
+    def physical_tables(self, seq_ids: List[int],
+                        pod: Optional[int] = None,
+                        record: bool = True) -> torch.Tensor:
+        """Translate to physical frame ids (the page walk); returns an int32
+        tensor [len(seq_ids), max_blocks] on the device, -1 = unmapped.
+
+        ``pod=None`` (the serving default) walks each row through its
+        *home* pod — the attention shard that owns the sequence's pool, so
+        the common-case walk is replica-local — and additionally records
+        the scheduler pod's walk of the row's tail block (the scheduler
+        commits the appended token through its own replica).  The scheduler's
+        walks are what generate real cross-pod fetch/prefetch traffic
+        under NUMAPTE once sequences are homed off pod 0.  An explicit
+        ``pod`` keeps the legacy single-pod walk.  Misses trigger the
+        numaPTE on-demand fetch protocol; negative seq ids (padding rows)
+        are skipped entirely."""
+        logical = self.logical_tables(seq_ids)
+        if record:
+            for r, sid in enumerate(seq_ids):
+                if sid < 0:
+                    continue
+                walk_pod = self._seq_pod[sid] if pod is None else pod
+                blocks = logical[r][logical[r] >= 0]
+                for lb in blocks:
+                    self.host.record_access(walk_pod, int(lb))
+                if (pod is None and blocks.size
+                        and walk_pod != self.scheduler_pod):
+                    self.host.record_access(self.scheduler_pod, int(blocks[-1]))
+        self.sync_device_table()
+        frames, _, _ = pte_gather(
+            self.device_table,
+            torch.from_numpy(logical.reshape(-1)).to(self.device),
+            self.spec.prefetch_degree)
+        return frames.view(logical.shape)
+
+    def check_device_table(self) -> None:
+        """The device table, brought up to date, equals the host's canonical
+        table entry for entry."""
+        self.sync_device_table()
+        if not np.array_equal(self.device_table.cpu().numpy(),
+                              self.host.canonical):
+            raise AssertionError("device block table differs from the host's")
+
+    # ------------------------------------------------------------ accounting
+    def utilization(self) -> float:
+        return 1.0 - len(self.host.free_frames) / self.n_frames
+
+    def footprint_pages(self) -> int:
+        return self.host.footprint_table_pages()
