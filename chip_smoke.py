@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase, needs one CUDA device
     python3 chip_smoke.py --phases kernels # build + kernel checks only
+    python3 chip_smoke.py --phases profile # where a decode step's time goes
 
 Phases (each prints one JSON object on a line of its own; any failure raises
 and the script exits non-zero):
@@ -18,6 +19,10 @@ and the script exits non-zero):
   parity   the same widths at a cut depth: kernel path against plain path
            (bf16 logits, float32 token ids), and the three coherence modes
            against each other
+  profile  (only when asked for) the serving loop under ``torch.profiler`` at
+           two generation lengths: their difference gives the device-busy
+           time, the kernel launches and the largest kernels of one decode
+           step; the step's wall time comes from a run without the profiler
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -60,8 +65,11 @@ DEV = torch.device("cuda", 0)
 # published peaks of one H100 SXM (dense): bytes/s of HBM, FLOP/s by input type
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TOL = {"paged_attention": {torch.float32: 5e-5, torch.bfloat16: 3e-2},
-       "flash_attention": {torch.float32: 1e-4, torch.bfloat16: 3e-2}}
+# max |kernel - plain version|.  Both sides read the same inputs and work in
+# float32, so bfloat16 inputs are held to the float32 bound: nothing rounds
+# differently between them, and a typical output at the serving shapes is
+# only about 0.05 (a looser bound would let a dropped block through).
+TOL = {"paged_attention": 5e-5, "flash_attention": 1e-4, "pte_gather": 0.0}
 KERNEL_FNS = {"paged_attention": paged_attention,
               "flash_attention": flash_attention, "pte_gather": pte_gather}
 RNG = np.random.default_rng(0)
@@ -258,8 +266,13 @@ def phase_kernels():
     ptes = [pte_case(*row) for row in [(8, 64, 16, 2), (4, 512, 32, 9),
                                        (16, 128, 7, 0), (2, 64, 5, 3)]]
     # the shapes of the full-width serving path (Qwen3-14B, batch 16, prompt
-    # 1024 + 64 generated, 4416 frames, block tables of 69 columns); these are
-    # the ones timed
+    # 1024 + 64 generated, 4416 frames, block tables of 69 columns): checked
+    # in both types, with and without a padding row, and timed in bf16
+    full_paged = (16, 40, 8, 128, 16, 69, 4416, None)
+    paged += [paged_case(*full_paged, dt, lens=np.full(16, 1057), dead_row=dead)
+              for dt in both for dead in (False, True)]
+    paged += [paged_case(*full_paged, dt) for dt in both]    # ragged lengths
+    flash += [flash_case(16, 40, 8, 1024, 128, True, None, f32)]
     main = {
         "paged_attention": paged_case(16, 40, 8, 128, 16, 69, 4416, None, bf16,
                                       lens=np.full(16, 1057)),
@@ -268,8 +281,6 @@ def phase_kernels():
             np.arange(16 * 69) % 69 < 67,
             (np.arange(16 * 69) // 69) * 512 + np.arange(16 * 69) % 69, -1)),
     }
-    paged += [paged_case(16, 40, 8, 128, 16, 69, 4416, None, bf16,
-                         lens=np.full(16, 1057), dead_row=True)]
     spec = {
         "paged_attention": (paged_attention_ref, paged + [main["paged_attention"]],
                             paged_bound, paged_library, "paged_attention.cu",
@@ -290,8 +301,8 @@ def phase_kernels():
             torch.cuda.synchronize()
             err = max_err(got, want)
             dt = args[0].dtype
-            tol = TOL[name][dt] if name in TOL else 0.0
-            check(err <= tol, f"{name} {tuple(args[0].shape)} {dt}: |err| {err} > {tol}")
+            check(err <= TOL[name],
+                  f"{name} {tuple(args[0].shape)} {dt}: |err| {err} > {TOL[name]}")
             key = str(dt).replace("torch.", "")
             errs[key] = max(errs.get(key, 0.0), err)
         args, kw = main[name]
@@ -301,7 +312,8 @@ def phase_kernels():
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": 0,
             "max_abs_err": max_err(fn(*args, **kw), ref(*args, **kw)),
-            "max_abs_err_by_dtype": errs, "cases": len(cases),
+            "max_abs_err_by_dtype": errs, "tolerance": TOL[name],
+            "cases": len(cases),
             "ms": time_ms(lambda: fn(*args, **kw)),
             "plain_ms": time_ms(lambda: ref(*args, **kw)),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -436,6 +448,50 @@ def phase_parity(n_layers: int = 2):
     emit(out)
 
 
+# ------------------------------------------------------------------- profile
+@torch.no_grad()
+def phase_profile(n_layers: int, short: int = 8, long: int = 24):
+    """One wave of the full-width serve at two generation lengths under the
+    profiler.  Set-up, warm-up and prefill are the same in both, so the
+    difference of the device's kernel time is that of ``long - short`` decode
+    steps."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(get_config("qwen3_14b"), n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         param_dtype=cfg.dtype)
+    kw = dict(cfg=cfg, params=params, batch=16, prompt_len=1024,
+              n_requests=16, n_pods=4, mode="numapte", verbose=False)
+    plain = serve("qwen3_14b", gen_len=long, **kw)
+
+    def device_kernels(gen_len):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            serve("qwen3_14b", gen_len=gen_len, **kw)
+            torch.cuda.synchronize()
+        return {e.key: (e.device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.device_time_total > 0}
+
+    few, many = device_kernels(short), device_kernels(long)
+    check(bool(many), "the profiler recorded no device time")
+    steps = long - short
+    per_step = {k: ((ms - few.get(k, (0.0, 0))[0]) / steps,
+                    (n - few.get(k, (0.0, 0))[1]) / steps)
+                for k, (ms, n) in many.items()}
+    busy_ms = sum(ms for ms, _ in per_step.values())
+    emit({"phase": "profile", "layers": n_layers, "batch": 16,
+          "prompt_len": 1024, "steps_differenced": steps,
+          "prefill_ms": plain["prefill_ms"],
+          "decode_step_ms": plain["decode_step_ms"],
+          "decode_device_busy_ms": busy_ms,
+          "decode_device_idle_share": 1 - busy_ms / plain["decode_step_ms"],
+          "decode_kernel_launches_per_step": sum(n for _, n in per_step.values()),
+          "top_kernels": [{"kernel": k[:80], "ms_per_step": ms,
+                           "launches_per_step": n} for k, (ms, n) in sorted(
+                               per_step.items(), key=lambda kv: -kv[1][0])[:10]]})
+
+
 # ----------------------------------------------------------------------- main
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -465,6 +521,8 @@ def main() -> None:
             check(row["launches"] > 0, f"{row['name']} never ran on the main path")
     if "parity" in phases:
         phase_parity()
+    if "profile" in phases:
+        phase_profile(args.layers)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,28 +19,21 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("paged_attention", "flash_attention", "pte_gather")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    # src/repro_torch/kernels/_build.py -> the checkout's root
-    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# src/repro_torch/kernels/_build.py -> the checkout's root
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+    if not found:
+        raise RuntimeError("nvcc not found on PATH: the CUDA kernels cannot "
+                           "be built here")
+    return found
 
 
 def _target(name: str) -> Path:
@@ -48,7 +41,7 @@ def _target(name: str) -> Path:
     for path in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str, target: Path) -> subprocess.Popen:
@@ -64,7 +57,6 @@ def _start(name: str, target: Path) -> subprocess.Popen:
 
 def _finish(name: str, target: Path, proc: subprocess.Popen) -> None:
     log, _ = proc.communicate()
-    target.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(proc.tmp_path, target)  # type: ignore[attr-defined]

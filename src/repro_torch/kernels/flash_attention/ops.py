@@ -53,6 +53,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: operands must have a contiguous "
                          "head_dim, be 16-byte aligned and on one CUDA device")
     out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
+    if B == 0 or S == 0:            # no row: no launch, no count
+        return out
     strides = (ctypes.c_int64 * 12)(*(t.stride(d) for t in (q, k, v, out)
                                       for d in (0, 1, 2)))
     with torch.cuda.device(q.device):

@@ -60,6 +60,8 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
         raise ValueError("paged_attention: operands must be contiguous, "
                          "16-byte aligned and on one CUDA device")
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    if B == 0:                      # no sequence: no launch, no count
+        return out
     with torch.cuda.device(q.device):
         code = _launcher()(
             q.data_ptr(), k_slabs.data_ptr(), v_slabs.data_ptr(),

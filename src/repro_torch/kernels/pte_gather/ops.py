@@ -48,6 +48,8 @@ def pte_gather(entries: torch.Tensor, logical: torch.Tensor,
     frames = torch.empty((M,), dtype=torch.int32, device=dev)
     present = torch.empty((M,), dtype=torch.bool, device=dev)
     window = torch.empty((M, W), dtype=torch.int32, device=dev)
+    if M == 0:                      # nothing to walk: no launch, no count
+        return frames, present, window
     with torch.cuda.device(dev):
         code = _launcher()(
             entries.data_ptr(), logical.data_ptr(), frames.data_ptr(),

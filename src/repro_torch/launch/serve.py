@@ -43,7 +43,10 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
 
     ``full_width`` runs the published config instead of the smoke config;
     ``n_layers`` cuts its depth only (never a width).  ``cfg`` / ``params``
-    override the config and the seeded random weights.  Random weights are
+    override the config and the seeded random weights.  Besides the
+    counters the result holds ``prefill_ms`` and ``decode_step_ms``: the mean
+    synchronised time of a wave's prefill and of one of its decode steps,
+    host protocol and page walk included.  Random weights are
     stored in the config's working dtype at full width (a 14.8 B-parameter
     model does not fit in float32 beside its KV slabs) and in
     ``cfg.param_dtype`` otherwise."""
@@ -81,6 +84,8 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
     done_tokens = 0
     finite = torch.ones((), dtype=torch.bool, device=device)
     sampled = []                  # per wave: (n_live, [gen_len] of [batch])
+    prefill_s = decode_s = 0.0
+    n_waves = 0
     t0 = time.perf_counter()
     seq_id = 0
     rng = np.random.default_rng(seed)
@@ -99,8 +104,11 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         ).to(device=device, dtype=torch.int32)
         # pod=None: each row walks through its home pod, and the scheduler's
         # pod commits tails through its own replica (cross-pod fetches)
+        t_wave = time.perf_counter()
         phys = kv.physical_tables(active)
         _, st = prefill(cfg, params, prompts, state, phys)
+        _sync(device)
+        t_prefilled = time.perf_counter()
         tokens = torch.zeros((batch,), dtype=torch.int32, device=device)
         steps = []
         for t in range(gen_len):
@@ -112,6 +120,10 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
             tokens = greedy_sample(logits)
             steps.append(tokens)
             done_tokens += len(wave)
+        _sync(device)
+        prefill_s += t_prefilled - t_wave
+        decode_s += time.perf_counter() - t_prefilled
+        n_waves += 1
         sampled.append((len(wave), steps))
         for sid in wave:
             kv.finish_sequence(sid)      # munmap analogue -> invalidations
@@ -133,6 +145,8 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         "table_pages": kv.footprint_pages(),
         # additions of the port: what ran, and what it produced
         "device": str(device), "n_layers": cfg.n_layers,
+        "prefill_ms": 1e3 * prefill_s / max(n_waves, 1),
+        "decode_step_ms": 1e3 * decode_s / max(n_waves * gen_len, 1),
         "logits_finite": bool(finite),
         "token_ids": token_ids,          # [n_requests, gen_len]
     }

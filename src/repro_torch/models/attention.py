@@ -61,51 +61,48 @@ def project_qk_rope_v(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 def attend_causal(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                   q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: Optional[int], causal: bool = True) -> torch.Tensor:
-    """The flash kernel on projected q/k/v [B,S,heads,hd], then ``wo``.  The
-    kernel takes [B,heads,S,hd]: it is handed transposed views (it reads
-    through strides, no copy is made)."""
+                  window: Optional[int]) -> torch.Tensor:
+    """The flash kernel, causal, on projected q/k/v [B,S,heads,hd], then
+    ``wo``.  The kernel takes [B,heads,S,hd]: it is handed transposed views
+    (it reads through strides, no copy is made)."""
     B, S = q.shape[:2]
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=window)
+                          v.transpose(1, 2), causal=True, window=window)
     out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, -1)
     return out @ p["wo"].to(cfg.dtype)
 
 
 def attn_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
                  positions: torch.Tensor, *, window: Optional[int],
-                 rope_theta: float, causal: bool = True) -> torch.Tensor:
+                 rope_theta: float) -> torch.Tensor:
     """Training / prefill self-attention.  x: [B,S,D]; positions: [B,S] and
     must count 0..S-1 along each row (what ``forward_lm`` and ``prefill``
     pass): the kernel masks by index.  window: sliding-window size for local
     layers (None = full)."""
     rope = rope_tables(positions, cfg.resolved_head_dim, rope_theta)
     q, k, v = project_qk_rope_v(cfg, p, x, rope)
-    return attend_causal(cfg, p, q, k, v, window=window, causal=causal)
+    return attend_causal(cfg, p, q, k, v, window=window)
 
 
 def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       x: torch.Tensor, positions: torch.Tensor,
                       kv: Tuple[torch.Tensor, torch.Tensor],
                       phys_blocks: torch.Tensor, seq_lens: torch.Tensor, *,
-                      rope_theta: float, window: Optional[int] = None,
-                      rope: Optional[Rope] = None
+                      rope: Rope, window: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step (one new token per sequence) with paged KV.
 
     x: [B, 1, D]; positions: [B]; kv: (k_slabs, v_slabs) for THIS layer,
     each [n_blocks, bt, K, hd] and UPDATED IN PLACE; phys_blocks:
     [B, max_blocks] physical frame ids from the block-table translation
-    (-1 = absent); seq_lens: [B] length INCLUDING the new token.  ``rope``
-    takes the step's (cos, sin) tables when the caller has made them already:
-    they are the same for every layer of a group.
+    (-1 = absent); seq_lens: [B] length INCLUDING the new token; rope: the
+    step's (cos, sin) tables of ``rope_tables(positions[:, None], ...)``,
+    made once by the caller because every layer of a group shares them.
     Returns (attn_out [B,1,D], the same slabs).
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     bt = kv[0].shape[-3]
-    if rope is None:
-        rope = rope_tables(positions[:, None], hd, rope_theta)
     q, k_new, v_new = project_qk_rope_v(cfg, p, x, rope)
     # write the new token's KV, then attend through the block table
     k_slabs, v_slabs = write_token_plain(kv[0], kv[1], k_new[:, 0], v_new[:, 0],

@@ -192,7 +192,7 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
         a, _ = attn_decode_paged(
             cfg, lp["attn"], h, positions,
             (cache["k_slabs"][li], cache["v_slabs"][li]), phys_blocks,
-            seq_lens, rope_theta=g.rope_theta, window=g.window, rope=rope)
+            seq_lens, rope=rope, window=g.window)
         x = _ffn_block(cfg, lp, x + a)
     return x
 

@@ -122,6 +122,21 @@ def test_torch_serve_warms_up_before_timer(monkeypatch):
     assert ("prefill", False) in events[first_timer:]
 
 
+def test_torch_serve_reports_phase_times_of_its_own_loop(monkeypatch):
+    """``prefill_ms`` / ``decode_step_ms`` are means over the waves of the one
+    serving loop: on a clock that advances 1 s a read, a wave's prefill spans
+    one tick and its decode steps one tick together, whatever gen_len is."""
+    ticks = iter(range(10 ** 6))
+    monkeypatch.setattr(serve_mod.time, "perf_counter",
+                        lambda: float(next(ticks)))
+    r = serve("qwen3_14b", n_requests=3, prompt_len=8, gen_len=4, batch=2,
+              n_pods=1, mode="local", verbose=False, device="cpu")
+    assert r["prefill_ms"] == 1000.0
+    assert r["decode_step_ms"] == 1000.0 / 4
+    # t0, then three reads a wave, then the end: 2 waves -> 7 ticks in all
+    assert r["tok_per_s"] == r["tokens"] / 7.0
+
+
 def test_torch_serve_needs_a_gpu_unless_cpu_is_asked_for():
     """No fallback that hides the device: here (no GPU) the default raises."""
     if torch.cuda.is_available():
