@@ -52,6 +52,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention.ref import NEG_INF  # noqa: E402
 from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
                                                  paged_attention_ref)
 from repro_torch.kernels.pte_gather import pte_gather, pte_gather_ref  # noqa: E402
@@ -181,16 +182,21 @@ def flash_case(B, H, K, S, hd, causal, window, dtype):
     return (q, k, v), {"causal": causal, "window": window}
 
 
+def flash_visible(S, causal, window):
+    """[S, S] bool: may query row i see key j."""
+    i = torch.arange(S, device=DEV)
+    vis = torch.ones((S, S), dtype=torch.bool, device=DEV)
+    if causal:
+        vis &= i[:, None] >= i[None, :]
+    if window is not None:
+        vis &= (i[:, None] - i[None, :]) < window
+    return vis
+
+
 def flash_bound(args, kw):
     q, k, v = args
     B, H, S, hd = q.shape
-    i = np.arange(S)
-    vis = np.ones((S, S), bool)
-    if kw["causal"]:
-        vis &= i[:, None] >= i[None, :]
-    if kw["window"] is not None:
-        vis &= (i[:, None] - i[None, :]) < kw["window"]
-    flops = 4 * B * H * hd * int(vis.sum())
+    flops = 4 * B * H * hd * int(flash_visible(S, **kw).sum())
     nbytes = (q.numel() + k.numel() + v.numel()) * q.element_size() + q.numel() * 4
     return nbytes / HBM_BPS, flops / PEAK_FLOPS[q.dtype]
 
@@ -199,9 +205,25 @@ def flash_library(args, kw):
     """Yardstick only (the port never calls it): one SDPA call."""
     q, k, v = args
     G = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    if kw["window"] is None:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=kw["causal"])
     return F.scaled_dot_product_attention(
-        q, k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1),
-        is_causal=True)
+        q, k, v, attn_mask=flash_visible(q.shape[2], **kw))
+
+
+def flash_p_bf16(q, k, v, *, causal, window):
+    """Negative control, not part of the port: the plain version with the
+    softmax probabilities rounded to bf16 before P V, as a kernel that keeps
+    P in one bf16 operand would compute.  The kernel splits P into two bf16
+    halves instead; this shows that its tolerance can see the difference."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    s = torch.einsum("bkgqd,bktd->bkgqt", q.reshape(B, -1, G, S, hd).float(),
+                     k.float()) * hd ** -0.5
+    s = s.masked_fill(~flash_visible(S, causal, window), NEG_INF)
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    return torch.einsum("bkgqt,bktd->bkgqd", p, v.float()).reshape(B, H, S, hd)
 
 
 # ---------------------------------------------------------------- pte gather
@@ -307,7 +329,7 @@ def phase_kernels():
             errs[key] = max(errs.get(key, 0.0), err)
         args, kw = main[name]
         t_bytes, t_ops = bound(args, kw)
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": 0,
@@ -320,7 +342,14 @@ def phase_kernels():
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lambda: library(args, kw)),
             "timed_shape": [list(a.shape) for a in args if torch.is_tensor(a)],
-        })
+        }
+        if name == "flash_attention":
+            row["naive_p_bf16_err"] = max_err(flash_p_bf16(*args, **kw),
+                                              ref(*args, **kw))
+            check(row["naive_p_bf16_err"] > TOL[name],
+                  f"rounding P to bf16 misses by {row['naive_p_bf16_err']}, "
+                  f"within {TOL[name]}: the bound cannot see it")
+        rows.append(row)
     return rows
 
 

@@ -38,7 +38,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256()
-    for path in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

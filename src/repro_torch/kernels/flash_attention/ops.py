@@ -3,6 +3,7 @@
 A CUDA tensor launches the hand-written kernel
 (``csrc/flash_attention.cu``) or raises; only a CPU tensor takes the plain
 PyTorch version.  ``flash_attention.launches`` counts kernel launches.
+bfloat16 inputs run on the tensor cores, float32 inputs on the CUDA cores.
 
 The kernel reads q, k and v through their (batch, head, row) strides, so the
 ``[B,S,H,hd]`` projections of the model can be handed over as transposed
@@ -52,6 +53,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                and t.data_ptr() % 16 == 0 for t in (q, k, v)):
         raise ValueError("flash_attention: operands must have a contiguous "
                          "head_dim, be 16-byte aligned and on one CUDA device")
+    if q.dtype == torch.bfloat16 and (hd % 16 or any(
+            t.stride(d) % 8 for t in (q, k, v) for d in (0, 1, 2))):
+        raise ValueError("flash_attention: bfloat16 runs on the tensor cores "
+                         "and needs head_dim % 16 == 0 and 16-byte aligned "
+                         "batch, head and row strides")
     out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0:            # no row: no launch, no count
         return out

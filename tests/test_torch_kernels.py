@@ -157,3 +157,21 @@ def test_torch_kernel_sources_exist_and_name_their_tpu_kernel(name):
     assert f"src/repro/kernels/{name}/kernel.py" in src
     assert f'extern "C" int {name}_launch' in src
     assert name in _build.KERNELS
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "mma.cuh", "added.cuh"])
+@pytest.mark.parametrize("name", ["paged_attention", "flash_attention", "pte_gather"])
+def test_torch_build_target_follows_every_header(name, header, tmp_path, monkeypatch):
+    """A library is named by the hash of its source and of every header in
+    ``csrc/``, so editing or adding any header rebuilds every kernel."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    original = _build._target(name)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert _build._target(name) == original          # content, not path
+    path = csrc / header
+    path.write_text((path.read_text() if path.exists() else "") + "\n// edited\n")
+    assert _build._target(name) != original
