@@ -55,6 +55,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import NEG_INF  # noqa: E402
 from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
                                                  paged_attention_ref)
+from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.pte_gather import pte_gather, pte_gather_ref  # noqa: E402
 from repro_torch.kvcache import PagedKVManager  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
@@ -87,27 +88,29 @@ def check(cond: bool, what: str) -> None:
 
 # --------------------------------------------------------------------- timing
 _FLUSH = None
+SLEEP_CYCLES = 4_000_000    # about 2 ms of device time at the H100's clocks
 
 
 def time_ms(fn, iters: int = 10) -> float:
     """Median device time of one call, the 50 MB L2 flushed before each (in
-    the serving path a layer's weights stream through between two calls)."""
+    the serving path a layer's weights stream through between two calls).
+    Each flush, event pair and call is queued behind a device-side sleep, so
+    the device never waits for the host to enqueue the call it times."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        torch.cuda._sleep(SLEEP_CYCLES)
         _FLUSH.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in events]))
 
 
 # --------------------------------------------------------------------- inputs
@@ -166,10 +169,32 @@ def paged_library(args, kw):
     v = vs[frames].reshape(B, -1, K, hd).transpose(1, 2)
     pos = torch.arange(k.shape[2], device=DEV)[None, :]
     mask = (pos < lens[:, None]) & (tables >= 0).repeat_interleave(bt, dim=1)
+    if kw["window"] is not None:
+        mask &= pos >= lens[:, None] - kw["window"]
     k = k.repeat_interleave(H // K, dim=1)
     v = v.repeat_interleave(H // K, dim=1)
     return F.scaled_dot_product_attention(q[:, :, None], k, v,
                                           attn_mask=mask[:, None, None, :])
+
+
+def paged_p_bf16(q, ks, vs, tables, lens, *, window):
+    """Negative control, not part of the port: the plain version with the
+    softmax probabilities rounded to bf16 before P V, as a kernel that keeps
+    P in one bf16 operand would compute.  The kernel splits P into two bf16
+    halves instead; this shows that its tolerance can see the difference."""
+    B, H, hd = q.shape
+    _, bt, K, _ = ks.shape
+    frames = tables.long().clamp_min(0)
+    k = ks[frames].reshape(B, -1, K, hd).float()
+    v = vs[frames].reshape(B, -1, K, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, K, -1, hd).float(), k) * hd ** -0.5
+    pos = torch.arange(k.shape[1], device=DEV)[None, :]
+    live = (pos < lens[:, None]) & (tables >= 0).repeat_interleave(bt, dim=1)
+    if window is not None:
+        live &= pos >= lens[:, None] - window
+    s = s.masked_fill(~live[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16).float() * live[:, None, None, :]
+    return torch.einsum("bkgt,btkd->bkgd", p, v).reshape(B, H, hd)
 
 
 # ----------------------------------------------------------- flash attention
@@ -276,7 +301,8 @@ def phase_kernels():
         (2, 8, 2, 64, 16, 8, 32, None), (3, 4, 4, 128, 16, 4, 16, None),
         (2, 16, 2, 64, 8, 16, 48, 24), (1, 4, 1, 32, 4, 4, 8, None),
         (2, 4, 2, 16, 16, 4, 8, None),          # the smoke config's head_dim
-        (2, 32, 2, 64, 16, 8, 32, None)]]       # 16 query heads a kv head
+        (2, 32, 2, 64, 16, 8, 32, None),        # 16 query heads a kv head
+        (2, 8, 2, 256, 16, 8, 32, None)]]       # head_dim 256: the largest kernel
     paged += [paged_case(4, 8, 2, 64, 16, 8, 32, None, dt, dead_row=True)
               for dt in both]
     flash = [flash_case(*row, dt) for dt in both for row in [
@@ -294,10 +320,23 @@ def phase_kernels():
     paged += [paged_case(*full_paged, dt, lens=np.full(16, 1057), dead_row=dead)
               for dt in both for dead in (False, True)]
     paged += [paged_case(*full_paged, dt) for dt in both]    # ragged lengths
+    # more query heads a kv head than one block's 16: two head groups
+    paged += [paged_case(2, 40, 2, 64, 16, 8, 32, None, dt) for dt in both]
+    # one sequence at the model's native context (32 768 tokens, Qwen3-14B
+    # widths), with and without a 4 096-token window, and ragged lengths far
+    # below MB * bt in the same table width, so most splits are empty
+    long_paged = (1, 40, 8, 128, 16, 2048, 2048)
+    paged += [paged_case(*long_paged, win, dt, lens=[32768])
+              for dt in both for win in (None, 4096)]
+    paged += [paged_case(4, 40, 8, 128, 16, 2048, 2048, None, dt,
+                         lens=[1, 17, 700, 5000], dead_row=dead)
+              for dt in both for dead in (False, True)]
     flash += [flash_case(16, 40, 8, 1024, 128, True, None, f32)]
     main = {
         "paged_attention": paged_case(16, 40, 8, 128, 16, 69, 4416, None, bf16,
                                       lens=np.full(16, 1057)),
+        "paged_attention/long_context": paged_case(*long_paged, None, bf16,
+                                                   lens=[32768]),
         "flash_attention": flash_case(16, 40, 8, 1024, 128, True, None, bf16),
         "pte_gather": pte_case(64, 512, 16 * 69, 3, logical=np.where(
             np.arange(16 * 69) % 69 < 67,
@@ -327,30 +366,41 @@ def phase_kernels():
                   f"{name} {tuple(args[0].shape)} {dt}: |err| {err} > {TOL[name]}")
             key = str(dt).replace("torch.", "")
             errs[key] = max(errs.get(key, 0.0), err)
-        args, kw = main[name]
-        t_bytes, t_ops = bound(args, kw)
-        row = {
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": replaces, "launches": 0,
-            "max_abs_err": max_err(fn(*args, **kw), ref(*args, **kw)),
-            "max_abs_err_by_dtype": errs, "tolerance": TOL[name],
-            "cases": len(cases),
-            "ms": time_ms(lambda: fn(*args, **kw)),
-            "plain_ms": time_ms(lambda: ref(*args, **kw)),
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": time_ms(lambda: library(args, kw)),
-            "timed_shape": [list(a.shape) for a in args if torch.is_tensor(a)],
-        }
-        if name == "flash_attention":
-            row["naive_p_bf16_err"] = max_err(flash_p_bf16(*args, **kw),
-                                              ref(*args, **kw))
+        if name == "paged_attention":     # the combine's counters reset
+            check(all(int(c.abs().sum()) == 0
+                      for c, _ in paged_ops._SCRATCH.values()),
+                  "paged_attention left a combine counter nonzero")
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{source}",
+               "replaces": replaces, "launches": 0,
+               **timed(fn, ref, bound, library, *main[name]),
+               "max_abs_err_by_dtype": errs, "tolerance": TOL[name],
+               "cases": len(cases)}
+        if name == "paged_attention":
+            row["long_context"] = timed(fn, ref, bound, library,
+                                        *main["paged_attention/long_context"])
+        naive = {"flash_attention": flash_p_bf16,
+                 "paged_attention": paged_p_bf16}.get(name)
+        if naive is not None:
+            args, kw = main[name]
+            row["naive_p_bf16_err"] = max_err(naive(*args, **kw), ref(*args, **kw))
             check(row["naive_p_bf16_err"] > TOL[name],
                   f"rounding P to bf16 misses by {row['naive_p_bf16_err']}, "
                   f"within {TOL[name]}: the bound cannot see it")
         rows.append(row)
     return rows
+
+
+def timed(fn, ref, bound, library, args, kw):
+    """Error, times and bound of one kernel at one shape."""
+    t_bytes, t_ops = bound(args, kw)
+    return {"max_abs_err": max_err(fn(*args, **kw), ref(*args, **kw)),
+            "ms": time_ms(lambda: fn(*args, **kw)),
+            "plain_ms": time_ms(lambda: ref(*args, **kw)),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(lambda: library(args, kw)),
+            "timed_shape": [list(a.shape) for a in args if torch.is_tensor(a)]}
 
 
 # ------------------------------------------------------------------- serving

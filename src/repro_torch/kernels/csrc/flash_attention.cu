@@ -269,16 +269,6 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
     }
 }
 
-// hi = bf16(p), lo = bf16(p - hi) for two neighbouring p, packed as A
-// fragment registers.
-__device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi,
-                                        uint32_t& lo) {
-    const __nv_bfloat16 h0 = __float2bfloat16(p0), h1 = __float2bfloat16(p1);
-    hi = pack_bf16x2(h0, h1);
-    lo = pack_bf16x2(__float2bfloat16(p0 - __bfloat162float(h0)),
-                     __float2bfloat16(p1 - __bfloat162float(h1)));
-}
-
 // HDP: head_dim rounded up to a power of two >= 16 (columns past hd are 0).
 template <int HDP>
 __global__ void __launch_bounds__(TC_NT)

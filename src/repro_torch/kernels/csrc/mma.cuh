@@ -69,3 +69,14 @@ __device__ __forceinline__ uint32_t pack_bf16x2(__nv_bfloat16 x, __nv_bfloat16 y
     return static_cast<uint32_t>(__bfloat16_as_ushort(x)) |
            (static_cast<uint32_t>(__bfloat16_as_ushort(y)) << 16);
 }
+
+// hi = bf16(p), lo = bf16(p - hi) for two neighbouring p, packed as A
+// fragment registers: a product with hi and one with lo into the same f32
+// accumulator keep P V within ~1e-5 of the f32 product.
+__device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi,
+                                        uint32_t& lo) {
+    const __nv_bfloat16 h0 = __float2bfloat16(p0), h1 = __float2bfloat16(p1);
+    hi = pack_bf16x2(h0, h1);
+    lo = pack_bf16x2(__float2bfloat16(p0 - __bfloat162float(h0)),
+                     __float2bfloat16(p1 - __bfloat162float(h1)));
+}

@@ -4,222 +4,678 @@
 // src/repro/kernels/paged_attention/kernel.py: one query token per sequence
 // attends over its paged KV cache by walking the sequence's block table.
 //
-// What bounds it on this card: the live KV bytes over HBM bandwidth (each
-// live K and V row is read once; the arithmetic is ~2 FLOP per byte).  The
-// design therefore is about bytes in flight, not tensor cores:
-//   * one block per (sequence, kv head); its 8 warps take the block-table
-//     columns round-robin, so 8 frames per block are streaming at any time
-//     (the in-block form of split-KV) and are merged once at the end;
-//   * the block reads the frame id itself and computes the K/V pointers
-//     from it — the block table is the page table, no gathered copy of the
-//     cache is ever made (on the TPU the same id rode scalar prefetch);
-//   * the G query heads that share a kv head reuse every K/V row from
-//     registers, so the row is read from memory once per group;
-//   * a lane owns EPL consecutive head_dim elements: one row is one
-//     coalesced, vectorised warp load;
-//   * masked slots (beyond seq_len, before the window, absent frames) are
-//     skipped, never multiplied: stale slab contents cannot reach the sum.
-// The TPU's sequential grid axis with m/l/acc in VMEM scratch is the loop
-// over columns here, with the online-softmax state in registers.
+// What bounds it on this card: bytes.  Each live K and V row is read once and
+// the arithmetic is about 2 FLOP per byte, so the least time is the live KV
+// bytes over HBM bandwidth, reached only with enough copies in flight (at
+// 3.35 TB/s and about a microsecond of latency, some 25 KB per SM).  What the
+// design does about it:
+//   * split-KV across blocks.  The grid is (B * K * n_gc, n_splits): a
+//     block takes one contiguous range of `cps` block-table columns of one
+//     (sequence, kv head, group of up to 16 query heads).  The wrapper picks
+//     n_splits from shapes alone, never from seq_lens: as many as fit the
+//     blocks into one wave, every SM holding as many blocks as it can (two
+//     at head_dim 128 in bf16), at batch 16 and at batch 1.  Each split past
+//     the first costs a partial write, an atomic and a merge, so a plan of
+//     fewer splits can be faster where B * K already nears the SM count.
+//     With a window the ranges start at the window's first column,
+//     so they cover the window's span and not the whole table.  A range
+//     wholly past seq_len, or a row whose frames are all absent, loads
+//     nothing and gives an empty partial (m = NEG_INF, l = 0, acc = 0);
+//   * a cp.async ring per warp.  The block's 4 warps take its 16-slot tiles
+//     in turn; each warp keeps a ring of STAGES tiles in shared memory, K and
+//     V of a tile in one commit group of 16-byte copies, so STAGES - 1 tiles
+//     are in flight while the oldest one computes;
+//   * the block table is the page table.  A block stages the frame ids of
+//     its columns from the block table in shared memory (without a window
+//     they load at the same time as seq_len) and each warp computes its
+//     rows' addresses from them; no gathered copy of the cache exists.  A
+//     slot past seq_len, before the window or in an absent frame (-1) is
+//     copied with src_bytes = 0 (zeros, nothing is read) and masked out of
+//     the softmax;
+//   * bf16 inputs run both products on the tensor cores (mma.sync m16n8k16,
+//     ldmatrix fragments).  The G query heads of the kv head are the 16 rows
+//     of M (zero rows past G), the 16 slots of a tile are N for Q K^T and the
+//     reduction of P V.  P is split into bf16 hi + lo halves, as in
+//     flash_attention.cu, so P V stays within ~1e-5 of the f32 product.
+//     float32 inputs keep full f32 products: FMAs out of the staged tiles,
+//     in the same split and ring structure;
+//   * the combine costs no launch.  The 4 warps' softmax states (m, l, acc)
+//     merge in shared memory.  With one split the block writes the output;
+//     otherwise it writes its partial to a float32 scratch, and the last
+//     block of each (sequence, kv head, group), found with a counter that it
+//     resets to 0, merges the partials by the reference's rule: max,
+//     rescale, sum, denominator floored at 1e-30.  A row with no live slot
+//     comes out as 0.
+// Scores are kept in log2 units (scale * log2(e) folded in), so every
+// exponential is one exp2f.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int NW = 8;  // warps per block
-constexpr int TC = 4;  // tokens per online-softmax update
+constexpr int NW = 4;       // warps a block
+constexpr int NT = 32 * NW;
+constexpr int TK = 16;      // token slots a tile
+constexpr int GM = 16;      // query heads a block (the M of one mma)
+constexpr int MAX_COLS = 512;  // block-table columns a split (staged in smem)
+constexpr int MAX_SPLITS = 256;
+constexpr int COLS_PER_THREAD = MAX_COLS / NT;
+static_assert(MAX_COLS % NT == 0, "every thread stages whole columns");
+constexpr unsigned FULL = 0xffffffffu;
 
-template <typename T, int EPL, int GT>
-__global__ void __launch_bounds__(NW * 32)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_slabs,
-                       const T* __restrict__ v_slabs,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ lens, float* __restrict__ out,
-                       int H, int K, int hd, int bt, int MB, int window,
-                       float scale) {
-    const int b = blockIdx.x;
-    const int kh = blockIdx.y;
-    const int G = H / K;
-    const int g0 = blockIdx.z * GT;  // first query head of the group in this pass
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int d0 = lane * EPL;
-    const bool lane_on = d0 < hd;
-    const int seq_len = lens[b];
-    const int lo = window >= 0 ? max(seq_len - window, 0) : 0;
-    const int64_t row_stride = (int64_t)K * hd;       // one token
-    const int64_t frame_stride = (int64_t)bt * row_stride;
+struct Params {
+    const void* q;
+    const void* k;
+    const void* v;
+    const int* tables;
+    const int* lens;
+    float* out;
+    float* part;        // B*H*n_splits rows: acc [hd] each, then m, then l
+    int* counters;      // [B, K * n_gc], 0 between launches
+    int B, H, K, G, hd, bt, MB, window, n_gc, n_splits, cps;
+    float scale_log2;
+};
 
-    float qr[GT][EPL];
-    float m[GT], l[GT], acc[GT][EPL];
+constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+template <typename T, int HDP>
+struct Layout {
+    static constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
+    static constexpr int EPC = 16 / (int)sizeof(T);   // elements a 16-byte chunk
+    static constexpr int LD = HDP + EPC;              // row + 16 bytes: ldmatrix
+                                                      // rows on distinct banks
+    static constexpr int CH = HDP / EPC;              // chunks a row
+    static constexpr int STAGE = 2 * TK * LD;         // K tile, then V tile
+    static constexpr int STAGE_BYTES = STAGE * (int)sizeof(T);
+    static constexpr int STAGES = NW * 4 * STAGE_BYTES <= 110 * 1024   ? 4
+                                  : NW * 3 * STAGE_BYTES <= 110 * 1024 ? 3
+                                  : NW * 2 * STAGE_BYTES <= 200 * 1024 ? 2
+                                                                       : 1;
+    static constexpr int Q_BYTES = round16(GM * LD * (int)sizeof(T));
+    static constexpr int P_BYTES = TC ? 0 : NW * GM * TK * 4;
+    static constexpr int MASK_BYTES = round16(NW * STAGES * 4);
+    static constexpr int HEAD = Q_BYTES + P_BYTES + MASK_BYTES;
+    static constexpr int RING_BYTES = NW * STAGES * STAGE_BYTES;
+    static constexpr int MERGE_BYTES = NW * GM * (HDP + 2) * 4;
+    static_assert(TK * CH % 32 == 0, "a warp copies whole rows of a tile");
+};
+
+template <typename T, int HDP>
+size_t smem_bytes(int n_splits) {
+    using L = Layout<T, HDP>;
+    const int combine = GM * (n_splits + 1) * 4;
+    int big = L::RING_BYTES > L::MERGE_BYTES ? L::RING_BYTES : L::MERGE_BYTES;
+    big = big > combine ? big : combine;
+    return (size_t)L::HEAD + big;
+}
+
+// Start the copies of one tile: token slots pos0 .. pos0 + 15 of the K and V
+// of kv head `head_off / hd`, each slot's frame looked up in `frames`, the
+// block table's columns from c_begin on.  Returns the tile's mask of live
+// slots (bit r: slot pos0 + r); a tile with no live slot copies nothing.
+template <typename T, int HDP>
+__device__ __forceinline__ uint32_t fetch_tile(T* sk, T* sv, const T* __restrict__ kb,
+                                               const T* __restrict__ vb,
+                                               const int* frames, int c_begin,
+                                               int pos0, int p1, int bt,
+                                               int64_t slot_stride, int64_t head_off,
+                                               int hd, int lane) {
+    using L = Layout<T, HDP>;
+    const int pos = pos0 + (lane & 15);   // lanes r and r + 16 look up slot r
+    const int frame = pos < p1 ? frames[pos / bt - c_begin] : -1;
+    const uint32_t mask = __ballot_sync(FULL, frame >= 0) & 0xffffu;
+    if (mask == 0) return 0;
+    const int64_t row_off =
+        frame >= 0 ? ((int64_t)frame * bt + pos % bt) * slot_stride + head_off : -1;
 #pragma unroll
-    for (int g = 0; g < GT; ++g) {
-        m[g] = NEG_INF;
-        l[g] = 0.f;
+    for (int i = 0; i < TK * L::CH / 32; ++i) {
+        const int idx = lane + 32 * i;
+        const int r = idx / L::CH, c = idx % L::CH;
+        const int64_t off = __shfl_sync(FULL, row_off, r);
+        const bool live = off >= 0 && c * L::EPC < hd;
+        const int64_t src = live ? off + c * L::EPC : 0;
+        cp_async_16(sk + r * L::LD + c * L::EPC, kb + src, live ? 16 : 0);
+        cp_async_16(sv + r * L::LD + c * L::EPC, vb + src, live ? 16 : 0);
+    }
+    return mask;
+}
+
+// The per-warp softmax state.  bf16: this lane's rows g and g + 8 of the C
+// fragments (l is the lane's part of the row sum).  f32: every head of the
+// group, m the same on every lane, l and acc this lane's part.
+template <typename T, int HDP, bool TC = Layout<T, HDP>::TC>
+struct State;
+
+template <typename T, int HDP>
+struct State<T, HDP, true> {
+    static constexpr int KSTEPS = HDP / 16, DBLK = HDP / 8;
+    static constexpr bool Q_IN_REGS = HDP <= 128;   // at 256 registers run out
+    uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
+    float m[2], l[2], acc[DBLK][4];
+};
+
+template <typename T, int HDP>
+struct State<T, HDP, false> {
+    static constexpr int LPC = HDP / 4 < 32 ? HDP / 4 : 32;   // lanes a V row
+    static constexpr int KG = 32 / LPC;                       // slot groups
+    static constexpr int J = HDP > 128 ? HDP / 128 : 1;       // float4s a lane
+    float m[GM], l[GM];
+    float4 acc[GM][J];
+};
+
+// One tile on the tensor cores (bf16).
+template <int HDP>
+__device__ __forceinline__ void tile_tc(State<__nv_bfloat16, HDP>& st,
+                                        const __nv_bfloat16* sq,
+                                        const __nv_bfloat16* sk, uint32_t mask,
+                                        float scale_log2, int lane) {
+    using L = Layout<__nv_bfloat16, HDP>;
+    using S = State<__nv_bfloat16, HDP>;
+    constexpr int LD = L::LD;
+    const int t = lane & 3;
+    const __nv_bfloat16* sv = sk + TK * LD;
+
+    // s = Q K^T: 16 heads x 16 slots as two C fragments of 8 slots
+    float s[2][4];
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) { acc[g][e] = 0.f; qr[g][e] = 0.f; }
-        if (lane_on && g0 + g < G)
-            load_row<T, EPL>(q + ((int64_t)b * H + kh * G + g0 + g) * hd + d0, qr[g]);
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+    const __nv_bfloat16* sk_lane =
+        sk + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+    const __nv_bfloat16* sq_lane = sq + (lane & 15) * LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < S::KSTEPS; ++kk) {
+        uint32_t a[4];
+        if constexpr (S::Q_IN_REGS) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) a[c] = st.qf[kk][c];
+        } else {
+            ldmatrix_x4(a, sq_lane + 16 * kk);
+        }
+        uint32_t kf[4];
+        ldmatrix_x4(kf, sk_lane + 16 * kk);
+        mma_bf16_16816(s[0], a, kf[0], kf[1]);
+        mma_bf16_16816(s[1], a, kf[2], kf[3]);
     }
 
-    const int n_cols = min(MB, (seq_len + bt - 1) / bt);
-    for (int col = lo / bt + warp; col < n_cols; col += NW) {
-        const int frame = tables[(int64_t)b * MB + col];
-        if (frame < 0) continue;
-        const T* kf = k_slabs + frame * frame_stride + (int64_t)kh * hd + d0;
-        const T* vf = v_slabs + frame * frame_stride + (int64_t)kh * hd + d0;
-        for (int t0 = 0; t0 < bt; t0 += TC) {
-            bool ok[TC];
-            bool any = false;
+    // online softmax; a head's 16 scores lie on the 4 lanes of a quad
 #pragma unroll
-            for (int c = 0; c < TC; ++c) {
-                const int pos = col * bt + t0 + c;
-                ok[c] = (t0 + c < bt) && pos >= lo && pos < seq_len;
-                any |= ok[c];
+    for (int r = 0; r < 2; ++r) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                float& x = s[j][2 * r + c];
+                const bool ok = (mask >> (8 * j + 2 * t + c)) & 1u;
+                x = ok ? x * scale_log2 : NEG_INF;
+                mx = fmaxf(mx, x);
             }
-            if (!any) continue;
-
-            float s[GT][TC];
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        const float m_new = fmaxf(st.m[r], mx);
+        const float alpha = exp2f(st.m[r] - m_new);
+        float sum = 0.f;
 #pragma unroll
-            for (int c = 0; c < TC; ++c) {
-                if (ok[c]) {            // uniform across the warp
-                    float kr[EPL];
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-                    for (int e = 0; e < EPL; ++e) kr[e] = 0.f;
-                    if (lane_on) load_row<T, EPL>(kf + (t0 + c) * row_stride, kr);
-#pragma unroll
-                    for (int g = 0; g < GT; ++g) {
-                        float part = 0.f;
-#pragma unroll
-                        for (int e = 0; e < EPL; ++e) part += qr[g][e] * kr[e];
-#pragma unroll
-                        for (int off = 16; off > 0; off >>= 1)
-                            part += __shfl_xor_sync(0xffffffffu, part, off);
-                        s[g][c] = part * scale;
-                    }
-                } else {
-#pragma unroll
-                    for (int g = 0; g < GT; ++g) s[g][c] = NEG_INF;
-                }
+            for (int c = 0; c < 2; ++c) {
+                float& x = s[j][2 * r + c];
+                const bool ok = (mask >> (8 * j + 2 * t + c)) & 1u;
+                x = ok ? exp2f(x - m_new) : 0.f;
+                sum += x;
             }
+        st.l[r] = st.l[r] * alpha + sum;
+        st.m[r] = m_new;
 #pragma unroll
-            for (int g = 0; g < GT; ++g) {
-                float m_new = m[g];
-#pragma unroll
-                for (int c = 0; c < TC; ++c) m_new = fmaxf(m_new, s[g][c]);
-                const float alpha = expf(m[g] - m_new);
-                float sum = 0.f;
-#pragma unroll
-                for (int c = 0; c < TC; ++c) {
-                    s[g][c] = ok[c] ? expf(s[g][c] - m_new) : 0.f;
-                    sum += s[g][c];
-                }
-                l[g] = l[g] * alpha + sum;
-                m[g] = m_new;
-#pragma unroll
-                for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
-            }
-#pragma unroll
-            for (int c = 0; c < TC; ++c) {
-                if (ok[c] && lane_on) {
-                    float vr[EPL];
-                    load_row<T, EPL>(vf + (t0 + c) * row_stride, vr);
-#pragma unroll
-                    for (int g = 0; g < GT; ++g)
-#pragma unroll
-                        for (int e = 0; e < EPL; ++e) acc[g][e] += s[g][c] * vr[e];
-                }
-            }
+        for (int j = 0; j < S::DBLK; ++j) {
+            st.acc[j][2 * r] *= alpha;
+            st.acc[j][2 * r + 1] *= alpha;
         }
     }
 
-    // merge the warps' partial softmax states, one query head at a time
-    __shared__ float sm_acc[NW][256];
-    __shared__ float sm_m[NW];
-    __shared__ float sm_l[NW];
+    // acc += P V with P = hi + lo: the two score fragments are the A
+    // fragment of the tile's 16 slots
+    uint32_t hi[4], lo[4];
+    split_p(s[0][0], s[0][1], hi[0], lo[0]);
+    split_p(s[0][2], s[0][3], hi[1], lo[1]);
+    split_p(s[1][0], s[1][1], hi[2], lo[2]);
+    split_p(s[1][2], s[1][3], hi[3], lo[3]);
+    const __nv_bfloat16* sv_lane = sv + (lane & 15) * LD + (lane >> 4) * 8;
 #pragma unroll
-    for (int g = 0; g < GT; ++g) {
-        const bool head_on = g0 + g < G;   // uniform across the block
-        __syncthreads();
-        if (head_on) {
-            if (lane_on) {
+    for (int dd = 0; dd < S::DBLK / 2; ++dd) {   // columns 16 dd .. 16 dd + 15
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, sv_lane + 16 * dd);
+        mma_bf16_16816(st.acc[2 * dd], hi, vf[0], vf[1]);
+        mma_bf16_16816(st.acc[2 * dd], lo, vf[0], vf[1]);
+        mma_bf16_16816(st.acc[2 * dd + 1], hi, vf[2], vf[3]);
+        mma_bf16_16816(st.acc[2 * dd + 1], lo, vf[2], vf[3]);
+    }
+}
+
+// One tile in float32 FMAs.  Q K^T: lane (slot = lane % 16, half = lane / 16)
+// sums its half of head_dim.  P V: lane (cg = lane % LPC, kg = lane / LPC)
+// owns columns 4 cg + 128 j over the slots kg, kg + KG, ...
+template <int HDP>
+__device__ __forceinline__ void tile_f32(State<float, HDP>& st, const float* sq,
+                                         const float* sk, float* sp, uint32_t mask,
+                                         int Gc, float scale_log2, int lane) {
+    using L = Layout<float, HDP>;
+    using S = State<float, HDP>;
+    constexpr int LD = L::LD, HALF = HDP / 2;
+    const float* sv = sk + TK * LD;
+    const int slot = lane & 15, half = lane >> 4;
+    const bool ok = (mask >> slot) & 1u;
+
+    float s[GM];
 #pragma unroll
-                for (int e = 0; e < EPL; ++e) sm_acc[warp][d0 + e] = acc[g][e];
+    for (int g = 0; g < GM; ++g) s[g] = 0.f;
+    const float* kr = sk + slot * LD + half * HALF;
+    const float* qr = sq + half * HALF;
+#pragma unroll 4
+    for (int d = 0; d < HALF; d += 4) {
+        const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+            if (g < Gc) {
+                const float4 q4 = *reinterpret_cast<const float4*>(qr + g * LD + d);
+                s[g] = fmaf(q4.x, k4.x, s[g]);
+                s[g] = fmaf(q4.y, k4.y, s[g]);
+                s[g] = fmaf(q4.z, k4.z, s[g]);
+                s[g] = fmaf(q4.w, k4.w, s[g]);
             }
-            if (lane == 0) { sm_m[warp] = m[g]; sm_l[warp] = l[g]; }
         }
-        __syncthreads();
-        const int d = threadIdx.x;
-        if (head_on && d < hd) {
-            float mx = NEG_INF;
-            for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w]);
-            float den = 0.f, num = 0.f;
-            for (int w = 0; w < NW; ++w) {
-                const float f = expf(sm_m[w] - mx);
-                den += sm_l[w] * f;
-                num += sm_acc[w][d] * f;
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+        if (g < Gc) {
+            float x = s[g] + __shfl_xor_sync(FULL, s[g], 16);
+            x = ok ? x * scale_log2 : NEG_INF;
+            float mx = x;
+#pragma unroll
+            for (int off = 1; off < 16; off <<= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+            const float m_new = fmaxf(st.m[g], mx);
+            const float alpha = exp2f(st.m[g] - m_new);
+            const float p = ok ? exp2f(x - m_new) : 0.f;
+            st.l[g] = st.l[g] * alpha + (half == 0 ? p : 0.f);
+            st.m[g] = m_new;
+#pragma unroll
+            for (int j = 0; j < S::J; ++j) {
+                st.acc[g][j].x *= alpha;
+                st.acc[g][j].y *= alpha;
+                st.acc[g][j].z *= alpha;
+                st.acc[g][j].w *= alpha;
             }
-            out[((int64_t)b * H + kh * G + g0 + g) * hd + d] = num / fmaxf(den, 1e-30f);
+            if (half == 0) sp[g * TK + slot] = p;
+        }
+    }
+    __syncwarp();
+    const int cg = lane % S::LPC, kg = lane / S::LPC;
+#pragma unroll
+    for (int r = kg; r < TK; r += S::KG) {
+        float4 v4[S::J];
+#pragma unroll
+        for (int j = 0; j < S::J; ++j)
+            v4[j] = *reinterpret_cast<const float4*>(sv + r * LD + 4 * cg + 128 * j);
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+            if (g < Gc) {
+                const float p = sp[g * TK + r];
+#pragma unroll
+                for (int j = 0; j < S::J; ++j) {
+                    st.acc[g][j].x = fmaf(p, v4[j].x, st.acc[g][j].x);
+                    st.acc[g][j].y = fmaf(p, v4[j].y, st.acc[g][j].y);
+                    st.acc[g][j].z = fmaf(p, v4[j].z, st.acc[g][j].z);
+                    st.acc[g][j].w = fmaf(p, v4[j].w, st.acc[g][j].w);
+                }
+            }
         }
     }
 }
 
-template <typename T, int EPL>
-cudaError_t launch_gt(const void* q, const void* k, const void* v,
-                      const int* tables, const int* lens, float* out, int B,
-                      int H, int K, int hd, int bt, int MB, int window,
-                      cudaStream_t stream) {
-    const int G = H / K;
-    const int gt = G >= 8 ? 8 : (G > 2 ? (G > 4 ? 8 : 4) : G);
-    const dim3 grid(B, K, (G + gt - 1) / gt);
-    const float scale = 1.0f / sqrtf((float)hd);
-#define PA_LAUNCH(GT)                                                          \
-    paged_attention_kernel<T, EPL, GT><<<grid, NW * 32, 0, stream>>>(          \
-        (const T*)q, (const T*)k, (const T*)v, tables, lens, out, H, K, hd,    \
-        bt, MB, window, scale)
-    switch (gt) {
-        case 1: PA_LAUNCH(1); break;
-        case 2: PA_LAUNCH(2); break;
-        case 4: PA_LAUNCH(4); break;
-        default: PA_LAUNCH(8); break;
+template <typename T, int HDP>
+__global__ void __launch_bounds__(NT)
+paged_attention_kernel(const Params p) {
+    using L = Layout<T, HDP>;
+    using S = State<T, HDP>;
+    constexpr int LD = L::LD, STAGES = L::STAGES;
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* sq = reinterpret_cast<T*>(smem);                              // [GM][LD]
+    float* sp_all = reinterpret_cast<float*>(smem + L::Q_BYTES);     // f32: [NW][GM][TK]
+    uint32_t* smask = reinterpret_cast<uint32_t*>(smem + L::Q_BYTES + L::P_BYTES);
+    unsigned char* big = smem + L::HEAD;   // the rings, later the merge buffers
+    __shared__ int s_frames[MAX_COLS];   // the block table's columns [c_begin, c_end)
+    __shared__ int s_last;
+
+    const int n_kg = p.K * p.n_gc;
+    const int b = blockIdx.x / n_kg;
+    const int kh = blockIdx.x % n_kg / p.n_gc;
+    const int g0 = blockIdx.x % p.n_gc * GM;
+    const int Gc = min(GM, p.G - g0);
+    const int split = blockIdx.y;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+    const int64_t bh0 = (int64_t)b * p.H + kh * p.G + g0;   // first head's row
+    const int* table_row = p.tables + (int64_t)b * p.MB;
+
+    // Q (zero rows past the group, zero columns past hd) rides in the first
+    // commit group with the first tile; it needs nothing from seq_len
+    {
+        const T* qg = static_cast<const T*>(p.q) + bh0 * p.hd;
+        for (int idx = threadIdx.x; idx < GM * L::CH; idx += NT) {
+            const int r = idx / L::CH, c = idx % L::CH;
+            const bool ok = r < Gc && c * L::EPC < p.hd;
+            cp_async_16(sq + r * LD + c * L::EPC, ok ? qg + r * p.hd + c * L::EPC : qg,
+                        ok ? 16 : 0);
+        }
     }
-#undef PA_LAUNCH
+
+    // this block's slots: columns [c_begin, c_end) clipped to the live
+    // positions [lo, seq_len).  Without a window the columns do not depend
+    // on seq_len, so their frame ids load at the same time as seq_len.
+    int frames[COLS_PER_THREAD];
+    auto load_frames = [&](int c_begin) {
+        const int n_cols = min(c_begin + p.cps, p.MB) - c_begin;
+#pragma unroll
+        for (int j = 0; j < COLS_PER_THREAD; ++j) {
+            const int c = threadIdx.x + NT * j;
+            frames[j] = c < n_cols ? __ldg(table_row + c_begin + c) : -1;
+        }
+    };
+    if (p.window < 0) load_frames(split * p.cps);
+    const int seq_len = __ldg(p.lens + b);
+    const int lo = p.window >= 0 ? max(seq_len - p.window, 0) : 0;
+    const int c_begin = lo / p.bt + split * p.cps;
+    if (p.window >= 0) load_frames(c_begin);
+#pragma unroll
+    for (int j = 0; j < COLS_PER_THREAD; ++j) s_frames[threadIdx.x + NT * j] = frames[j];
+    const int c_end = min(c_begin + p.cps, p.MB);
+    const int p0 = max(c_begin * p.bt, lo);
+    const int p1 = min(c_end * p.bt, seq_len);
+    const int n_tiles = p1 > p0 ? (p1 - p0 + TK - 1) / TK : 0;
+    const int my_tiles = n_tiles > warp ? (n_tiles - warp + NW - 1) / NW : 0;
+    __syncthreads();                           // the frame ids are staged
+
+    const T* kb = static_cast<const T*>(p.k);
+    const T* vb = static_cast<const T*>(p.v);
+    const int64_t slot_stride = (int64_t)p.K * p.hd;
+    const int64_t head_off = (int64_t)kh * p.hd;
+    T* ring = reinterpret_cast<T*>(big) + warp * STAGES * L::STAGE;
+    uint32_t* wmask = smask + warp * STAGES;
+
+    auto fetch = [&](int i) {
+        T* sk = ring + (i % STAGES) * L::STAGE;
+        const uint32_t mask = fetch_tile<T, HDP>(
+            sk, sk + TK * LD, kb, vb, s_frames, c_begin, p0 + (warp + NW * i) * TK,
+            p1, p.bt, slot_stride, head_off, p.hd, lane);
+        if (lane == 0) wmask[i % STAGES] = mask;
+    };
+
+    if constexpr (STAGES == 1) cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+        if (i < my_tiles) fetch(i);
+        cp_async_commit();
+    }
+    cp_async_wait<(STAGES >= 2 ? STAGES - 2 : 0)>();
+    __syncthreads();                           // Q has landed for every warp
+
+    S st;
+    if constexpr (L::TC) {
+        st.m[0] = st.m[1] = NEG_INF;
+        st.l[0] = st.l[1] = 0.f;
+#pragma unroll
+        for (int j = 0; j < S::DBLK; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) st.acc[j][c] = 0.f;
+        if constexpr (S::Q_IN_REGS) {
+            const T* sq_lane = sq + (lane & 15) * LD + (lane >> 4) * 8;
+#pragma unroll
+            for (int kk = 0; kk < S::KSTEPS; ++kk) ldmatrix_x4(st.qf[kk], sq_lane + 16 * kk);
+        }
+    } else {
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+            st.m[g] = NEG_INF;
+            st.l[g] = 0.f;
+#pragma unroll
+            for (int j = 0; j < S::J; ++j) st.acc[g][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    }
+
+    for (int i = 0; i < my_tiles; ++i) {
+        if (i + STAGES - 1 < my_tiles) fetch(i + STAGES - 1);
+        cp_async_commit();
+        cp_async_wait<STAGES - 1>();           // tile i has landed ...
+        __syncwarp();                          // ... for every lane
+        const uint32_t mask = wmask[i % STAGES];
+        const T* sk = ring + (i % STAGES) * L::STAGE;
+        if (mask) {
+            if constexpr (L::TC)
+                tile_tc<HDP>(st, sq, sk, mask, p.scale_log2, lane);
+            else
+                tile_f32<HDP>(st, sq, sk, sp_all + warp * GM * TK, mask, Gc,
+                              p.scale_log2, lane);
+        }
+        __syncwarp();                          // stage i % STAGES is free again
+    }
+    cp_async_wait<0>();
+    __syncthreads();                           // every ring is done: reuse it
+
+    // merge the 4 warps' states in shared memory
+    float* sm_acc = reinterpret_cast<float*>(big);   // [NW][GM][HDP]
+    float* sm_m = sm_acc + NW * GM * HDP;            // [NW][GM]
+    float* sm_l = sm_m + NW * GM;
+    if constexpr (L::TC) {
+        const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float lr = st.l[r];
+            lr += __shfl_xor_sync(FULL, lr, 1);
+            lr += __shfl_xor_sync(FULL, lr, 2);
+            float* row = sm_acc + (warp * GM + g + 8 * r) * HDP;
+#pragma unroll
+            for (int j = 0; j < S::DBLK; ++j)
+                *reinterpret_cast<float2*>(row + 8 * j + 2 * t) =
+                    make_float2(st.acc[j][2 * r], st.acc[j][2 * r + 1]);
+            if (t == 0) {
+                sm_m[warp * GM + g + 8 * r] = st.m[r];
+                sm_l[warp * GM + g + 8 * r] = lr;
+            }
+        }
+    } else {
+        const int cg = lane % S::LPC, kg = lane / S::LPC;
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+            float lg = st.l[g];
+#pragma unroll
+            for (int off = 1; off < 32; off <<= 1) lg += __shfl_xor_sync(FULL, lg, off);
+#pragma unroll
+            for (int j = 0; j < S::J; ++j) {
+                float4& a = st.acc[g][j];
+#pragma unroll
+                for (int off = S::LPC; off < 32; off <<= 1) {
+                    a.x += __shfl_xor_sync(FULL, a.x, off);
+                    a.y += __shfl_xor_sync(FULL, a.y, off);
+                    a.z += __shfl_xor_sync(FULL, a.z, off);
+                    a.w += __shfl_xor_sync(FULL, a.w, off);
+                }
+                if (kg == 0)
+                    *reinterpret_cast<float4*>(sm_acc + (warp * GM + g) * HDP +
+                                               4 * cg + 128 * j) = a;
+            }
+            if (lane == 0) {
+                sm_m[warp * GM + g] = st.m[g];
+                sm_l[warp * GM + g] = lg;
+            }
+        }
+    }
+    __syncthreads();
+
+    const int hd4 = p.hd / 4;
+    float* part_acc = p.part;
+    float* part_m = p.part + (int64_t)p.B * p.H * p.n_splits * p.hd;
+    float* part_l = part_m + (int64_t)p.B * p.H * p.n_splits;
+    for (int idx = threadIdx.x; idx < Gc * hd4; idx += NT) {
+        const int g = idx / hd4, d = 4 * (idx % hd4);
+        float M = NEG_INF;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w * GM + g]);
+        float Lsum = 0.f;
+        float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+            const float f = exp2f(sm_m[w * GM + g] - M);
+            const float4 a = *reinterpret_cast<const float4*>(sm_acc + (w * GM + g) * HDP + d);
+            Lsum += sm_l[w * GM + g] * f;
+            A.x += a.x * f;
+            A.y += a.y * f;
+            A.z += a.z * f;
+            A.w += a.w * f;
+        }
+        if (p.n_splits == 1) {
+            const float inv = 1.0f / fmaxf(Lsum, 1e-30f);
+            *reinterpret_cast<float4*>(p.out + (bh0 + g) * p.hd + d) =
+                make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
+        } else {
+            const int64_t row = (bh0 + g) * p.n_splits + split;
+            *reinterpret_cast<float4*>(part_acc + row * p.hd + d) = A;
+            if (d == 0) {
+                part_m[row] = M;
+                part_l[row] = Lsum;
+            }
+        }
+    }
+    if (p.n_splits == 1) return;
+
+    // the last block of this (sequence, kv head, group) merges the partials
+    __threadfence();
+    __syncthreads();
+    int* counter = p.counters + blockIdx.x;
+    if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == p.n_splits - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+
+    const int n = p.n_splits;
+    float* sf = reinterpret_cast<float*>(big);   // [GM][n] rescale factors
+    float* sden = sf + GM * n;                   // [GM] denominators
+    for (int g = warp; g < Gc; g += NW) {
+        const int64_t row0 = (bh0 + g) * n;
+        float M = NEG_INF;
+        for (int s = lane; s < n; s += 32) M = fmaxf(M, __ldcg(part_m + row0 + s));
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(FULL, M, off));
+        float den = 0.f;
+        for (int s = lane; s < n; s += 32) {
+            const float f = exp2f(__ldcg(part_m + row0 + s) - M);
+            sf[g * n + s] = f;
+            den += __ldcg(part_l + row0 + s) * f;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) den += __shfl_xor_sync(FULL, den, off);
+        if (lane == 0) sden[g] = den;
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < Gc * hd4; idx += NT) {
+        const int g = idx / hd4, d = 4 * (idx % hd4);
+        const float* src = part_acc + (bh0 + g) * n * p.hd + d;
+        float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+        for (int s = 0; s < n; ++s) {
+            const float f = sf[g * n + s];
+            const float4 a = __ldcg(reinterpret_cast<const float4*>(src + (int64_t)s * p.hd));
+            num.x += a.x * f;
+            num.y += a.y * f;
+            num.z += a.z * f;
+            num.w += a.w * f;
+        }
+        const float inv = 1.0f / fmaxf(sden[g], 1e-30f);
+        *reinterpret_cast<float4*>(p.out + (bh0 + g) * p.hd + d) =
+            make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv);
+    }
+    if (threadIdx.x == 0) *counter = 0;         // ready for the next launch
+}
+
+template <typename T, int HDP>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+    const size_t smem = smem_bytes<T, HDP>(p.n_splits);
+    auto kernel = paged_attention_kernel<T, HDP>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.B * p.K * p.n_gc, p.n_splits);
+    kernel<<<grid, NT, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_epl(const void* q, const void* k, const void* v,
-                       const int* tables, const int* lens, float* out, int B,
-                       int H, int K, int hd, int bt, int MB, int window,
-                       cudaStream_t stream) {
-    const int per_lane = (hd + 31) / 32;
-#define PA_ARGS q, k, v, tables, lens, out, B, H, K, hd, bt, MB, window, stream
-    if (per_lane <= 1) return launch_gt<T, 1>(PA_ARGS);
-    if (per_lane <= 2) return launch_gt<T, 2>(PA_ARGS);
-    if (per_lane <= 4) return launch_gt<T, 4>(PA_ARGS);
-    return launch_gt<T, 8>(PA_ARGS);
-#undef PA_ARGS
+// Blocks of the kernel for (T, HDP) that one SM holds at once.
+template <typename T, int HDP>
+cudaError_t occupancy(int* blocks) {
+    const size_t smem = smem_bytes<T, HDP>(1);
+    auto kernel = paged_attention_kernel<T, HDP>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NT, smem);
+}
+
+// f(T{}, integral_constant<HDP>) for the kernel that serves (dtype, hd).
+template <typename F>
+cudaError_t dispatch(int dtype, int hd, F&& f) {
+    auto by_hd = [&](auto t) -> cudaError_t {
+        if (hd <= 16) return f(t, std::integral_constant<int, 16>{});
+        if (hd <= 32) return f(t, std::integral_constant<int, 32>{});
+        if (hd <= 64) return f(t, std::integral_constant<int, 64>{});
+        if (hd <= 128) return f(t, std::integral_constant<int, 128>{});
+        return f(t, std::integral_constant<int, 256>{});
+    };
+    if (dtype == DTYPE_BF16) return by_hd(__nv_bfloat16{});
+    return by_hd(float{});
 }
 
 }  // namespace
 
 // q [B,H,hd], k/v_slabs [N,bt,K,hd] (one layer, contiguous, all of `dtype`),
 // tables [B,MB] i32 physical frames (-1 absent), lens [B] i32, out [B,H,hd]
-// f32.  window < 0 means none.  Needs hd <= 256 and hd a multiple of the
-// per-lane width (the next power of two >= ceil(hd/32)); the wrapper checks.
+// f32.  window < 0 means none.  The split plan (n_gc groups of up to 16 query
+// heads, n_splits ranges of cps columns) comes from the wrapper; with
+// n_splits > 1, `part` holds B*H*n_splits*(hd + 2) floats and `counters`
+// B*K*n_gc ints that are 0 (the kernel leaves them 0).  Needs hd <= 256, hd a
+// multiple of 16 bytes and 16-byte aligned operands; the wrapper checks.  A
+// plan outside 1 <= n_splits <= MAX_SPLITS, 1 <= cps <= MAX_COLS or
+// n_gc * 16 >= H / K returns cudaErrorInvalidValue and launches nothing.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int paged_attention_launch(const void* q, const void* k_slabs,
                                       const void* v_slabs, const void* tables,
-                                      const void* lens, void* out, int B, int H,
-                                      int K, int hd, int bt, int MB, int window,
-                                      int dtype, void* stream) {
+                                      const void* lens, void* out, void* part,
+                                      void* counters, int B, int H, int K, int hd,
+                                      int bt, int MB, int window, int n_gc,
+                                      int n_splits, int cps, int dtype,
+                                      void* stream) {
     if (B == 0) return 0;
+    if (n_splits < 1 || n_splits > MAX_SPLITS || cps < 1 || cps > MAX_COLS ||
+        K < 1 || n_gc * GM < H / K)
+        return (int)cudaErrorInvalidValue;
+    Params p{q, k_slabs, v_slabs, (const int*)tables, (const int*)lens,
+             (float*)out, (float*)part, (int*)counters, B, H, K, H / K, hd, bt,
+             MB, window, n_gc, n_splits, cps,
+             1.44269504f / sqrtf((float)hd)};   // log2(e) / sqrt(hd)
     cudaStream_t st = (cudaStream_t)stream;
-    if (dtype == DTYPE_BF16)
-        return (int)launch_epl<__nv_bfloat16>(q, k_slabs, v_slabs,
-                                              (const int*)tables, (const int*)lens,
-                                              (float*)out, B, H, K, hd, bt, MB,
-                                              window, st);
-    return (int)launch_epl<float>(q, k_slabs, v_slabs, (const int*)tables,
-                                  (const int*)lens, (float*)out, B, H, K, hd, bt,
-                                  MB, window, st);
+    return (int)dispatch(dtype, hd, [&](auto t, auto h) {
+        return launch<decltype(t), decltype(h)::value>(p, st);
+    });
+}
+
+// How many blocks of the kernel for (hd, dtype) one SM holds at once, into
+// *blocks: the wrapper sizes the split plan to one wave of them.  Returns the
+// cudaError_t of the query.
+extern "C" int paged_attention_blocks_per_sm(int hd, int dtype, int* blocks) {
+    return (int)dispatch(dtype, hd, [&](auto t, auto h) {
+        return occupancy<decltype(t), decltype(h)::value>(blocks);
+    });
 }

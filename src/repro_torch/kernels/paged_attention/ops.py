@@ -2,13 +2,19 @@
 
 A CUDA tensor launches the hand-written kernel
 (``csrc/paged_attention.cu``) or raises; only a CPU tensor takes the plain
-PyTorch version.  ``paged_attention.launches`` counts kernel launches.
+PyTorch version.  ``paged_attention.launches`` counts kernel launches, one a
+call.
+
+The kernel splits each sequence's block-table columns across blocks
+(split-KV).  ``_split_plan`` picks the split from shapes alone, so the
+wrapper never reads ``seq_lens`` (or any device tensor) on the host; the
+partial results are merged inside the same launch.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -18,11 +24,87 @@ from .ref import paged_attention_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# the kernel's block shape and limits (csrc/paged_attention.cu, which
+# rejects a plan past MAX_SPLITS or MAX_COLS)
+GROUP = 16          # query heads a block: the M of one mma
+TILE = 16           # token slots a tile
+WARPS = 4           # warps a block, each walking its own tiles
+MAX_SPLITS = 256
+MAX_COLS = 512      # block-table columns a split (staged in shared memory)
+
+
+def _window_span(MB: int, bt: int, window: Optional[int]) -> int:
+    """Block-table columns a row's live slots can touch: all MB, or at most
+    ceil((window - 1) / bt) + 1 for a window of that many positions."""
+    if window is None:
+        return MB
+    return max(1, min(MB, -(-(window - 1) // bt) + 1))
+
+
+def _split_plan(B: int, K: int, G: int, MB: int, bt: int,
+                window: Optional[int], slots: int) -> Tuple[int, int, int]:
+    """(n_gc, n_splits, cols_per_split) from shapes alone.
+
+    n_gc groups of up to ``GROUP`` query heads share a kv head's tiles; the
+    columns a row can use are cut into n_splits ranges of cols_per_split, as
+    many as fit the B * K * n_gc * n_splits blocks into one wave of
+    ``slots`` (the blocks all SMs hold at once), but no fewer than two tiles
+    a warp each and no more than ``MAX_COLS`` columns a split."""
+    n_gc = -(-G // GROUP)
+    span = _window_span(MB, bt, window)
+    min_cols = max(1, -(-2 * WARPS * TILE // bt))
+    want = slots // max(1, B * K * n_gc)
+    n_splits = max(1, min(want, -(-span // min_cols), MAX_SPLITS),
+                   -(-span // MAX_COLS))
+    cps = -(-span // n_splits)
+    return n_gc, -(-span // cps), cps
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(index: int, dtype: int, B: int, H: int, K: int, hd: int, MB: int,
+          bt: int, window: Optional[int]) -> Tuple[int, int, int]:
+    """``_split_plan`` for device ``index``: one wave is its SMs times the
+    blocks of the kernel for (hd, dtype) that one SM holds."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        fn = _build.load("paged_attention").paged_attention_blocks_per_sm
+        fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = _I
+        _build.check_launch("paged_attention", fn(hd, dtype, ctypes.byref(blocks)))
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    plan = _split_plan(B, K, H // K, MB, bt, window, sms * max(1, blocks.value))
+    if B * K * plan[0] >= 2 ** 31 or plan[1] > MAX_SPLITS:
+        raise ValueError(f"paged_attention: B {B} x K {K} or {MB} columns "
+                         "exceed the grid")
+    return plan
+
+
+# per (device, stream): the combine's counters and its partials
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(index: int, stream: int, n_counters: int,
+             n_partials: int) -> Tuple[int, int]:
+    """Addresses of ``n_counters`` int32 counters, 0 between launches (the
+    last block of each group resets its own, and no other data ever lands
+    there), and of ``n_partials`` float32 partials.  Launches on one stream
+    run in order and share them; launches on two streams never do."""
+    counters, partials = _SCRATCH.get((index, stream), (None, None))
+    device = torch.device("cuda", index)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 1 << 12), dtype=torch.int32,
+                               device=device)
+    if partials is None or partials.numel() < n_partials:
+        partials = torch.empty(max(n_partials, 1 << 16), dtype=torch.float32,
+                               device=device)
+    _SCRATCH[(index, stream)] = (counters, partials)
+    return counters.data_ptr(), partials.data_ptr()
+
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("paged_attention").paged_attention_launch
-    fn.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 8 + [_I] * 11 + [_P]
     fn.restype = _I
     return fn
 
@@ -41,17 +123,17 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
     B, H, hd = q.shape
     N, bt, K, hd2 = k_slabs.shape
     MB = block_tables.shape[1]
-    per_lane = max(1, 1 << (-(-hd // 32) - 1).bit_length())
     if (q.dtype not in _DTYPES or k_slabs.dtype != q.dtype
             or v_slabs.dtype != q.dtype):
         raise TypeError("paged_attention: q and slabs must share float32 or "
                         f"bfloat16, got {q.dtype}/{k_slabs.dtype}/{v_slabs.dtype}")
     if (hd2 != hd or v_slabs.shape != k_slabs.shape or H % K or hd > 256
-            or hd % per_lane or block_tables.shape[0] != B
-            or seq_lens.shape != (B,) or K > 65535):
+            or (hd * q.element_size()) % 16 or block_tables.shape[0] != B
+            or seq_lens.shape != (B,) or MB == 0
+            or (window is not None and window < 0)):
         raise ValueError("paged_attention: unsupported shapes "
                          f"q{tuple(q.shape)} slabs{tuple(k_slabs.shape)} "
-                         f"tables{tuple(block_tables.shape)}")
+                         f"tables{tuple(block_tables.shape)} window {window}")
     if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError("paged_attention: block_tables and seq_lens are int32")
     tensors = (q, k_slabs, v_slabs, block_tables, seq_lens)
@@ -59,15 +141,23 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
                and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError("paged_attention: operands must be contiguous, "
                          "16-byte aligned and on one CUDA device")
-    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     if B == 0:                      # no sequence: no launch, no count
-        return out
-    with torch.cuda.device(q.device):
+        return torch.empty((0, H, hd), dtype=torch.float32, device=q.device)
+    index, dtype = q.device.index, _DTYPES[q.dtype]
+    n_gc, n_splits, cps = _plan(index, dtype, B, H, K, hd, MB, bt, window)
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream().cuda_stream
+        counters = partials = 0
+        if n_splits > 1:
+            counters, partials = _scratch(index, stream, B * K * n_gc,
+                                          B * H * n_splits * (hd + 2))
         code = _launcher()(
             q.data_ptr(), k_slabs.data_ptr(), v_slabs.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, H, K, hd, bt, MB, -1 if window is None else int(window),
-            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            partials, counters, B, H, K, hd, bt, MB,
+            -1 if window is None else int(window), n_gc, n_splits, cps, dtype,
+            stream)
     _build.check_launch("paged_attention", code)
     paged_attention.launches += 1
     return out

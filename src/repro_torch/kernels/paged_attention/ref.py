@@ -47,3 +47,54 @@ def paged_attention_ref(q: torch.Tensor, k_slabs: torch.Tensor,
     probs = probs * valid[:, None, None, :]
     out = torch.einsum("bkgt,btkd->bkgd", probs, v)
     return out.reshape(B, H, hd)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_slabs: torch.Tensor,
+                              v_slabs: torch.Tensor, block_tables: torch.Tensor,
+                              seq_lens: torch.Tensor, *, n_splits: int,
+                              cols_per_split: int,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """The kernel's split-KV arithmetic in plain PyTorch, for the tests.
+
+    Split s of a row takes block-table columns [base + s * cols_per_split,
+    base + (s + 1) * cols_per_split), base being the window's first column
+    (0 without a window).  Each split's (m, l, acc) comes from the plain
+    version's math over its live slots (m = NEG_INF, l = 0, acc = 0 when it
+    has none); the splits merge by max, rescale, sum, denominator floored at
+    1e-30."""
+    B, H, hd = q.shape
+    _, bt, K, _ = k_slabs.shape
+    MB = block_tables.shape[1]
+    G = H // K
+    scale = hd ** -0.5
+
+    tables = block_tables.long()
+    lens = seq_lens.long()
+    frames = tables.clamp_min(0)
+    k = k_slabs[frames].reshape(B, MB * bt, K, hd).float()
+    v = v_slabs[frames].reshape(B, MB * bt, K, hd).float()
+    scores = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, K, G, hd).float(),
+                          k) * scale
+    t = torch.arange(MB * bt, device=q.device)
+    valid = t[None, :] < lens[:, None]
+    valid &= (tables >= 0).repeat_interleave(bt, dim=1)
+    lo = torch.zeros_like(lens)
+    if window is not None:
+        lo = (lens - window).clamp_min(0)
+        valid &= t[None, :] >= lo[:, None]
+    rel = (t // bt)[None, :] - (lo // bt)[:, None]          # [B, T]
+    owner = torch.div(rel, cols_per_split, rounding_mode="floor")
+    owner = torch.where((rel >= 0) & (owner < n_splits), owner, -1)
+    splits = torch.arange(n_splits, device=q.device)
+    member = valid[:, None, :] & (owner[:, None, :] == splits[None, :, None])
+    member = member[:, None, None]                           # [B,1,1,n,T]
+    masked = torch.where(member, scores[:, :, :, None, :],
+                         torch.full((), NEG_INF, device=q.device))
+    m = masked.amax(dim=-1)                                  # [B,K,G,n]
+    p = torch.exp(masked - m[..., None]) * member
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgnt,btkd->bkgnd", p, v)
+    f = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    out = (acc * f[..., None]).sum(dim=-2) / (l * f).sum(
+        dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(B, H, hd)
