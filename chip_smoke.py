@@ -12,7 +12,11 @@ and the script exits non-zero):
   kernels  each hand-written kernel against its plain PyTorch version on the
            card, at the reference's test shapes and at the full-width shapes
            of the serving path; timed against the plain version, a PyTorch
-           library call and the card's bound
+           library call and the card's bound.  The page walk (K3) is checked
+           with the serving path's mutation lists too (a wave's allocations,
+           a wave switch, an entry not applied), bit-exact, the updated table
+           included; through the manager with lists that outgrow its first
+           staging buffer; and on arguments it must refuse
   serve    Qwen3-14B at its published widths served through the numaPTE
            paged-KV path (random weights from a seed); launch counters of the
            three kernels are zeroed before and read after
@@ -22,7 +26,10 @@ and the script exits non-zero):
   profile  (only when asked for) the serving loop under ``torch.profiler`` at
            two generation lengths: their difference gives the device-busy
            time, the kernel launches and the largest kernels of one decode
-           step; the step's wall time comes from a run without the profiler
+           step; the step's wall time comes from a run without the profiler;
+           and the device operations of one page walk of each kind (a wave's
+           first walk, an extension step, a steady step, the sync after the
+           frees), which must be one kernel and one copy
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -61,7 +68,8 @@ from repro_torch.kvcache import PagedKVManager  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import (decode_step, greedy_sample,  # noqa: E402
                                 init_decode_state, init_params, prefill)
-from repro_torch.pagedpt.blocktable import CoherenceMode  # noqa: E402
+from repro_torch.pagedpt.blocktable import (CoherenceMode,  # noqa: E402
+                                            apply_mutations)
 
 DEV = torch.device("cuda", 0)
 # published peaks of one H100 SXM (dense): bytes/s of HBM, FLOP/s by input type
@@ -252,29 +260,124 @@ def flash_p_bf16(q, k, v, *, causal, window):
 
 
 # ---------------------------------------------------------------- pte gather
-def pte_case(T, epb, M, degree, logical=None):
+def walk_args(entries, logical, degree, mutations=None):
+    """Args (entries, logical, degree, mutations) of the walk on the card;
+    mutations None or (table, idx, value [n] int32, applied [n] bool)."""
+    if mutations is not None:
+        mutations = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+                          for a in mutations)
+    return (torch.from_numpy(entries).to(DEV),
+            torch.from_numpy(np.asarray(logical, np.int32)).to(DEV),
+            degree, mutations), {}
+
+
+def pte_case(T, epb, M, degree, logical=None, mutations=None):
     entries = np.full((T, epb), -1, np.int32)
     mask = RNG.random((T, epb)) > 0.4
     entries[mask] = (RNG.integers(0, 1 << 20, mask.sum()) | (3 << 28)).astype(np.int32)
     if logical is None:
         logical = RNG.integers(-2, T * epb + 2, M)
-    logical = np.asarray(logical, np.int32)
-    return (torch.from_numpy(entries).to(DEV), torch.from_numpy(logical).to(DEV),
-            degree), {}
+    return walk_args(entries, logical, degree, mutations)
+
+
+def pte_checked(fn):
+    """Run the walk on a copy of the table and return the updated table
+    beside the outputs, so kernel and plain version start from one table."""
+    def run(entries, logical, degree, mutations=None):
+        table = entries.clone()
+        return (*fn(table, logical, degree, mutations), table)
+    return run
+
+
+def pte_mutations_random(T, epb, n, n_slots):
+    """n mutations over the first n_slots slots (many duplicates, across the
+    kernel's 1 024-mutation chunks), a quarter not applied."""
+    slots = RNG.integers(0, n_slots, n)
+    value = (RNG.integers(0, 1 << 20, n) | (3 << 28)).astype(np.int32)
+    value[RNG.random(n) < 0.3] = -1
+    return ((slots // epb).astype(np.int32), (slots % epb).astype(np.int32),
+            value, RNG.random(n) > 0.25)
+
+
+def drain_all(host):
+    """Every pending drain of a host manager, concatenated in order, as
+    ``PagedKVManager`` stages them for one walk (kept here rather than taken
+    from the manager, so that ``tools/walk_compare.py`` can drive a checkout
+    from before the fused walk with the same inputs)."""
+    drains = []
+    while True:
+        table, idx, value, valid = host.drain_mutation_buffer()
+        n = int(valid.sum())
+        if n == 0:
+            return [np.concatenate(c) for c in zip(*drains)]
+        drains.append((table[:n], idx[:n], value[:n], valid[:n]))
+
+
+# the serving path's page walks (Qwen3-14B served at batch 16, prompt 1024 +
+# 64 generated, 4 pods, numaPTE), as serve() sizes its manager
+WALK_SHAPE = dict(n_frames=16 * 69 * 4, block_tokens=16, max_blocks_per_seq=69,
+                  n_pods=4, mode=CoherenceMode.NUMAPTE)
+
+
+def serving_walk_cases():
+    """The page walk's inputs on the serving path (Qwen3-14B served at batch
+    16, prompt 1024 + 64 generated, 4 pods, numaPTE: 4 416 frames, tables of
+    69 columns, 64 table pages of 512 entries, d = 3): a wave's first walk
+    with its 1 024 allocations; a wave switch, the 1 088 frees of one wave
+    followed by the next wave's 1 024 allocations, which reuse the freed
+    slots, so that duplicates cross drains; the same with one entry not
+    applied that names a live slot."""
+    kv = PagedKVManager(**WALK_SHAPE, device=DEV)
+    host, d = kv.host, kv.spec.prefetch_degree
+    ids = list(range(16))
+    empty = host.canonical.copy()
+    for i in ids:
+        kv.start_sequence(i, 1024, pod=i % 4)
+    allocs = drain_all(host)
+    first = walk_args(empty, kv.logical_tables(ids).reshape(-1), d, allocs)
+    for i in ids:
+        kv.maybe_extend(i, 1024 + 64)
+    drain_all(host)
+    before = host.canonical.copy()
+    for i in ids:
+        kv.finish_sequence(i)
+    ids = list(range(16, 32))
+    for i in ids:
+        kv.start_sequence(i, 1024, pod=i % 4)
+    switch = drain_all(host)
+    logical = kv.logical_tables(ids).reshape(-1)
+    check(len(allocs[0]) == 1024 and len(switch[0]) == 1088 + 1024,
+          f"mutations {len(allocs[0])}, {len(switch[0])}")
+    check(len(np.unique(switch[0] * 512 + switch[1])) < len(switch[0]),
+          "the wave switch names no slot twice")
+    live = int(np.flatnonzero(logical >= 0)[0])
+    masked = [np.append(c, np.array(x, c.dtype)) for c, x in zip(
+        switch, (logical[live] // 512, logical[live] % 512, 12345, False))]
+    return {"first_walk": first,
+            "wave_switch": walk_args(before, logical, d, switch),
+            "masked_live_slot": walk_args(before, logical, d, masked)}
 
 
 def pte_bound(args, kw):
-    entries, logical, degree = args
+    entries, logical, degree, mutations = args
     M, W = logical.numel(), 1 << degree
     # in: the id and the W entries of its window; out: frame, flag, window
     nbytes = M * (4 + 4 * W + 4 + 1 + 4 * W)
+    if mutations is not None:
+        table, idx, _, applied = mutations
+        # 13 bytes a mutation read, 4 written for each slot an applied one names
+        slots = (table.long() * entries.shape[1] + idx.long())[applied]
+        nbytes += 13 * table.numel() + 4 * int(slots.unique().numel())
     return nbytes / HBM_BPS, 0.0
 
 
 def pte_library(args, kw):
-    """Yardstick only (the port never calls it): the window as one tensor
+    """Yardstick only (the port never calls it): the port's PyTorch
+    ``apply_mutations`` where there is a list, then the window as one tensor
     indexing call (the walk's own entry is a column of it)."""
-    entries, logical, degree = args
+    entries, logical, degree, mutations = args
+    if mutations is not None:
+        apply_mutations(entries, *mutations)
     T, epb = entries.shape
     W = 1 << degree
     lg = logical.long()
@@ -282,6 +385,111 @@ def pte_library(args, kw):
     start = (lg % epb - W // 2).clamp(0, epb - W)
     cols = start[:, None] + torch.arange(W, device=DEV)[None, :]
     return entries[tid[:, None], cols]
+
+
+def pte_rejections():
+    """Arguments the kernel cannot take fail: the launch refuses a window
+    wider than a page with cudaErrorInvalidValue (whatever the wrapper
+    checks), and a mutation naming a slot outside the table fails a device
+    assert (in a process of its own: the error ends its CUDA context)."""
+    from repro_torch.kernels.pte_gather import ops
+    e = torch.full((4, 64), -1, dtype=torch.int32, device=DEV)
+    out = torch.empty((4, 128), dtype=torch.int32, device=DEV)
+    code = ops._launcher()(e.data_ptr(), e.data_ptr(), None, None, None, None,
+                           out.data_ptr(), out.data_ptr(), out.data_ptr(),
+                           4, 64, 128, 4, 0, torch.cuda.current_stream().cuda_stream)
+    check(code == 1, f"a 128-wide window on 64-entry pages launched: {code}")
+    prog = (
+        "import sys, torch\n"
+        "sys.path.insert(0, 'src')\n"
+        "from repro_torch.kernels.pte_gather import pte_gather\n"
+        "i32 = dict(dtype=torch.int32, device='cuda')\n"
+        "m = (torch.tensor([0, 4], **i32), torch.tensor([1, 0], **i32),\n"
+        "     torch.tensor([5, 6], **i32), torch.tensor([True, True], device='cuda'))\n"
+        "pte_gather(torch.full((4, 64), -1, **i32), torch.zeros(2, **i32), 0, m)\n"
+        "torch.cuda.synchronize()\n")
+    run = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(run.returncode != 0 and "assert" in run.stderr.lower(),
+          f"a slot outside the table was not rejected: rc {run.returncode}, "
+          f"{run.stderr[-400:]}")
+    said = [ln for ln in run.stderr.splitlines() if "assert" in ln.lower()]
+    return {"bad_window_code": code, "bad_slot": said[0][-160:]}
+
+
+def walk_staging_growth():
+    """Walks whose mutation lists are longer than the manager's first staging
+    buffer holds: the buffer grows, and the kernel path gives the plain
+    path's frames and device table, which equals the host's."""
+    def run():
+        kv = PagedKVManager(n_frames=8192, block_tokens=16,
+                            max_blocks_per_seq=2048, n_pods=1, device=DEV)
+        first = kv._staging.buffers[0].numel()
+        for sid in range(3):
+            kv.start_sequence(sid, 16 * 2000, pod=0)
+        n = len(kv.host._pending_mut)
+        frames = [kv.physical_tables([0, 1, 2], record=False)]
+        kv.finish_sequence(1)
+        kv.start_sequence(3, 16 * 1500, pod=0)   # reuses sequence 1's slots
+        frames.append(kv.physical_tables([0, 2, 3], record=False))
+        return kv, first, n, frames
+
+    kv, first, n, got = run()
+    with plain_versions():
+        plain, _, _, want = run()
+    grown = max(b.numel() for b in kv._staging.buffers)
+    check(13 * n > first and grown >= 13 * n,
+          f"{n} mutations, first buffer {first} B, largest {grown} B")
+    check(all(torch.equal(a, b) for a, b in zip(got, want))
+          and torch.equal(kv.device_table, plain.device_table),
+          "staged walk: kernel path and plain path differ")
+    kv.check_device_table()
+    return {"mutations": n, "first_buffer_bytes": first, "grown_to_bytes": grown}
+
+
+def walk_wave(kv, ids, record, call, prompt_len=1024, gen_len=64):
+    """One wave of the serving path's page walks, each through
+    ``call(kind, fn)``: ``first`` (the wave's first walk, its 1 024
+    allocations pending), ``extend`` (a decode step with extensions
+    pending), ``steady`` (a decode step with none) and ``check`` (the sync of
+    ``check_device_table`` after the wave's frees).  ``record`` is the
+    walks' ``record`` flag."""
+    for i, sid in enumerate(ids):
+        kv.start_sequence(sid, prompt_len, pod=i % 4)
+    call("first", lambda: kv.physical_tables(ids, record=record))
+    for t in range(gen_len):
+        for sid in ids:
+            kv.maybe_extend(sid, prompt_len + t + 1)
+        kind = "extend" if kv.host._pending_mut else "steady"
+        call(kind, lambda: kv.physical_tables(ids, record=record))
+    for sid in ids:
+        kv.finish_sequence(sid)
+    call("check", kv.sync_device_table)
+    kv.check_device_table()
+
+
+def walk_device_ops():
+    """Device operations (kernels and copies, by name) of one walk of each
+    kind, from ``torch.profiler`` around that call alone."""
+    from torch.profiler import ProfilerActivity, profile
+    kv = PagedKVManager(**WALK_SHAPE, device=DEV)
+    ops = {}
+
+    def call(kind, fn):
+        if kind in ops:
+            fn()
+            return
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops[kind] = {e.key[:80]: e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    walk_wave(kv, list(range(16)), False, call)
+    return ops
 
 
 # ------------------------------------------------------------- kernel checks
@@ -313,6 +521,11 @@ def phase_kernels():
         (2, 40, 8, 1024, 128, True, None)]]     # full heads, short batch
     ptes = [pte_case(*row) for row in [(8, 64, 16, 2), (4, 512, 32, 9),
                                        (16, 128, 7, 0), (2, 64, 5, 3)]]
+    # the fused drain: duplicates within and across the kernel's chunks,
+    # entries not applied, a drain with no ids to walk
+    ptes += [pte_case(8, 64, 40, 2, mutations=pte_mutations_random(8, 64, 3000, 40)),
+             pte_case(4, 512, 32, 9, mutations=pte_mutations_random(4, 512, 700, 2048)),
+             pte_case(8, 64, 0, 3, mutations=pte_mutations_random(8, 64, 100, 512))]
     # the shapes of the full-width serving path (Qwen3-14B, batch 16, prompt
     # 1024 + 64 generated, 4416 frames, block tables of 69 columns): checked
     # in both types, with and without a padding row, and timed in bf16
@@ -342,6 +555,12 @@ def phase_kernels():
             np.arange(16 * 69) % 69 < 67,
             (np.arange(16 * 69) // 69) * 512 + np.arange(16 * 69) % 69, -1)),
     }
+    serving = serving_walk_cases()
+    main["pte_gather/with_mutations"] = serving["wave_switch"]
+    (entries, logical, degree, _), _ = main["pte_gather"]
+    no_list = walk_args(entries.cpu().numpy(), logical.cpu().numpy(), degree,
+                        [np.empty(0, np.int32)] * 3 + [np.empty(0, bool)])
+    ptes += [no_list, *serving.values()]
     spec = {
         "paged_attention": (paged_attention_ref, paged + [main["paged_attention"]],
                             paged_bound, paged_library, "paged_attention.cu",
@@ -356,9 +575,13 @@ def phase_kernels():
     rows = []
     for name, (ref, cases, bound, library, source, replaces) in spec.items():
         fn = KERNEL_FNS[name]
+        # the walk updates its table: both sides start from a copy, and the
+        # updated tables are compared too
+        check_fn, check_ref = ((pte_checked(fn), pte_checked(ref))
+                               if name == "pte_gather" else (fn, ref))
         errs = {}
         for args, kw in cases:
-            got, want = fn(*args, **kw), ref(*args, **kw)
+            got, want = check_fn(*args, **kw), check_ref(*args, **kw)
             torch.cuda.synchronize()
             err = max_err(got, want)
             dt = args[0].dtype
@@ -379,6 +602,15 @@ def phase_kernels():
         if name == "paged_attention":
             row["long_context"] = timed(fn, ref, bound, library,
                                         *main["paged_attention/long_context"])
+        if name == "pte_gather":
+            # the list applied again leaves the table as it is: timing the
+            # walk in place repeats the same work every call
+            row["with_mutations"] = {
+                "mutations": int(serving["wave_switch"][0][3][0].numel()),
+                **timed(fn, ref, bound, library,
+                        *main["pte_gather/with_mutations"])}
+            row["staging_growth"] = walk_staging_growth()
+            row["rejections"] = pte_rejections()
         naive = {"flash_attention": flash_p_bf16,
                  "paged_attention": paged_p_bf16}.get(name)
         if naive is not None:
@@ -423,7 +655,9 @@ def phase_serve(n_layers: int, batch=16, prompt_len=1024, gen_len=64,
     # the warm-up prefill and decode step add L launches each
     want = {"paged_attention": L * gen_len * waves + L,
             "flash_attention": L * waves + L,
-            "pte_gather": (1 + gen_len) * waves}
+            # each wave: its first walk, one a decode step, and the sync of
+            # check_device_table after the frees
+            "pte_gather": (2 + gen_len) * waves}
     check(counts == want, f"launch counts {counts}, the path implies {want}")
     check(r["tokens"] == n_requests * gen_len, f"tokens {r['tokens']}")
     check(r["fetches"] > 0, "no numaPTE fetch in a 4-pod run")
@@ -552,6 +786,12 @@ def phase_profile(n_layers: int, short: int = 8, long: int = 24):
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.device_time_total > 0}
 
+    walk_ops = walk_device_ops()
+    for kind, names in walk_ops.items():
+        check(sum(names.values()) == 2
+              and sum(n for k, n in names.items() if "pte_gather" in k) == 1
+              and sum(n for k, n in names.items() if "Memcpy HtoD" in k) == 1,
+              f"a {kind} walk made {names}, not one kernel and one copy")
     few, many = device_kernels(short), device_kernels(long)
     check(bool(many), "the profiler recorded no device time")
     steps = long - short
@@ -566,6 +806,7 @@ def phase_profile(n_layers: int, short: int = 8, long: int = 24):
           "decode_device_busy_ms": busy_ms,
           "decode_device_idle_share": 1 - busy_ms / plain["decode_step_ms"],
           "decode_kernel_launches_per_step": sum(n for _, n in per_step.values()),
+          "walk_device_ops_per_call": walk_ops,
           "top_kernels": [{"kernel": k[:80], "ms_per_step": ms,
                            "launches_per_step": n} for k, (ms, n) in sorted(
                                per_step.items(), key=lambda kv: -kv[1][0])[:10]]})

@@ -8,10 +8,13 @@ step translates the logical tables to physical tables — the page walk — and
 hands the physical tables to the paged-attention kernel.
 
 The walk runs on the device: the manager keeps a device-resident copy of the
-host's canonical table ``[n_tables, entries_per_table]`` int32, brings it up
-to date before each walk by draining the host's mutation buffer into
-``apply_mutations``, and translates with the ``pte_gather`` kernel.  The
-host loop still records every access (the protocol and its counters).
+host's canonical table ``[n_tables, entries_per_table]`` int32.  Each walk
+drains the host's mutation buffer until it is empty, packs the drained
+mutations and the logical ids into one host staging buffer, sends it with one
+``non_blocking`` copy, and makes one ``pte_gather`` launch that applies the
+mutations to the device table and then translates (on the CPU: the plain
+version of the same).  Nothing on the walk waits for the device.  The host
+loop still records every access (the protocol and its counters).
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..kernels.pte_gather.ops import pte_gather
-from ..pagedpt import BlockTableSpec, HostBlockManager, apply_mutations
+from ..pagedpt import BlockTableSpec, HostBlockManager
 from ..pagedpt.blocktable import CoherenceMode
+from .staging import StagingRing
 
 
 @dataclasses.dataclass
@@ -69,6 +73,7 @@ class PagedKVManager:
         #: device-resident copy of ``host.canonical``, the table the walk reads
         self.device_table = torch.full((n_tables, entries_per_table), -1,
                                        dtype=torch.int32, device=self.device)
+        self._staging = StagingRing(self.device)
 
     # ------------------------------------------------------------- lifecycle
     def start_sequence(self, seq_id: int, prompt_len: int, pod: int = 0
@@ -102,17 +107,45 @@ class PagedKVManager:
             out[r, :len(blocks)] = blocks[:self.max_blocks]
         return out
 
-    def sync_device_table(self) -> None:
-        """Apply every pending host mutation to the device table, in order.
+    def _walk(self, logical: np.ndarray) -> torch.Tensor:
+        """The device side of the page walk: every pending host mutation,
+        then ``logical`` [M] int32, in one copy and one ``pte_gather`` launch.
         One drain returns at most ``mutation_budget`` entries and a prefill
-        wave can queue more, so drain until the buffer is empty."""
+        wave can queue more, so drain until the buffer is empty.  Returns the
+        frames [M] on the device."""
+        drains = []
         while True:
             tables, idx, val, valid = self.host.drain_mutation_buffer()
-            if not valid.any():
-                return
-            buf = torch.from_numpy(np.stack([tables, idx, val])).to(self.device)
-            mask = torch.from_numpy(valid).to(self.device)
-            apply_mutations(self.device_table, buf[0], buf[1], buf[2], mask)
+            n = int(valid.sum())         # the drain fills a prefix
+            if n == 0:
+                break
+            drains.append((tables[:n], idx[:n], val[:n], valid[:n]))
+        cols = [np.concatenate(col) for col in zip(*drains)] if drains else None
+        n, M = (cols[0].size if drains else 0), logical.size
+        if n == 0 and M == 0:
+            return torch.empty((0,), dtype=torch.int32, device=self.device)
+        # bytes: table, idx, value and logical as int32, then applied as bool
+        n_words = 3 * n + M
+
+        def fill(buf: np.ndarray) -> None:
+            words = buf[:4 * n_words].view(np.int32)
+            if n:
+                words[:3 * n] = np.concatenate(cols[:3])
+                buf[4 * n_words:] = cols[3]
+            words[3 * n:] = logical
+
+        dev = self._staging.send(fill, 4 * n_words + n)
+        words = dev[:4 * n_words].view(torch.int32)
+        mutations = (words[:n], words[n:2 * n], words[2 * n:3 * n],
+                     dev[4 * n_words:].view(torch.bool)) if n else None
+        frames, _, _ = pte_gather(self.device_table, words[3 * n:],
+                                  self.spec.prefetch_degree, mutations)
+        return frames
+
+    def sync_device_table(self) -> None:
+        """Apply every pending host mutation to the device table, in order
+        (the walk's launch with no ids)."""
+        self._walk(np.empty((0,), np.int32))
 
     def physical_tables(self, seq_ids: List[int],
                         pod: Optional[int] = None,
@@ -142,12 +175,7 @@ class PagedKVManager:
                 if (pod is None and blocks.size
                         and walk_pod != self.scheduler_pod):
                     self.host.record_access(self.scheduler_pod, int(blocks[-1]))
-        self.sync_device_table()
-        frames, _, _ = pte_gather(
-            self.device_table,
-            torch.from_numpy(logical.reshape(-1)).to(self.device),
-            self.spec.prefetch_degree)
-        return frames.view(logical.shape)
+        return self._walk(logical.reshape(-1)).view(logical.shape)
 
     def check_device_table(self) -> None:
         """The device table, brought up to date, equals the host's canonical
