@@ -8,28 +8,36 @@
 Phases (each prints one JSON object on a line of its own; any failure raises
 and the script exits non-zero):
 
-  device   card name and power limit (nvidia-smi), build of the CUDA kernels
-  kernels  each hand-written kernel against its plain PyTorch version on the
-           card, at the reference's test shapes and at the full-width shapes
-           of the serving path; timed against the plain version, a PyTorch
-           library call and the card's bound.  The page walk (K3) is checked
-           with the serving path's mutation lists too (a wave's allocations,
-           a wave switch, an entry not applied), bit-exact, the updated table
-           included; through the manager with lists that outgrow its first
-           staging buffer; and on arguments it must refuse
-  serve    Qwen3-14B at its published widths served through the numaPTE
-           paged-KV path (random weights from a seed); launch counters of the
-           three kernels are zeroed before and read after
-  parity   the same widths at a cut depth: kernel path against plain path
-           (bf16 logits, float32 token ids), and the three coherence modes
-           against each other
-  profile  (only when asked for) the serving loop under ``torch.profiler`` at
-           two generation lengths: their difference gives the device-busy
-           time, the kernel launches and the largest kernels of one decode
-           step; the step's wall time comes from a run without the profiler;
-           and the device operations of one page walk of each kind (a wave's
-           first walk, an extension step, a steady step, the sync after the
-           frees), which must be one kernel and one copy
+  device    card name and power limit (nvidia-smi), build of the CUDA kernels
+  kernels   each hand-written kernel against its plain PyTorch version on the
+            card, at the reference's test shapes and at the full-width shapes
+            of the serving paths (Qwen3-14B at head_dim 128, Gemma-3-4B at
+            head_dim 256, K2 with and without Gemma's window); timed against
+            the plain version, a PyTorch library call and the card's bound.
+            The page walk (K3) is checked with the serving path's mutation
+            lists too (a wave's allocations, a wave switch, an entry not
+            applied), bit-exact, the updated table included; through the
+            manager with lists that outgrow its first staging buffer; and on
+            arguments it must refuse
+  serve     each arch at its published widths served through
+            the numaPTE paged-KV path (random weights from a seed): Qwen3-14B
+            (global layers, depth ``--layers``) and Gemma-3-4B (all 34
+            layers: 29 local layers decode from ring caches, 5 global layers
+            through the block table).  The launch counters of the three
+            kernels are zeroed before each and read after
+  parity    the same widths at a cut depth, per arch: kernel path against
+            plain path (bf16 logits, float32 token ids), and the three
+            coherence modes against each other
+  coherence the port's serving_coherence benchmark (three modes of
+            Qwen3-14B at published widths, 4 layers, and the budget row)
+  profile   (only when asked for) the serving loop of each arch under
+            ``torch.profiler`` at two generation lengths: their difference
+            gives the device-busy time, the kernel launches and the largest
+            kernels of one decode step; the step's wall time comes from a run
+            without the profiler; and the device operations of one page walk
+            of each kind (a wave's first walk, an extension step, a steady
+            step, the sync after the frees), which must be one kernel and one
+            copy
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -67,7 +75,8 @@ from repro_torch.kernels.pte_gather import pte_gather, pte_gather_ref  # noqa: E
 from repro_torch.kvcache import PagedKVManager  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import (decode_step, greedy_sample,  # noqa: E402
-                                init_decode_state, init_params, prefill)
+                                init_decode_state, init_params, layer_groups,
+                                prefill)
 from repro_torch.pagedpt.blocktable import (CoherenceMode,  # noqa: E402
                                             apply_mutations)
 
@@ -545,12 +554,28 @@ def phase_kernels():
                          lens=[1, 17, 700, 5000], dead_row=dead)
               for dt in both for dead in (False, True)]
     flash += [flash_case(16, 40, 8, 1024, 128, True, None, f32)]
+    # Gemma-3-4B's serving shapes (batch 16, prompt 2048 + 64 generated, 8
+    # heads, 4 kv heads, head_dim 256): K1 on the global layers' slabs (8 512
+    # frames, tables of 133 columns, no window), K2 on every layer, causal,
+    # with the local layers' 1 024-token window and without
+    gemma_paged = (16, 8, 4, 256, 16, 133, 8512, None)
+    paged += [paged_case(*gemma_paged, dt, lens=np.full(16, 2112), dead_row=dead)
+              for dt in both for dead in (False, True)]
+    paged += [paged_case(*gemma_paged, dt) for dt in both]    # ragged lengths
+    flash += [flash_case(4, 8, 4, 2048, 256, True, win, f32)
+              for win in (1024, None)]
     main = {
         "paged_attention": paged_case(16, 40, 8, 128, 16, 69, 4416, None, bf16,
                                       lens=np.full(16, 1057)),
         "paged_attention/long_context": paged_case(*long_paged, None, bf16,
                                                    lens=[32768]),
+        "paged_attention/gemma3_4b": paged_case(*gemma_paged, bf16,
+                                                lens=np.full(16, 2112)),
         "flash_attention": flash_case(16, 40, 8, 1024, 128, True, None, bf16),
+        "flash_attention/gemma3_4b_local": flash_case(16, 8, 4, 2048, 256, True,
+                                                      1024, bf16),
+        "flash_attention/gemma3_4b_global": flash_case(16, 8, 4, 2048, 256, True,
+                                                       None, bf16),
         "pte_gather": pte_case(64, 512, 16 * 69, 3, logical=np.where(
             np.arange(16 * 69) % 69 < 67,
             (np.arange(16 * 69) // 69) * 512 + np.arange(16 * 69) % 69, -1)),
@@ -561,6 +586,11 @@ def phase_kernels():
     no_list = walk_args(entries.cpu().numpy(), logical.cpu().numpy(), degree,
                         [np.empty(0, np.int32)] * 3 + [np.empty(0, bool)])
     ptes += [no_list, *serving.values()]
+    # timed sub-dicts of a row, each also checked as a case
+    subs = {"paged_attention": ["long_context", "gemma3_4b"],
+            "flash_attention": ["gemma3_4b_local", "gemma3_4b_global"]}
+    controls = {"paged_attention": (paged_p_bf16, [None]),
+                "flash_attention": (flash_p_bf16, [None, "gemma3_4b_global"])}
     spec = {
         "paged_attention": (paged_attention_ref, paged + [main["paged_attention"]],
                             paged_bound, paged_library, "paged_attention.cu",
@@ -580,6 +610,7 @@ def phase_kernels():
         check_fn, check_ref = ((pte_checked(fn), pte_checked(ref))
                                if name == "pte_gather" else (fn, ref))
         errs = {}
+        cases = cases + [main[f"{name}/{sub}"] for sub in subs.get(name, [])]
         for args, kw in cases:
             got, want = check_fn(*args, **kw), check_ref(*args, **kw)
             torch.cuda.synchronize()
@@ -599,9 +630,8 @@ def phase_kernels():
                **timed(fn, ref, bound, library, *main[name]),
                "max_abs_err_by_dtype": errs, "tolerance": TOL[name],
                "cases": len(cases)}
-        if name == "paged_attention":
-            row["long_context"] = timed(fn, ref, bound, library,
-                                        *main["paged_attention/long_context"])
+        for sub in subs.get(name, []):
+            row[sub] = timed(fn, ref, bound, library, *main[f"{name}/{sub}"])
         if name == "pte_gather":
             # the list applied again leaves the table as it is: timing the
             # walk in place repeats the same work every call
@@ -611,13 +641,15 @@ def phase_kernels():
                         *main["pte_gather/with_mutations"])}
             row["staging_growth"] = walk_staging_growth()
             row["rejections"] = pte_rejections()
-        naive = {"flash_attention": flash_p_bf16,
-                 "paged_attention": paged_p_bf16}.get(name)
-        if naive is not None:
-            args, kw = main[name]
-            row["naive_p_bf16_err"] = max_err(naive(*args, **kw), ref(*args, **kw))
-            check(row["naive_p_bf16_err"] > TOL[name],
-                  f"rounding P to bf16 misses by {row['naive_p_bf16_err']}, "
+        # the bf16-P control at the main shape, and for K2 once more at
+        # head_dim 256
+        naive, at_subs = controls.get(name, (None, []))
+        for sub in at_subs:
+            at = row if sub is None else row[sub]
+            args, kw = main[name if sub is None else f"{name}/{sub}"]
+            at["naive_p_bf16_err"] = max_err(naive(*args, **kw), ref(*args, **kw))
+            check(at["naive_p_bf16_err"] > TOL[name],
+                  f"rounding P to bf16 misses by {at['naive_p_bf16_err']}, "
                   f"within {TOL[name]}: the bound cannot see it")
         rows.append(row)
     return rows
@@ -641,36 +673,47 @@ def reset_counters() -> None:
         fn.launches = 0
 
 
-def phase_serve(n_layers: int, batch=16, prompt_len=1024, gen_len=64,
-                n_requests=32):
+# the prompt each arch is served with: Gemma's is longer than its 1 024-token
+# window, so K2's tile skip and the ring's wrap both run
+PROMPT_LEN = {"qwen3_14b": 1024, "gemma3_4b": 2048}
+
+
+def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
+    """``serve()`` at published widths (depth cut to ``n_layers`` if given)
+    with the launch counters zeroed before and read after."""
+    prompt_len = PROMPT_LEN[arch]
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.perf_counter()
-    r = serve("qwen3_14b", full_width=True, n_layers=n_layers, batch=batch,
+    r = serve(arch, full_width=True, n_layers=n_layers, batch=batch,
               prompt_len=prompt_len, gen_len=gen_len, n_requests=n_requests,
               n_pods=4, mode="numapte", verbose=False)
     counts = {name: fn.launches for name, fn in KERNEL_FNS.items()}
     waves = -(-n_requests // batch)
+    cfg = get_config(arch)
     L = r["n_layers"]
-    # the warm-up prefill and decode step add L launches each
-    want = {"paged_attention": L * gen_len * waves + L,
+    # K1 runs on the global layers only (a local layer decodes from its ring)
+    n_global = sum(g.n_layers for g in layer_groups(
+        dataclasses.replace(cfg, n_layers=L)) if g.window is None)
+    # the warm-up prefill and decode step add one launch a layer each
+    want = {"paged_attention": n_global * gen_len * waves + n_global,
             "flash_attention": L * waves + L,
             # each wave: its first walk, one a decode step, and the sync of
             # check_device_table after the frees
             "pte_gather": (2 + gen_len) * waves}
-    check(counts == want, f"launch counts {counts}, the path implies {want}")
+    check(counts == want, f"{arch}: launch counts {counts}, the path implies {want}")
     check(r["tokens"] == n_requests * gen_len, f"tokens {r['tokens']}")
     check(r["fetches"] > 0, "no numaPTE fetch in a 4-pod run")
     check(r["logits_finite"], "non-finite logits")
     ids = r.pop("token_ids")
-    cfg = get_config("qwen3_14b")
     check(ids.shape == (n_requests, gen_len) and ids.min() >= 0
           and ids.max() < cfg.vocab_size, "token ids out of range")
-    emit({"phase": "serve", "arch": "qwen3_14b", "widths": "published",
+    emit({"phase": "serve", "arch": arch, "widths": "published",
           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
-          "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
-          "vocab_size": cfg.vocab_size, "layers_run": L,
-          "layers_published": cfg.n_layers, "batch": batch,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size, "layers_run": L,
+          "layers_published": cfg.n_layers, "global_layers_run": n_global,
+          "local_window": cfg.local_window, "batch": batch,
           "prompt_len": prompt_len, "gen_len": gen_len, "launches": counts,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "wall_s": time.perf_counter() - t0, **r})
@@ -695,10 +738,11 @@ def plain_versions():
          manager.pte_gather) = saved
 
 
-def first_wave(cfg, params, batch, prompt_len):
-    """Prefill one wave and take one decode step; both logits, float32."""
+def first_wave(cfg, params, batch, prompt_len, steps):
+    """Prefill one wave and take ``steps`` decode steps on tokens drawn from
+    a seed (the same whichever path runs); the logits of each, float32."""
     bt = cfg.kv_block_tokens
-    max_blocks = -(-(prompt_len + 1) // bt) + 1
+    max_blocks = -(-(prompt_len + steps) // bt) + 1
     kv = PagedKVManager(n_frames=batch * max_blocks, block_tokens=bt,
                         max_blocks_per_seq=max_blocks, n_pods=4,
                         mode=CoherenceMode.NUMAPTE, device=DEV)
@@ -706,38 +750,57 @@ def first_wave(cfg, params, batch, prompt_len):
     ids = list(range(batch))
     for i in ids:
         kv.start_sequence(i, prompt_len, pod=i % 4)
-    prompts = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (batch, prompt_len))).to(DEV)
-    logits_p, st = prefill(cfg, params, prompts, state, kv.physical_tables(ids))
-    for i in ids:
-        kv.maybe_extend(i, prompt_len + 1)
-    logits_d, _ = decode_step(cfg, params, st, greedy_sample(logits_p),
-                              kv.physical_tables(ids))
-    return logits_p.float(), logits_d.float()
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (batch, prompt_len + steps))).to(DEV)
+    logits, st = prefill(cfg, params, tokens[:, :prompt_len], state,
+                         kv.physical_tables(ids))
+    out = [logits.float()]
+    for t in range(steps):
+        for i in ids:
+            kv.maybe_extend(i, prompt_len + t + 1)
+        logits, st = decode_step(cfg, params, st, tokens[:, prompt_len + t],
+                                 kv.physical_tables(ids))
+        out.append(logits.float())
+    return out
 
 
 def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+# per arch: the depth, then (batch, prompt, decode steps) of the bf16 logits
+# check, and the serve() runs of the mode check (a partial last wave) and of
+# the float32 token check.  Gemma's prompts pass its 1 024-token window.
+PARITY = {
+    "qwen3_14b": dict(
+        n_layers=2, bf16=(8, 512, 1),
+        modes=dict(batch=8, prompt_len=128, gen_len=8, n_requests=20),
+        f32=dict(batch=8, prompt_len=256, gen_len=8, n_requests=8)),
+    "gemma3_4b": dict(
+        n_layers=6, bf16=(4, 1536, 3),
+        modes=dict(batch=4, prompt_len=1100, gen_len=8, n_requests=10),
+        f32=dict(batch=4, prompt_len=1536, gen_len=8, n_requests=4)),
+}
+
+
 @torch.no_grad()
-def phase_parity(n_layers: int = 2):
-    out = {"phase": "parity", "layers": n_layers}
+def phase_parity(arch: str):
+    spec = PARITY[arch]
+    out = {"phase": "parity", "arch": arch, "layers": spec["n_layers"]}
     # bf16, published widths: logits of the kernel path against the plain path
-    cfg = dataclasses.replace(get_config("qwen3_14b"), n_layers=n_layers)
+    cfg = dataclasses.replace(get_config(arch), n_layers=spec["n_layers"])
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                          param_dtype=cfg.dtype)
-    got = first_wave(cfg, params, 8, 512)
+    got = first_wave(cfg, params, *spec["bf16"])
     with plain_versions():
-        want = first_wave(cfg, params, 8, 512)
-    out["bf16_prefill_rel"] = rel_err(got[0], want[0])
-    out["bf16_decode_rel"] = rel_err(got[1], want[1])
-    check(out["bf16_prefill_rel"] < 0.03 and out["bf16_decode_rel"] < 0.03,
+        want = first_wave(cfg, params, *spec["bf16"])
+    rels = [rel_err(g, w) for g, w in zip(got, want)]
+    out["bf16_prefill_rel"], out["bf16_decode_rel"] = rels[0], rels[1:]
+    check(max(rels) < 0.03,
           f"bf16 logits: kernel path and plain path differ: {out}")
-    # the three coherence modes serve the same tokens (a partial last wave)
-    runs = {mode: serve("qwen3_14b", cfg=cfg, params=params, batch=8,
-                        prompt_len=128, gen_len=8, n_requests=20, n_pods=4,
-                        mode=mode, verbose=False)
+    # the three coherence modes serve the same tokens
+    runs = {mode: serve(arch, cfg=cfg, params=params, n_pods=4, mode=mode,
+                        verbose=False, **spec["modes"])
             for mode in ("local", "eager", "numapte")}
     ids = [r["token_ids"] for r in runs.values()]
     check(all(np.array_equal(ids[0], x) for x in ids[1:]),
@@ -750,43 +813,66 @@ def phase_parity(n_layers: int = 2):
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0),
                          param_dtype=torch.float32)
-    kw = dict(cfg=cfg32, params=params, batch=8, prompt_len=256, gen_len=8,
-              n_requests=8, n_pods=4, mode="numapte", verbose=False)
-    got = serve("qwen3_14b", **kw)["token_ids"]
+    kw = dict(cfg=cfg32, params=params, n_pods=4, mode="numapte",
+              verbose=False, **spec["f32"])
+    got = serve(arch, **kw)["token_ids"]
     with plain_versions():
-        want = serve("qwen3_14b", **kw)["token_ids"]
+        want = serve(arch, **kw)["token_ids"]
     check(np.array_equal(got, want),
           "float32 token ids: kernel path and plain path differ")
     out["f32_equal_tokens"] = int(got.size)
+    del params
+    torch.cuda.empty_cache()
     emit(out)
+
+
+@torch.no_grad()
+def phase_coherence(n_layers: int = 4):
+    """The port's serving_coherence benchmark at published widths (Qwen3-14B,
+    depth cut: the counters come from the host protocol, not the depth)."""
+    from repro_torch.benchmarks import serving_coherence
+    rows = serving_coherence.main(full_width=True, n_layers=n_layers)
+    served = rows[:3]
+    check([r["mode"] for r in served] == ["local", "eager", "numapte"],
+          f"rows {[r['mode'] for r in rows]}")
+    check(all(r["logits_finite"] and r["tokens"] == 24 * 16
+              and r["n_layers"] == n_layers for r in served),
+          f"serving_coherence rows: {served}")
+    check(served[2]["fetches"] > 0 and served[0]["fetches"] == 0,
+          "numapte fetched nothing, or local fetched")
+    check(rows[3]["eager"] > rows[3]["numapte"] > 0, f"budget row {rows[3]}")
+    emit({"phase": "serving_coherence", "arch": "qwen3_14b",
+          "widths": "published", "layers": n_layers, "rows": rows})
 
 
 # ------------------------------------------------------------------- profile
 @torch.no_grad()
-def phase_profile(n_layers: int, short: int = 8, long: int = 24):
+def phase_profile(arch: str, n_layers=None, walks: bool = True,
+                  short: int = 8, long: int = 24):
     """One wave of the full-width serve at two generation lengths under the
     profiler.  Set-up, warm-up and prefill are the same in both, so the
     difference of the device's kernel time is that of ``long - short`` decode
-    steps."""
+    steps.  ``walks`` adds the device operations of each kind of page walk."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = dataclasses.replace(get_config("qwen3_14b"), n_layers=n_layers)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                          param_dtype=cfg.dtype)
-    kw = dict(cfg=cfg, params=params, batch=16, prompt_len=1024,
+    kw = dict(cfg=cfg, params=params, batch=16, prompt_len=PROMPT_LEN[arch],
               n_requests=16, n_pods=4, mode="numapte", verbose=False)
-    plain = serve("qwen3_14b", gen_len=long, **kw)
+    plain = serve(arch, gen_len=long, **kw)
 
     def device_kernels(gen_len):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            serve("qwen3_14b", gen_len=gen_len, **kw)
+            serve(arch, gen_len=gen_len, **kw)
             torch.cuda.synchronize()
         return {e.key: (e.device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.device_time_total > 0}
 
-    walk_ops = walk_device_ops()
+    walk_ops = walk_device_ops() if walks else {}
     for kind, names in walk_ops.items():
         check(sum(names.values()) == 2
               and sum(n for k, n in names.items() if "pte_gather" in k) == 1
@@ -799,8 +885,8 @@ def phase_profile(n_layers: int, short: int = 8, long: int = 24):
                     (n - few.get(k, (0.0, 0))[1]) / steps)
                 for k, (ms, n) in many.items()}
     busy_ms = sum(ms for ms, _ in per_step.values())
-    emit({"phase": "profile", "layers": n_layers, "batch": 16,
-          "prompt_len": 1024, "steps_differenced": steps,
+    emit({"phase": "profile", "arch": arch, "layers": cfg.n_layers,
+          "batch": 16, "prompt_len": PROMPT_LEN[arch], "steps_differenced": steps,
           "prefill_ms": plain["prefill_ms"],
           "decode_step_ms": plain["decode_step_ms"],
           "decode_device_busy_ms": busy_ms,
@@ -815,11 +901,13 @@ def phase_profile(n_layers: int, short: int = 8, long: int = 24):
 # ----------------------------------------------------------------------- main
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serve,parity")
+    ap.add_argument("--phases", default="kernels,serve,parity,coherence")
     ap.add_argument("--layers", type=int, default=40,
-                    help="depth of the full-width serve (widths are never cut)")
+                    help="depth of the Qwen3-14B serve and profile (widths are "
+                         "never cut; Gemma-3-4B always runs all 34 layers)")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    depth = {"qwen3_14b": args.layers, "gemma3_4b": None}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -834,15 +922,21 @@ def main() -> None:
 
     rows = phase_kernels() if "kernels" in phases else []
     if "serve" in phases:
-        counts = phase_serve(args.layers)
+        counts = {arch: phase_serve(arch, n) for arch, n in depth.items()}
+        for arch, by_name in counts.items():
+            for name, n in by_name.items():
+                check(n > 0, f"{name} never ran on the {arch} path")
         for row in rows:
-            row["launches"] = counts[row["name"]]
-        for row in rows:
-            check(row["launches"] > 0, f"{row['name']} never ran on the main path")
+            row["launches_by_arch"] = {a: c[row["name"]] for a, c in counts.items()}
+            row["launches"] = sum(row["launches_by_arch"].values())
     if "parity" in phases:
-        phase_parity()
+        for arch in depth:
+            phase_parity(arch)
+    if "coherence" in phases:
+        phase_coherence()
     if "profile" in phases:
-        phase_profile(args.layers)
+        for i, (arch, n) in enumerate(depth.items()):
+            phase_profile(arch, n, walks=i == 0)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

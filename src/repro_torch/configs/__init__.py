@@ -10,15 +10,16 @@ import importlib
 
 from ..models.common import ModelConfig
 
-#: the architectures ported so far (dense, global attention, decoder-only)
-ARCH_IDS = ["qwen3_14b", "yi_6b"]
+#: the architectures ported so far (dense, decoder-only; global attention,
+#: or a local : global pattern of windowed and global layers)
+ARCH_IDS = ["qwen3_14b", "yi_6b", "gemma3_4b"]
 
 
 def _module(name: str):
     name = name.replace("-", "_")
     if name not in ARCH_IDS:
         raise NotImplementedError(
-            f"config {name!r} is not ported yet (ROADMAP queue 1 items 10-11); "
+            f"config {name!r} is not ported yet (ROADMAP queue 1 item 11); "
             f"ported: {ARCH_IDS}")
     return importlib.import_module(f".{name}", __package__)
 

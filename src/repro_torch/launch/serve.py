@@ -7,6 +7,8 @@ each policy.  Runs on the GPU unless ``device="cpu"`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b \
         --full-width --requests 32 --batch 16 --prompt-len 1024 --gen-len 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_4b \
+        --full-width --requests 32 --batch 16 --prompt-len 2048 --gen-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b --mode eager
 """
 from __future__ import annotations
@@ -69,8 +71,9 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
 
     # run prefill and decode once before the timer starts, so that building
     # the kernels and warming the GEMM library never land inside the
-    # tok_per_s window (all-(-1) tables: the warm-up calls write nothing and
-    # their outputs are discarded)
+    # tok_per_s window; their outputs are discarded.  All-(-1) tables keep
+    # them out of the paged slabs, but they do write the local layers' rings,
+    # which every wave's prefill rebuilds from zeros
     warm_phys = torch.full((batch, max_blocks), -1, dtype=torch.int32,
                            device=device)
     warm_prompts = torch.zeros((batch, prompt_len), dtype=torch.int32,

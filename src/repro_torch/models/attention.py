@@ -1,5 +1,7 @@
 """GQA attention: prefill forward through the flash kernel, paged decode
-through the paged-attention kernel.
+through the paged-attention kernel, and ring-buffer decode for the
+local-window layers (plain PyTorch, as the reference computes it outside any
+kernel).
 
 Decode reads KV through the paged block-table substrate — the physical frame
 ids given to ``attn_decode_paged`` come from the block-table translation
@@ -13,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ref import NEG_INF
 from ..kernels.paged_attention.ops import paged_attention
 from ..kvcache.gather import write_token_plain
 from .common import ModelConfig, _dense, rms_norm, rope_tables, rotate
@@ -112,3 +115,39 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.dtype)
     out = out @ p["wo"].to(cfg.dtype)
     return out, (k_slabs, v_slabs)
+
+
+def attn_decode_ring(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                     x: torch.Tensor, positions: torch.Tensor,
+                     ring_k: torch.Tensor, ring_v: torch.Tensor, *,
+                     rope: Rope, window: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step of a sliding-window layer whose KV is a ring of
+    ``window`` slots per sequence: slot i holds the latest position p with
+    p % window == i.
+
+    x: [B, 1, D]; positions: [B]; ring_k/ring_v: [B, window, K, hd] for THIS
+    layer, UPDATED IN PLACE (the new token goes to slot positions % window);
+    rope: the step's tables, as for ``attn_decode_paged``.  Scores, softmax
+    and the product with V are float32.  Returns (attn_out [B,1,D], ring_k,
+    ring_v)."""
+    B = x.shape[0]
+    K, G, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.resolved_head_dim
+    q, k_new, v_new = project_qk_rope_v(cfg, p, x, rope)
+    pos = positions.long()
+    rows = torch.arange(B, device=x.device)
+    ring_k[rows, pos % window] = k_new[:, 0].to(ring_k.dtype)
+    ring_v[rows, pos % window] = v_new[:, 0].to(ring_v.dtype)
+    scores = torch.einsum("bkgd,bskd->bkgs",
+                          q[:, 0].reshape(B, K, G, hd).float(),
+                          ring_k.float()) * hd ** -0.5
+    idx = torch.arange(window, device=x.device)[None, :]
+    pos = pos[:, None]
+    pos_in_slot = pos - (pos - idx) % window
+    valid = ((pos_in_slot >= 0) & (pos_in_slot >= pos - window + 1)
+             & (pos_in_slot <= pos))
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, ring_v.float())
+    out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.dtype)
+    return out @ p["wo"].to(cfg.dtype), ring_k, ring_v

@@ -130,7 +130,8 @@ def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
 def require_ported(cfg: ModelConfig) -> List[LayerGroup]:
     """The layer groups of ``cfg``, or NotImplementedError naming the ROADMAP
     item when the config needs a part that is not ported yet.  Ported: dense,
-    decoder-only, global attention, RMSNorm, RoPE."""
+    decoder-only, global and local-window attention (a window group keeps a
+    ring cache, a global group paged slabs), RMSNorm, RoPE."""
     def missing(what: str, item: str) -> NotImplementedError:
         return NotImplementedError(
             f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1 item {item})")
@@ -147,8 +148,6 @@ def require_ported(cfg: ModelConfig) -> List[LayerGroup]:
             raise missing(f"the {g.kind} layer", "11")
         if g.moe:
             raise missing("the mixture-of-experts FFN", "11")
-        if g.window is not None:
-            raise missing("local-window attention", "10")
     return groups
 
 

@@ -7,11 +7,14 @@ leading axis for its scan; here a group is a Python loop over its layers).
 
 Decode state: global-attention groups hold paged KV slabs
 ``[L, n_frames, bt, K, hd]`` indexed by *physical* frame ids coming from the
-block-table translation.  ``prefill`` and ``decode_step`` update the slabs IN
-PLACE and return a state that shares them.
+block-table translation; local-window groups hold per-sequence rings
+``[L, B, W, K, hd]`` that never go through the translation.  ``prefill`` and
+``decode_step`` update the caches IN PLACE and return a state that shares
+them; a ring is rebuilt (zeroed, then filled) by every prefill.
 
-Ported so far: dense, global-attention, decoder-only configs (yi_6b,
-qwen3_14b).  Anything else raises NotImplementedError naming its ROADMAP item.
+Ported so far: dense, decoder-only configs with global attention (yi_6b,
+qwen3_14b) or a local : global layer pattern (gemma3_4b).  Anything else
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,8 +25,8 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..kvcache.gather import scatter_prefill_plain
-from .attention import (attend_causal, attn_decode_paged, attn_forward,
-                        init_attn, project_qk_rope_v)
+from .attention import (attend_causal, attn_decode_paged, attn_decode_ring,
+                        attn_forward, init_attn, project_qk_rope_v)
 from .common import (LayerGroup, ModelConfig, _dense, apply_norm, init_norm,
                      require_ported, rope_tables)
 from .ffn import ffn_forward, init_ffn
@@ -146,7 +149,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
                       max_blocks: int, *, n_pools: int = 1, dtype=None,
                       device: DeviceLike = None) -> DecodeState:
     """n_blocks: physical KV frames in the pool; max_blocks: per-seq table.
-    The slabs are zeros: a masked slot must hold a finite value."""
+    Global groups get paged slabs, windowed groups a ring of ``window``
+    slots per sequence.  Both are zeros: a masked slot must hold a finite
+    value."""
     if n_pools != 1:
         raise NotImplementedError(
             "pool-partitioned KV slabs are not ported yet "
@@ -157,10 +162,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
     bt = cfg.kv_block_tokens
     caches: List[Dict[str, torch.Tensor]] = []
     for g in require_ported(cfg):
-        shape = (g.n_layers, n_blocks, bt, K, hd)
-        caches.append(
-            {"k_slabs": torch.zeros(shape, dtype=dtype, device=device),
-             "v_slabs": torch.zeros(shape, dtype=dtype, device=device)})
+        if g.window is None:
+            names, shape = ("k_slabs", "v_slabs"), (g.n_layers, n_blocks, bt, K, hd)
+        else:
+            names, shape = ("ring_k", "ring_v"), (g.n_layers, batch, g.window, K, hd)
+        caches.append({n: torch.zeros(shape, dtype=dtype, device=device)
+                       for n in names})
     return DecodeState(tuple(caches),
                        torch.zeros((batch,), dtype=torch.int32, device=device))
 
@@ -169,7 +176,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
                 tokens: torch.Tensor, phys_blocks: torch.Tensor
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """One token per sequence.  tokens: [B]; phys_blocks: [B, max_blocks]
-    int32 physical frame ids from the block-table translation.  The slabs of
+    int32 physical frame ids from the block-table translation.  The caches of
     ``state`` are written in place.  Returns (logits [B,V], new state)."""
     positions = state.seq_lens                       # position of new token
     x = _embed(cfg, params, tokens)[:, None]
@@ -189,10 +196,15 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
     rope = rope_tables(positions[:, None], cfg.resolved_head_dim, g.rope_theta)
     for li, lp in enumerate(gp):
         h = apply_norm(cfg, x, lp["norm1"])
-        a, _ = attn_decode_paged(
-            cfg, lp["attn"], h, positions,
-            (cache["k_slabs"][li], cache["v_slabs"][li]), phys_blocks,
-            seq_lens, rope=rope, window=g.window)
+        if g.window is None:
+            a, _ = attn_decode_paged(
+                cfg, lp["attn"], h, positions,
+                (cache["k_slabs"][li], cache["v_slabs"][li]), phys_blocks,
+                seq_lens, rope=rope)
+        else:
+            a, _, _ = attn_decode_ring(
+                cfg, lp["attn"], h, positions, cache["ring_k"][li],
+                cache["ring_v"][li], rope=rope, window=g.window)
         x = _ffn_block(cfg, lp, x + a)
     return x
 
@@ -200,9 +212,10 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
 def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
             state: DecodeState, phys_blocks: torch.Tensor
             ) -> Tuple[torch.Tensor, DecodeState]:
-    """Prefill a prompt batch [B,S]: full forward + scatter of every layer's
-    K/V into the slabs of ``state`` (in place) through the block table.
-    Returns (logits of the last position [B,V], new state)."""
+    """Prefill a prompt batch [B,S]: full forward + every layer's K/V into
+    the caches of ``state`` (in place): scattered into the slabs through the
+    block table, or the last ``min(S, W)`` tokens into a ring rebuilt from
+    zeros.  Returns (logits of the last position [B,V], new state)."""
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = _positions(tokens)
@@ -218,16 +231,28 @@ def _prefill_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
                    cache: Dict[str, torch.Tensor], x: torch.Tensor,
                    positions: torch.Tensor, phys_blocks: torch.Tensor
                    ) -> torch.Tensor:
-    """Forward one group over the full prompt and fill its slabs."""
+    """Forward one group over the full prompt and fill its caches."""
     bt = cfg.kv_block_tokens
+    S = x.shape[1]
     rope = rope_tables(positions, cfg.resolved_head_dim, g.rope_theta)
     for li, lp in enumerate(gp):
         h = apply_norm(cfg, x, lp["norm1"])
         q, k, v = project_qk_rope_v(cfg, lp["attn"], h, rope)
         a = attend_causal(cfg, lp["attn"], q, k, v, window=g.window)
-        # scatter this layer's K/V into the paged slabs
-        scatter_prefill_plain(cache["k_slabs"][li], cache["v_slabs"][li],
-                              k, v, phys_blocks, positions, bt)
+        if g.window is None:
+            # scatter this layer's K/V into the paged slabs
+            scatter_prefill_plain(cache["k_slabs"][li], cache["v_slabs"][li],
+                                  k, v, phys_blocks, positions, bt)
+        else:
+            # rebuild the ring: the state is shared by every wave (and the
+            # warm-up), so the slots this prompt does not fill must not keep
+            # an earlier wave's keys
+            W = g.window
+            src = torch.arange(max(S - W, 0), S, device=x.device)
+            for name, t in (("ring_k", k), ("ring_v", v)):
+                ring = cache[name][li]
+                ring.zero_()
+                ring[:, src % W] = t[:, src].to(ring.dtype)
         x = _ffn_block(cfg, lp, x + a)
     return x
 

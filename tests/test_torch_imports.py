@@ -27,7 +27,8 @@ def test_torch_port_has_the_reference_layout():
                 "pagedpt.blocktable", "kvcache.manager", "kvcache.gather",
                 "models.transformer", "models.attention", "models.common",
                 "models.ffn", "configs.qwen3_14b", "configs.yi_6b",
-                "launch.serve"):
+                "configs.gemma3_4b", "launch.serve",
+                "benchmarks.serving_coherence"):
         assert f"repro_torch.{sub}" in MODULES
 
 
@@ -64,7 +65,7 @@ def test_torch_chip_smoke_refuses_to_run_without_a_gpu():
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE_CONFIG"])
-@pytest.mark.parametrize("arch", ["qwen3_14b", "yi_6b"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "yi_6b", "gemma3_4b"])
 def test_torch_configs_equal_reference_field_for_field(arch, which):
     import importlib
     ours = getattr(importlib.import_module(f"repro_torch.configs.{arch}"), which)
@@ -85,5 +86,5 @@ def test_torch_configs_equal_reference_field_for_field(arch, which):
 
 def test_torch_unported_archs_raise():
     from repro_torch import configs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config("gemma3_4b")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        configs.get_config("mamba2_370m")

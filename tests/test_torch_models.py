@@ -175,7 +175,7 @@ def test_torch_init_params_shapes_types_and_statistics():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(local_window=8, local_global_ratio=(1, 1)), "item 10"),
+    (dict(use_rope=False), "item 11"),
     (dict(n_experts=4, experts_per_token=2, moe_d_ff=32), "item 11"),
     (dict(family="ssm"), "item 11"),
     (dict(family="hybrid", recurrent_ratio=(2, 1), local_window=8), "item 11"),
@@ -189,6 +189,21 @@ def test_torch_unported_configs_raise(change, item):
         require_ported(cfg)
     with pytest.raises(NotImplementedError):
         tm.init_params(cfg, torch.Generator(device="cpu"))
+
+
+def test_torch_windowed_config_is_ported():
+    """Local-window attention (ROADMAP item 10) no longer raises: a
+    local : global pattern passes ``require_ported``, and its parameters and
+    decode state (a ring per windowed group) are built."""
+    cfg = dataclasses.replace(tconfigs.get_smoke_config("yi_6b"),
+                              local_window=8, local_global_ratio=(1, 1))
+    groups = require_ported(cfg)
+    assert [(g.window, g.n_layers) for g in groups] == [(8, 1), (None, 1)]
+    params = tm.init_params(cfg, torch.Generator(device="cpu").manual_seed(0))
+    assert [len(gp) for gp in params["groups"]] == [1, 1]
+    state = tm.init_decode_state(cfg, 3, 8, 4, device="cpu")
+    assert tuple(state.caches[0]["ring_k"].shape) == (1, 3, 8, 2, 16)
+    assert tuple(state.caches[1]["k_slabs"].shape) == (1, 8, 16, 2, 16)
 
 
 def test_torch_pooled_slabs_raise():
