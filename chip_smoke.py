@@ -12,8 +12,10 @@ and the script exits non-zero):
   kernels   each hand-written kernel against its plain PyTorch version on the
             card, at the reference's test shapes and at the full-width shapes
             of the serving paths (Qwen3-14B at head_dim 128, Gemma-3-4B at
-            head_dim 256, K2 with and without Gemma's window); timed against
-            the plain version, a PyTorch library call and the card's bound.
+            head_dim 256, K2 with and without Gemma's window, Qwen3-235B-A22B
+            at 16 query heads a kv head, Kimi-K2 at head_dim 112); timed
+            against the plain version, a PyTorch library call and the card's
+            bound.
             The page walk (K3) is checked with the serving path's mutation
             lists too (a wave's allocations, a wave switch, an entry not
             applied), bit-exact, the updated table included; through the
@@ -21,16 +23,21 @@ and the script exits non-zero):
             arguments it must refuse
   serve     each arch at its published widths served through
             the numaPTE paged-KV path (random weights from a seed): Qwen3-14B
-            (global layers, depth ``--layers``) and Gemma-3-4B (all 34
+            (global layers, depth ``--layers``), Gemma-3-4B (all 34
             layers: 29 local layers decode from ring caches, 5 global layers
-            through the block table).  The launch counters of the three
+            through the block table), the mixture-of-experts configs
+            Qwen3-235B-A22B (8 of 94 layers) and Kimi-K2 (2 of 61: its dense
+            first layer and one MoE layer), Nemotron-4-15B (all 32) and
+            Chameleon-34B (24 of 48).  The launch counters of the three
             kernels are zeroed before each and read after
   parity    the same widths at a cut depth, per arch: kernel path against
-            plain path (bf16 logits, float32 token ids), and the three
-            coherence modes against each other
+            plain path (bf16 logits, float32 token ids where the weights fit
+            in float32, and for the MoE configs the share of expert ids that
+            agree), and the three coherence modes against each other
   coherence the port's serving_coherence benchmark (three modes of
             Qwen3-14B at published widths, 4 layers, and the budget row)
-  profile   (only when asked for) the serving loop of each arch under
+  profile   (only when asked for) the serving loop of Qwen3-14B, Gemma-3-4B
+            and Qwen3-235B-A22B (its serve depth) under
             ``torch.profiler`` at two generation lengths: their difference
             gives the device-busy time, the kernel launches and the largest
             kernels of one decode step; the step's wall time comes from a run
@@ -47,6 +54,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -74,9 +82,9 @@ from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.pte_gather import pte_gather, pte_gather_ref  # noqa: E402
 from repro_torch.kvcache import PagedKVManager  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.models import (decode_step, greedy_sample,  # noqa: E402
-                                init_decode_state, init_params, layer_groups,
-                                prefill)
+from repro_torch.models import (active_param_count,  # noqa: E402
+                                decode_step, init_decode_state, init_params,
+                                layer_groups, param_count, prefill)
 from repro_torch.pagedpt.blocktable import (CoherenceMode,  # noqa: E402
                                             apply_mutations)
 
@@ -564,6 +572,37 @@ def phase_kernels():
     paged += [paged_case(*gemma_paged, dt) for dt in both]    # ragged lengths
     flash += [flash_case(4, 8, 4, 2048, 256, True, win, f32)
               for win in (1024, None)]
+    # the MoE configs' serving shapes (batch 16, prompt 1024 + 64 generated,
+    # 4 416 frames, tables of 69 columns): Qwen3-235B-A22B's 64 query heads
+    # on 4 kv heads (G = 16 fills one head group of K1) and Kimi-K2's
+    # head_dim 112, which both kernels run on their 128 instance with
+    # columns 112-127 zero
+    qwen_moe_paged = (16, 64, 4, 128, 16, 69, 4416, None)
+    kimi_paged = (16, 64, 8, 112, 16, 69, 4416, None)
+    # the dense configs served beside them: Nemotron-4-15B's 48 query heads
+    # on 8 kv heads (G = 6) and Chameleon-34B's 64 on 8 (G = 8), head_dim 128
+    nemotron_paged = (16, 48, 8, 128, 16, 69, 4416, None)
+    chameleon_paged = (16, 64, 8, 128, 16, 69, 4416, None)
+    for shape in (qwen_moe_paged, kimi_paged, nemotron_paged, chameleon_paged):
+        paged += [paged_case(*shape, dt, lens=np.full(16, 1057), dead_row=dead)
+                  for dt in both for dead in (False, True)]
+        paged += [paged_case(*shape, dt, dead_row=dead)     # ragged lengths
+                  for dt in both for dead in (False, True)]
+    # head_dim 112 split across blocks, so that the combine's loops over
+    # hd / 4 run below the kernel's 128 columns
+    small_112 = (2, 8, 2, 112, 16, 64, 160, None)
+    for dt in both:
+        n_splits = paged_ops._plan(DEV.index, paged_ops._DTYPES[dt], 2, 8,
+                                   2, 112, 64, 16, None)[1]
+        check(n_splits > 1, f"head_dim 112 case runs {n_splits} split")
+    paged += [paged_case(*small_112, dt, lens=lens, dead_row=dead)
+              for dt in both for lens, dead in (([1000, 333], False),
+                                                ([1000, 777], True))]
+    flash += [flash_case(4, 64, 4, 1024, 128, True, None, f32),
+              flash_case(4, 64, 8, 1024, 112, True, None, f32)]
+    flash += [flash_case(B, H, 8, 1024, 128, True, None, dt)     # G = 6, 8
+              for H in (48, 64) for B, dt in ((16, bf16), (4, f32))]
+    flash += [flash_case(2, 8, 2, 333, 112, True, 100, dt) for dt in both]
     main = {
         "paged_attention": paged_case(16, 40, 8, 128, 16, 69, 4416, None, bf16,
                                       lens=np.full(16, 1057)),
@@ -576,6 +615,14 @@ def phase_kernels():
                                                       1024, bf16),
         "flash_attention/gemma3_4b_global": flash_case(16, 8, 4, 2048, 256, True,
                                                        None, bf16),
+        "paged_attention/qwen3_moe": paged_case(*qwen_moe_paged, bf16,
+                                                lens=np.full(16, 1057)),
+        "paged_attention/kimi_k2": paged_case(*kimi_paged, bf16,
+                                              lens=np.full(16, 1057)),
+        "flash_attention/qwen3_moe": flash_case(16, 64, 4, 1024, 128, True,
+                                                None, bf16),
+        "flash_attention/kimi_k2": flash_case(16, 64, 8, 1024, 112, True,
+                                              None, bf16),
         "pte_gather": pte_case(64, 512, 16 * 69, 3, logical=np.where(
             np.arange(16 * 69) % 69 < 67,
             (np.arange(16 * 69) // 69) * 512 + np.arange(16 * 69) % 69, -1)),
@@ -587,8 +634,10 @@ def phase_kernels():
                         [np.empty(0, np.int32)] * 3 + [np.empty(0, bool)])
     ptes += [no_list, *serving.values()]
     # timed sub-dicts of a row, each also checked as a case
-    subs = {"paged_attention": ["long_context", "gemma3_4b"],
-            "flash_attention": ["gemma3_4b_local", "gemma3_4b_global"]}
+    subs = {"paged_attention": ["long_context", "gemma3_4b", "qwen3_moe",
+                                "kimi_k2"],
+            "flash_attention": ["gemma3_4b_local", "gemma3_4b_global",
+                                "qwen3_moe", "kimi_k2"]}
     controls = {"paged_attention": (paged_p_bf16, [None]),
                 "flash_attention": (flash_p_bf16, [None, "gemma3_4b_global"])}
     spec = {
@@ -668,6 +717,13 @@ def timed(fn, ref, bound, library, args, kw):
 
 
 # ------------------------------------------------------------------- serving
+def release() -> None:
+    """Hand the card's memory that the previous arch's weights held back to
+    the allocator, so that the next arch's 35-48 GB find it in one piece."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def reset_counters() -> None:
     for fn in KERNEL_FNS.values():
         fn.launches = 0
@@ -675,13 +731,23 @@ def reset_counters() -> None:
 
 # the prompt each arch is served with: Gemma's is longer than its 1 024-token
 # window, so K2's tile skip and the ring's wrap both run
-PROMPT_LEN = {"qwen3_14b": 1024, "gemma3_4b": 2048}
+PROMPT_LEN = {"qwen3_14b": 1024, "gemma3_4b": 2048, "qwen3_moe_235b_a22b": 1024,
+              "kimi_k2_1t_a32b": 1024, "nemotron_4_15b": 1024,
+              "chameleon_34b": 1024}
+# the depth each arch is served at (None: all its layers).  Widths are never
+# cut; a depth is cut where the weights would not fit the card's 80 GB with
+# the KV slabs and the activations: Qwen3-235B-A22B's 8 layers hold 38.7 GB of
+# experts, Kimi-K2's 2 its dense first layer and one MoE layer (33.8 GB of
+# experts), Chameleon-34B's 24 34.3 GB of weights beside 6.9 GB of slabs
+SERVE_DEPTH = {"qwen3_14b": 40, "gemma3_4b": None, "qwen3_moe_235b_a22b": 8,
+               "kimi_k2_1t_a32b": 2, "nemotron_4_15b": None, "chameleon_34b": 24}
 
 
 def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
     """``serve()`` at published widths (depth cut to ``n_layers`` if given)
     with the launch counters zeroed before and read after."""
     prompt_len = PROMPT_LEN[arch]
+    release()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.perf_counter()
@@ -711,7 +777,12 @@ def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
     emit({"phase": "serve", "arch": arch, "widths": "published",
           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
-          "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size, "layers_run": L,
+          "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+          "n_experts": cfg.n_experts, "experts_per_token": cfg.experts_per_token,
+          "moe_d_ff": cfg.moe_d_ff, "n_shared_experts": cfg.n_shared_experts,
+          "first_dense_layers": cfg.first_dense_layers,
+          "param_count": param_count(cfg),
+          "active_param_count": active_param_count(cfg), "layers_run": L,
           "layers_published": cfg.n_layers, "global_layers_run": n_global,
           "local_window": cfg.local_window, "batch": batch,
           "prompt_len": prompt_len, "gen_len": gen_len, "launches": counts,
@@ -736,6 +807,50 @@ def plain_versions():
     finally:
         (attention.flash_attention, attention.paged_attention,
          manager.pte_gather) = saved
+
+
+@contextlib.contextmanager
+def routes_recorded(into: list, follow=None):
+    """Append the routes (``moe.Routes``: probabilities, expert ids [N, k])
+    that each MoE call of the model picks, in call order, by wrapping the
+    name ``moe_forward`` looks up, as ``plain_versions`` swaps the kernels.
+    With ``follow`` (the routes another run recorded) each call takes that
+    run's expert ids instead of its own, its gates renormalised from its own
+    probabilities; ``into`` still gets its own picks."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def recording(cfg, p, xf):
+        own = real(cfg, p, xf)
+        into.append(own)
+        if follow is None:
+            return own
+        eids = follow[len(into) - 1].eids
+        gates = own.probs.gather(1, eids)
+        return moe.Routes(own.probs, eids, gates / gates.sum(-1, keepdim=True))
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def route_agreement(mine: list, theirs: list) -> dict:
+    """The share of (token, layer, k) expert ids of ``mine`` equal to those
+    of ``theirs``, and the largest relative probability gap, under ``mine``'s
+    probabilities, between an expert one side took and the other left (a
+    near-tie below ``moe.NEAR_TIE``)."""
+    from repro_torch.models import moe
+    check(len(mine) == len(theirs) > 0, "no MoE call recorded")
+    same = total = 0
+    gap = 0.0
+    for a, b in zip(mine, theirs):
+        same += int((a.eids == b.eids).sum())
+        total += a.eids.numel()
+        gap = max(gap, moe.route_flips(a.probs, a.eids, b.eids)[1])
+    return {"route_agreement": same / total, "routes_compared": total,
+            "largest_gap": gap}
 
 
 def first_wave(cfg, params, batch, prompt_len, steps):
@@ -770,7 +885,9 @@ def rel_err(a, b) -> float:
 
 # per arch: the depth, then (batch, prompt, decode steps) of the bf16 logits
 # check, and the serve() runs of the mode check (a partial last wave) and of
-# the float32 token check.  Gemma's prompts pass its 1 024-token window.
+# the float32 token check (None where the weights do not fit in float32: one
+# MoE layer of Kimi-K2 is 67.6 GB).  Gemma's prompts pass its 1 024-token
+# window.
 PARITY = {
     "qwen3_14b": dict(
         n_layers=2, bf16=(8, 512, 1),
@@ -780,6 +897,14 @@ PARITY = {
         n_layers=6, bf16=(4, 1536, 3),
         modes=dict(batch=4, prompt_len=1100, gen_len=8, n_requests=10),
         f32=dict(batch=4, prompt_len=1536, gen_len=8, n_requests=4)),
+    "qwen3_moe_235b_a22b": dict(
+        n_layers=2, bf16=(8, 512, 3),
+        modes=dict(batch=8, prompt_len=128, gen_len=8, n_requests=20),
+        f32=dict(batch=8, prompt_len=256, gen_len=8, n_requests=8)),
+    "kimi_k2_1t_a32b": dict(
+        n_layers=2, bf16=(8, 512, 3),
+        modes=dict(batch=8, prompt_len=128, gen_len=8, n_requests=20),
+        f32=None),
 }
 
 
@@ -789,13 +914,45 @@ def phase_parity(arch: str):
     out = {"phase": "parity", "arch": arch, "layers": spec["n_layers"]}
     # bf16, published widths: logits of the kernel path against the plain path
     cfg = dataclasses.replace(get_config(arch), n_layers=spec["n_layers"])
+    release()
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                          param_dtype=cfg.dtype)
-    got = first_wave(cfg, params, *spec["bf16"])
-    with plain_versions():
+    routes_got, routes_want = [], []
+    with routes_recorded(routes_got):
+        got = first_wave(cfg, params, *spec["bf16"])
+    if cfg.n_experts:
+        from repro_torch.models.moe import NEAR_TIE
+        # Run freely, the two paths' bf16 hidden states differ by an ulp
+        # here and there, a route flips where two experts' router
+        # probabilities are that close, and a flipped token's output moves
+        # by far more than the logits' bound; later layers then see other
+        # inputs.  The input of each step's first MoE layer depends on no
+        # route (its attention reads keys and values computed before any
+        # MoE layer), so its flips must be near-ties.
+        routes_free = []
+        with plain_versions(), routes_recorded(routes_free):
+            free = first_wave(cfg, params, *spec["bf16"])
+        per_step = len(routes_got) // (1 + spec["bf16"][2])
+        first = route_agreement(routes_free[::per_step], routes_got[::per_step])
+        out["free_running"] = {
+            "bf16_rel": [rel_err(g, w) for g, w in zip(got, free)],
+            **route_agreement(routes_free, routes_got),
+            "first_moe_layer": first}
+        check(first["largest_gap"] < NEAR_TIE,
+              f"free-running, a first-MoE-layer route differs at no near-tie: {out}")
+        del free, routes_free
+    # The checked comparison of the logits: the plain path takes the kernel
+    # path's expert ids; its own picks may then differ only at near-ties.
+    with plain_versions(), routes_recorded(
+            routes_want, follow=routes_got if cfg.n_experts else None):
         want = first_wave(cfg, params, *spec["bf16"])
     rels = [rel_err(g, w) for g, w in zip(got, want)]
     out["bf16_prefill_rel"], out["bf16_decode_rel"] = rels[0], rels[1:]
+    if cfg.n_experts:
+        out.update(route_agreement(routes_want, routes_got))
+        check(out["largest_gap"] < NEAR_TIE,
+              f"a route of the plain path differs at no near-tie: {out}")
+    del routes_got, routes_want
     check(max(rels) < 0.03,
           f"bf16 logits: kernel path and plain path differ: {out}")
     # the three coherence modes serve the same tokens
@@ -807,8 +964,12 @@ def phase_parity(arch: str):
           "token ids differ between local / eager / numapte")
     out["modes_equal_tokens"] = int(ids[0].size)
     out["fetches"] = {m: r["fetches"] for m, r in runs.items()}
-    del params
-    torch.cuda.empty_cache()
+    del params, runs
+    release()
+    if spec["f32"] is None:
+        out["f32_equal_tokens"] = "not run: the float32 weights do not fit"
+        emit(out)
+        return
     # float32 (TF32 off): greedy token ids equal, kernel path against plain
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0),
@@ -822,7 +983,7 @@ def phase_parity(arch: str):
           "float32 token ids: kernel path and plain path differ")
     out["f32_equal_tokens"] = int(got.size)
     del params
-    torch.cuda.empty_cache()
+    release()
     emit(out)
 
 
@@ -856,6 +1017,7 @@ def phase_profile(arch: str, n_layers=None, walks: bool = True,
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+    release()
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                          param_dtype=cfg.dtype)
     kw = dict(cfg=cfg, params=params, batch=16, prompt_len=PROMPT_LEN[arch],
@@ -902,12 +1064,12 @@ def phase_profile(arch: str, n_layers=None, walks: bool = True,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="kernels,serve,parity,coherence")
-    ap.add_argument("--layers", type=int, default=40,
+    ap.add_argument("--layers", type=int, default=SERVE_DEPTH["qwen3_14b"],
                     help="depth of the Qwen3-14B serve and profile (widths are "
-                         "never cut; Gemma-3-4B always runs all 34 layers)")
+                         "never cut; every other arch runs at SERVE_DEPTH)")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    depth = {"qwen3_14b": args.layers, "gemma3_4b": None}
+    depth = dict(SERVE_DEPTH, qwen3_14b=args.layers)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -930,13 +1092,14 @@ def main() -> None:
             row["launches_by_arch"] = {a: c[row["name"]] for a, c in counts.items()}
             row["launches"] = sum(row["launches_by_arch"].values())
     if "parity" in phases:
-        for arch in depth:
+        for arch in PARITY:
             phase_parity(arch)
     if "coherence" in phases:
         phase_coherence()
     if "profile" in phases:
-        for i, (arch, n) in enumerate(depth.items()):
-            phase_profile(arch, n, walks=i == 0)
+        for i, arch in enumerate(("qwen3_14b", "gemma3_4b",
+                                  "qwen3_moe_235b_a22b")):
+            phase_profile(arch, depth[arch], walks=i == 0)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

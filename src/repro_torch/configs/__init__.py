@@ -10,9 +10,11 @@ import importlib
 
 from ..models.common import ModelConfig
 
-#: the architectures ported so far (dense, decoder-only; global attention,
-#: or a local : global pattern of windowed and global layers)
-ARCH_IDS = ["qwen3_14b", "yi_6b", "gemma3_4b"]
+#: the architectures ported so far (decoder-only; global attention or a
+#: local : global pattern of windowed and global layers; a dense or a
+#: mixture-of-experts FFN)
+ARCH_IDS = ["qwen3_14b", "yi_6b", "gemma3_4b", "qwen3_moe_235b_a22b",
+            "kimi_k2_1t_a32b", "nemotron_4_15b", "chameleon_34b"]
 
 
 def _module(name: str):

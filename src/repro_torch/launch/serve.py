@@ -10,6 +10,16 @@ each policy.  Runs on the GPU unless ``device="cpu"`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_4b \
         --full-width --requests 32 --batch 16 --prompt-len 2048 --gen-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b --mode eager
+
+A mixture-of-experts config does not fit one card at its published depth;
+``--layers`` cuts the depth and keeps every width:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3_moe_235b_a22b --full-width --layers 8 \
+        --requests 32 --batch 16 --prompt-len 1024 --gen-len 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch kimi_k2_1t_a32b --full-width --layers 2 \
+        --requests 32 --batch 16 --prompt-len 1024 --gen-len 64
 """
 from __future__ import annotations
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -129,9 +130,10 @@ def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
 
 def require_ported(cfg: ModelConfig) -> List[LayerGroup]:
     """The layer groups of ``cfg``, or NotImplementedError naming the ROADMAP
-    item when the config needs a part that is not ported yet.  Ported: dense,
-    decoder-only, global and local-window attention (a window group keeps a
-    ring cache, a global group paged slabs), RMSNorm, RoPE."""
+    item when the config needs a part that is not ported yet.  Ported:
+    decoder-only stacks of global and local-window attention (a window group
+    keeps a ring cache, a global group paged slabs) with a dense or a
+    mixture-of-experts FFN, RMSNorm, RoPE."""
     def missing(what: str, item: str) -> NotImplementedError:
         return NotImplementedError(
             f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1 item {item})")
@@ -146,8 +148,6 @@ def require_ported(cfg: ModelConfig) -> List[LayerGroup]:
     for g in groups:
         if g.kind in ("ssd", "rglru"):
             raise missing(f"the {g.kind} layer", "11")
-        if g.moe:
-            raise missing("the mixture-of-experts FFN", "11")
     return groups
 
 
@@ -215,15 +215,35 @@ def ffn_has_gate(name: str) -> bool:
 
 
 # --------------------------------------------------------------------------- init
+#: a stand-in for a generator that makes every parameter an empty tensor on
+#: the meta device: ``init_params(cfg, SHAPES_ONLY)`` gives shapes and dtypes
+#: and allocates nothing (a trillion-parameter config is counted this way)
+SHAPES_ONLY = SimpleNamespace(device=torch.device("meta"))
+
+
 def _dense(gen: torch.Generator, shape: Sequence[int], dtype,
            scale: float = 1.0) -> torch.Tensor:
     """Normal(0, scale / sqrt(fan_in)), drawn in float32 on the generator's
-    device and stored as ``dtype``."""
+    device and stored as ``dtype``.  fan_in is ``shape[0]``, as the
+    reference takes it.  A stacked tensor (three axes or more: the experts)
+    is drawn one leading slice at a time, so that the float32 temporary is
+    one slice and never the whole tensor."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else 1
     std = scale / math.sqrt(fan_in)
-    out = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                      device=gen.device)
-    return out.mul_(std).to(dtype)
+
+    def draw(s: Sequence[int]) -> torch.Tensor:
+        out = torch.randn(tuple(s), generator=gen, dtype=torch.float32,
+                          device=gen.device)
+        return out.mul_(std).to(dtype)
+
+    if len(shape) < 3:
+        return draw(shape)
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out
 
 
 def init_norm(cfg: ModelConfig, d: int, dtype, device) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,181 @@
+"""Mixture-of-experts FFN: top-k routing with a per-expert capacity.
+
+Sort-based capacity dispatch with static shapes, as the reference computes
+it: the N*k assignments are ranked within their expert by a stable sort, and
+those beyond the per-expert capacity C are dropped (Switch-style).  The
+experts run as three batched products over ``[E, C, D]``; every expert's
+weights are read whatever its load.  Plain PyTorch on both devices (the
+reference computes it in plain jnp, outside any kernel).
+
+Two choices keep the routes and outputs those of the reference on every
+device:
+  * top-k is the first k of a *stable* descending sort, so that at a tie the
+    lower expert id wins, as ``jax.lax.top_k`` picks it (``torch.topk``
+    promises no order among equals);
+  * the combine gathers each token's kept results and adds them in ascending
+    expert order in ``cfg.dtype``, the order in which the reference's
+    scatter-add rounds them; an ``index_add_`` would add in a different
+    order on each CUDA run.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from .common import ModelConfig, _dense, activation, ffn_has_gate
+from .ffn import ffn_forward, init_ffn
+
+CAPACITY_FACTOR = 1.25
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype
+             ) -> Dict[str, object]:
+    """``router`` [D,E] (scale 0.1), ``we_in``/``we_gate`` [E,D,F],
+    ``we_out`` [E,F,D] and, with shared experts, a dense ``shared`` FFN of
+    width ``moe_d_ff * n_shared_experts``.  The expert tensors take the
+    reference's fan-in, ``shape[0]`` = E."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    p: Dict[str, object] = {
+        "router": _dense(gen, (d, e), dtype, scale=0.1),
+        "we_in": _dense(gen, (e, d, f), dtype),
+        "we_out": _dense(gen, (e, f, d), dtype),
+    }
+    if ffn_has_gate(cfg.ffn_act):
+        p["we_gate"] = _dense(gen, (e, d, f), dtype)
+    if cfg.n_shared_experts:
+        p["shared"] = init_ffn(cfg, gen, dtype,
+                               d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
+
+
+def expert_capacity(n_tokens: int, n_experts: int, top_k: int,
+                    factor: float = CAPACITY_FACTOR) -> int:
+    c = int(n_tokens * top_k * factor / n_experts)
+    return max(8, -(-c // 8) * 8)   # round up to 8, as the reference does
+
+
+class Routes(NamedTuple):
+    probs: torch.Tensor     # [N,E] float32 softmax of the router
+    eids: torch.Tensor      # [N,k] int64 expert ids, by falling probability
+    gates: torch.Tensor     # [N,k] float32, renormalised over the k
+
+
+def route(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor
+          ) -> Routes:
+    """Router product in ``cfg.dtype``, softmax in float32, top-k as the
+    first k of a stable descending sort (ties go to the lower expert id)."""
+    logits = (xf @ p["router"].to(cfg.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    gates = vals[:, :k]
+    return Routes(probs, idx[:, :k], gates / gates.sum(dim=-1, keepdim=True))
+
+
+# Two runs that round differently (the two frameworks in bfloat16, or the
+# kernel path against the plain one) see hidden states an ulp or two apart,
+# so they may pick different experts, but only where the two experts' router
+# probabilities lie within NEAR_TIE of the larger: two bf16 steps of a router
+# logit of order one.
+NEAR_TIE = 2.0 ** -7
+
+
+def route_flips(probs: torch.Tensor, mine: torch.Tensor, theirs: torch.Tensor
+                ) -> Tuple[int, float]:
+    """Between two runs' expert ids ``mine`` and ``theirs`` [N,k] of one MoE
+    call: the number of ``mine`` that ``theirs`` lacks, and the largest gap,
+    relative to the larger and under ``probs`` [N,E], between an expert one
+    run took and the other left (0.0 where the routes agree).  A gap below
+    ``NEAR_TIE`` is a near-tie."""
+    mine, theirs = mine.cpu(), theirs.cpu()
+    differ = (mine.sort(-1).values != theirs.sort(-1).values).any(-1)
+    flips, gap = 0, 0.0
+    for p, a, b in zip(probs.cpu()[differ].tolist(), mine[differ].tolist(),
+                       theirs[differ].tolist()):
+        took, left = set(a) - set(b), set(b) - set(a)
+        flips += len(took)
+        for x in took:
+            for y in left:
+                gap = max(gap, abs(p[x] - p[y]) / max(p[x], p[y]))
+    return flips, gap
+
+
+class Dispatch(NamedTuple):
+    tok: torch.Tensor       # [E,C] int64 token of each slot, N where empty
+    w: torch.Tensor         # [E,C] float32 gate of each slot, 0 where empty
+    slot: torch.Tensor      # [N,k] int64 slot e*C + rank of each assignment,
+                            #       E*C where it was dropped
+
+
+def dispatch(routes: Routes, n_experts: int, capacity: int) -> Dispatch:
+    """Stable sort of the N*k assignments by expert; an assignment's rank is
+    its place among its expert's, and those of rank >= capacity drop.
+    Within an expert the sort keeps token order, so rows later in the batch
+    (a partial wave's padding) never displace an earlier row."""
+    N, K = routes.eids.shape
+    E, C = n_experts, capacity
+    dev = routes.eids.device
+    flat_e = routes.eids.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    first = torch.searchsorted(se, torch.arange(E, device=dev), right=False)
+    rank = torch.arange(N * K, device=dev) - first[se]
+    slot_sorted = torch.where(rank < C, se * C + rank,
+                              torch.full_like(rank, E * C))
+    tok = torch.full((E * C + 1,), N, dtype=torch.int64, device=dev)
+    tok[slot_sorted] = order // K              # the sentinel slot is cut off
+    w = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
+    w[slot_sorted] = routes.gates.reshape(-1)[order]
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    return Dispatch(tok[:-1].reshape(E, C), w[:-1].reshape(E, C),
+                    slot.reshape(N, K))
+
+
+def moe_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,D] -> (out [B,S,D], aux: the Switch load-balance loss, a
+    float32 scalar).  Capacity comes from the N = B*S tokens of this call."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    N = B * S
+    xf = x.reshape(N, D)
+    routes = route(cfg, p, xf)
+
+    # load-balance auxiliary loss (Switch); counts by a scatter, which unlike
+    # bincount does not wait for the card
+    flat = routes.eids.reshape(-1)
+    counts = torch.zeros((E,), dtype=torch.float32, device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.float32))
+    aux = E * torch.sum(routes.probs.mean(dim=0) * (counts / N))
+
+    C = expert_capacity(N, E, K, cfg.moe_capacity_factor)
+    disp = dispatch(routes, E, C)
+
+    # the experts: three batched products over every expert's C slots; each
+    # activation is freed once the next product has it (at full-width prefill
+    # xe alone is 1.3-2.4 GB)
+    x_pad = torch.cat([xf, xf.new_zeros((1, D))])
+    xe = x_pad[disp.tok]                                     # [E,C,D]
+    h = torch.bmm(xe, p["we_in"].to(cfg.dtype))
+    gate = torch.bmm(xe, p["we_gate"].to(cfg.dtype)) if "we_gate" in p else None
+    del xe
+    h = activation(cfg.ffn_act, h, gate)
+    del gate
+    ye = torch.bmm(h, p["we_out"].to(cfg.dtype))
+    del h
+    ye = (ye * disp.w[..., None].to(cfg.dtype)).reshape(E * C, D)
+    ye = torch.cat([ye, ye.new_zeros((1, D))])     # the sentinel slot E*C
+
+    # the combine: each token's kept results, added in ascending expert order
+    # in cfg.dtype, as the reference's scatter-add adds them; a dropped
+    # assignment adds the zero row
+    by_expert = torch.argsort(routes.eids, dim=-1)
+    slots = torch.gather(disp.slot, 1, by_expert)            # [N,k]
+    out = ye[slots[:, 0]]
+    for j in range(1, K):
+        out = out + ye[slots[:, j]]
+    if cfg.n_shared_experts:
+        out = out + ffn_forward(cfg, p["shared"], xf[None])[0]
+    return out.reshape(B, S, D), aux

@@ -12,8 +12,10 @@ block-table translation; local-window groups hold per-sequence rings
 ``decode_step`` update the caches IN PLACE and return a state that shares
 them; a ring is rebuilt (zeroed, then filled) by every prefill.
 
-Ported so far: dense, decoder-only configs with global attention (yi_6b,
-qwen3_14b) or a local : global layer pattern (gemma3_4b).  Anything else
+Ported so far: decoder-only configs with global attention (yi_6b,
+qwen3_14b, nemotron_4_15b, chameleon_34b), a local : global layer pattern
+(gemma3_4b), or a mixture-of-experts FFN (qwen3_moe_235b_a22b,
+kimi_k2_1t_a32b; a layer group's ``moe`` flag picks it).  Anything else
 raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -27,21 +29,24 @@ from .._device import DeviceLike, resolve_device
 from ..kvcache.gather import scatter_prefill_plain
 from .attention import (attend_causal, attn_decode_paged, attn_decode_ring,
                         attn_forward, init_attn, project_qk_rope_v)
-from .common import (LayerGroup, ModelConfig, _dense, apply_norm, init_norm,
-                     require_ported, rope_tables)
+from .common import (SHAPES_ONLY, LayerGroup, ModelConfig, _dense, apply_norm,
+                     init_norm, require_ported, rope_tables)
 from .ffn import ffn_forward, init_ffn
+from .moe import init_moe, moe_forward
 
 PyTree = Any
 
 
 # --------------------------------------------------------------------------- init
-def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> PyTree:
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype,
+                group: LayerGroup) -> PyTree:
     dev = gen.device
     return {
         "norm1": init_norm(cfg, cfg.d_model, dtype, dev),
         "attn": init_attn(cfg, gen, dtype),
         "norm2": init_norm(cfg, cfg.d_model, dtype, dev),
-        "ffn": init_ffn(cfg, gen, dtype),
+        **({"moe": init_moe(cfg, gen, dtype)} if group.moe
+           else {"ffn": init_ffn(cfg, gen, dtype)}),
     }
 
 
@@ -54,7 +59,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     dtype = param_dtype or cfg.param_dtype
     groups = require_ported(cfg)
     params: Dict[str, PyTree] = {
-        "groups": [[_init_layer(cfg, gen, dtype) for _ in range(g.n_layers)]
+        "groups": [[_init_layer(cfg, gen, dtype, g) for _ in range(g.n_layers)]
                    for g in groups],
         "final_norm": init_norm(cfg, cfg.d_model, dtype, gen.device),
         "embedding": _dense(gen, (cfg.vocab_size, cfg.d_model), dtype),
@@ -62,6 +67,35 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense(gen, (cfg.d_model, cfg.vocab_size), dtype)
     return params
+
+
+def _leaves(tree: PyTree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of ``cfg``, from shapes alone (meta tensors: nothing is
+    drawn or allocated)."""
+    return sum(t.numel() for t in _leaves(init_params(cfg, SHAPES_ONLY)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: the top-k experts only), by the
+    reference's formula."""
+    total = param_count(cfg)
+    if cfg.n_experts == 0:
+        return total
+    moe_layers = cfg.n_layers - cfg.first_dense_layers
+    per_expert = cfg.d_model * cfg.moe_d_ff * (
+        3 if cfg.ffn_act in ("silu", "geglu") else 2)
+    return total - moe_layers * (cfg.n_experts - cfg.experts_per_token) * per_expert
 
 
 def params_from_jax(cfg: ModelConfig, tree: PyTree, *,
@@ -112,8 +146,15 @@ def _lm_head(cfg: ModelConfig, params: PyTree, x: torch.Tensor) -> torch.Tensor:
     return x @ head.to(cfg.dtype)
 
 
-def _ffn_block(cfg: ModelConfig, lp: PyTree, x: torch.Tensor) -> torch.Tensor:
-    return x + ffn_forward(cfg, lp["ffn"], apply_norm(cfg, x, lp["norm2"]))
+def _ffn_block(cfg: ModelConfig, lp: PyTree, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x + the layer's FFN (dense, or the experts when the layer has
+    ``moe``), and the MoE auxiliary loss (None for a dense layer)."""
+    h = apply_norm(cfg, x, lp["norm2"])
+    if "moe" in lp:
+        f, aux = moe_forward(cfg, lp["moe"], h)
+        return x + f, aux
+    return x + ffn_forward(cfg, lp["ffn"], h), None
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -124,17 +165,20 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 def forward_lm(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decoder-only LM forward.  tokens: [B,S] int -> (logits [B,S,V], aux);
-    aux is the MoE auxiliary loss, zero for the dense configs."""
+    aux is the sum of the MoE layers' auxiliary losses, zero for a dense
+    config."""
     groups = require_ported(cfg)
     x = _embed(cfg, params, tokens)
     positions = _positions(tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for g, gp in zip(groups, params["groups"]):
         for lp in gp:
             h = apply_norm(cfg, x, lp["norm1"])
             x = x + attn_forward(cfg, lp["attn"], h, positions,
                                  window=g.window, rope_theta=g.rope_theta)
-            x = _ffn_block(cfg, lp, x)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            x, a = _ffn_block(cfg, lp, x)
+            if a is not None:
+                aux = aux + a
     return _lm_head(cfg, params, x), aux
 
 
@@ -205,7 +249,7 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
             a, _, _ = attn_decode_ring(
                 cfg, lp["attn"], h, positions, cache["ring_k"][li],
                 cache["ring_v"][li], rope=rope, window=g.window)
-        x = _ffn_block(cfg, lp, x + a)
+        x, _ = _ffn_block(cfg, lp, x + a)
     return x
 
 
@@ -253,7 +297,7 @@ def _prefill_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
                 ring = cache[name][li]
                 ring.zero_()
                 ring[:, src % W] = t[:, src].to(ring.dtype)
-        x = _ffn_block(cfg, lp, x + a)
+        x, _ = _ffn_block(cfg, lp, x + a)
     return x
 
 

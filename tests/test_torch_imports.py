@@ -26,8 +26,10 @@ def test_torch_port_has_the_reference_layout():
                 "kernels.pte_gather.ops", "kernels._build", "pagedpt.host",
                 "pagedpt.blocktable", "kvcache.manager", "kvcache.gather",
                 "models.transformer", "models.attention", "models.common",
-                "models.ffn", "configs.qwen3_14b", "configs.yi_6b",
-                "configs.gemma3_4b", "launch.serve",
+                "models.ffn", "models.moe", "configs.qwen3_14b", "configs.yi_6b",
+                "configs.gemma3_4b", "configs.qwen3_moe_235b_a22b",
+                "configs.kimi_k2_1t_a32b", "configs.nemotron_4_15b",
+                "configs.chameleon_34b", "launch.serve",
                 "benchmarks.serving_coherence"):
         assert f"repro_torch.{sub}" in MODULES
 
@@ -65,7 +67,9 @@ def test_torch_chip_smoke_refuses_to_run_without_a_gpu():
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE_CONFIG"])
-@pytest.mark.parametrize("arch", ["qwen3_14b", "yi_6b", "gemma3_4b"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "yi_6b", "gemma3_4b",
+                                  "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b",
+                                  "nemotron_4_15b", "chameleon_34b"])
 def test_torch_configs_equal_reference_field_for_field(arch, which):
     import importlib
     ours = getattr(importlib.import_module(f"repro_torch.configs.{arch}"), which)

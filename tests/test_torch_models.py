@@ -8,6 +8,14 @@ numpy pytree into the port's parameters.  float32 runs compare to atol 2e-4
 rel < 0.03, the bound of tests/test_models.py (bf16 rounds at other places
 in the two frameworks, and the reference's default path rounds the
 probabilities to bf16 where the kernels keep float32).
+
+A mixture-of-experts layer routes each token to its top-k experts.  In
+bfloat16 the two frameworks' hidden states differ by an ulp or two, and
+where two experts' router probabilities lie closer than that, the top-k
+flips and the token takes another expert's output.  So the MoE forward test
+records the reference's routes, requires the port's own routes to equal them
+(float32) or to differ only at such near-ties (bfloat16), and compares the
+logits with the port following the reference's routes.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import models as tm  # noqa: E402
 from repro_torch.models.common import require_ported  # noqa: E402
 
-ARCHS = ["yi_6b", "qwen3_14b"]
+ARCHS = ["yi_6b", "qwen3_14b", "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b",
+         "nemotron_4_15b", "chameleon_34b"]
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 B, S, STEPS = 2, 24, 3
 
@@ -73,13 +82,72 @@ def _close(got, want, dtype: str, what: str):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_torch_forward_lm_matches_jax(arch, dtype):
+def test_torch_forward_lm_matches_jax(arch, dtype, monkeypatch):
     jcfg, tcfg, jparams, tparams = _setup(arch, dtype)
     tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
-    want, _ = jm.forward_lm(jcfg, jparams, jnp.asarray(tokens), remat=False)
+    if jcfg.n_experts:
+        _follow_reference_routes(monkeypatch, dtype)
+    want, want_aux = jm.forward_lm(jcfg, jparams, jnp.asarray(tokens), remat=False)
     got, aux = tm.forward_lm(tcfg, tparams, torch.from_numpy(tokens))
-    assert got.dtype == tcfg.dtype and float(aux) == 0.0
+    if jcfg.n_experts:
+        _check_own_routes(dtype)
+    assert got.dtype == tcfg.dtype and aux.dtype == torch.float32
+    if jcfg.n_experts:          # the MoE layers' summed load-balance loss
+        assert float(aux) > 0.0
+        _close(aux, want_aux, dtype, "forward_lm aux")
+    else:
+        assert float(aux) == 0.0 == float(want_aux)
     _close(got, want, dtype, "forward_lm logits")
+
+
+_ROUTES = {"reference": [], "port": []}
+
+
+def _follow_reference_routes(monkeypatch, dtype):
+    """Record each MoE call's routes on both sides; the port's MoE then
+    takes the reference's expert ids (its gates renormalised from its own
+    probabilities), so that a flip at a near-tie does not move the logits."""
+    from repro.models import transformer as jt
+    from repro_torch.models import moe as tmoe
+    ref_seen, port_seen = [], []
+    _ROUTES.update(reference=ref_seen, port=port_seen)
+    ref_moe, port_route = jt.moe_forward, tmoe.route
+
+    def recording(cfg, p, x):
+        xf = x.reshape(-1, x.shape[-1])
+        probs = jax.nn.softmax(
+            (xf @ p["router"].astype(cfg.dtype)).astype(jnp.float32), axis=-1)
+        _, eids = jax.lax.top_k(probs, cfg.experts_per_token)
+        jax.debug.callback(lambda e: ref_seen.append(np.array(e)), eids,
+                           ordered=True)
+        return ref_moe(cfg, p, x)
+
+    def following(cfg, p, xf):
+        own = port_route(cfg, p, xf)
+        port_seen.append(own)
+        eids = torch.from_numpy(ref_seen[len(port_seen) - 1]).long()
+        gates = own.probs.gather(1, eids)
+        return tmoe.Routes(own.probs, eids, gates / gates.sum(-1, keepdim=True))
+
+    monkeypatch.setattr(jt, "moe_forward", recording)
+    monkeypatch.setattr(tmoe, "route", following)
+
+
+def _check_own_routes(dtype):
+    ref_seen, port_seen = _ROUTES["reference"], _ROUTES["port"]
+    jax.effects_barrier()
+    assert len(ref_seen) == len(port_seen) > 0
+    from repro_torch.models.moe import NEAR_TIE, route_flips
+    flips = n = 0
+    for want, own in zip(ref_seen, port_seen):
+        n += want.size
+        if dtype == "f32":
+            np.testing.assert_array_equal(own.eids.numpy(), want)
+            continue
+        f, gap = route_flips(own.probs, own.eids, torch.from_numpy(want).long())
+        flips += f
+        assert gap < NEAR_TIE, f"a route flipped at no near-tie: gap {gap}"
+    assert flips <= 0.05 * n, (flips, n)
 
 
 @pytest.mark.parametrize("kernel", ["ref", "pallas"])
@@ -176,7 +244,6 @@ def test_torch_init_params_shapes_types_and_statistics():
 
 @pytest.mark.parametrize("change,item", [
     (dict(use_rope=False), "item 11"),
-    (dict(n_experts=4, experts_per_token=2, moe_d_ff=32), "item 11"),
     (dict(family="ssm"), "item 11"),
     (dict(family="hybrid", recurrent_ratio=(2, 1), local_window=8), "item 11"),
     (dict(family="encdec", n_encoder_layers=1, n_decoder_layers=1), "item 11"),
@@ -204,6 +271,23 @@ def test_torch_windowed_config_is_ported():
     state = tm.init_decode_state(cfg, 3, 8, 4, device="cpu")
     assert tuple(state.caches[0]["ring_k"].shape) == (1, 3, 8, 2, 16)
     assert tuple(state.caches[1]["k_slabs"].shape) == (1, 8, 16, 2, 16)
+
+
+def test_torch_moe_config_is_ported():
+    """The mixture-of-experts FFN (ROADMAP item 11's first entry) no longer
+    raises: an MoE config passes ``require_ported``, and ``init_params``
+    builds ``moe`` layers (after ``first_dense_layers`` dense ones)."""
+    cfg = dataclasses.replace(tconfigs.get_smoke_config("yi_6b"), n_experts=4,
+                              experts_per_token=2, moe_d_ff=32,
+                              first_dense_layers=1)
+    groups = require_ported(cfg)
+    assert [(g.moe, g.n_layers) for g in groups] == [(False, 1), (True, 1)]
+    params = tm.init_params(cfg, torch.Generator(device="cpu").manual_seed(0))
+    dense, moe = params["groups"][0][0], params["groups"][1][0]
+    assert "ffn" in dense and "moe" not in dense
+    assert "moe" in moe and "ffn" not in moe
+    assert tuple(moe["moe"]["we_in"].shape) == (4, 64, 32)
+    assert tuple(moe["moe"]["router"].shape) == (64, 4)
 
 
 def test_torch_pooled_slabs_raise():
