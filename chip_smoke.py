@@ -13,9 +13,11 @@ and the script exits non-zero):
             card, at the reference's test shapes and at the full-width shapes
             of the serving paths (Qwen3-14B at head_dim 128, Gemma-3-4B at
             head_dim 256, K2 with and without Gemma's window, Qwen3-235B-A22B
-            at 16 query heads a kv head, Kimi-K2 at head_dim 112); timed
-            against the plain version, a PyTorch library call and the card's
-            bound.
+            at 16 query heads a kv head, Kimi-K2 at head_dim 112, Yi-6B,
+            Whisper's non-causal encoder over 1 500 frames and its decoder at
+            G = 1, head_dim 64, RecurrentGemma's 10 query heads on one kv head
+            with its 2 048 window); timed against the plain version, a
+            PyTorch library call and the card's bound.
             The page walk (K3) is checked with the serving path's mutation
             lists too (a wave's allocations, a wave switch, an entry not
             applied), bit-exact, the updated table included; through the
@@ -27,20 +29,31 @@ and the script exits non-zero):
             layers: 29 local layers decode from ring caches, 5 global layers
             through the block table), the mixture-of-experts configs
             Qwen3-235B-A22B (8 of 94 layers) and Kimi-K2 (2 of 61: its dense
-            first layer and one MoE layer), Nemotron-4-15B (all 32) and
-            Chameleon-34B (24 of 48).  The launch counters of the three
-            kernels are zeroed before each and read after
+            first layer and one MoE layer), Nemotron-4-15B (all 32),
+            Chameleon-34B (24 of 48), Yi-6B (all 32), Mamba-2-370M (all 48
+            SSD layers: no attention, the block table is walked all the same)
+            and RecurrentGemma-2B (all 26: 18 RG-LRU layers, 8 local
+            attention layers on rings), then Whisper-base (all 12 layers)
+            through ``whisper_serve``: ``prefill_encdec`` and ``decode_step``
+            over the manager's tables.  The launch counters of the three
+            kernels are zeroed before each and read after, and must equal
+            what the arch's layer groups imply (zero for a kernel it has no
+            layer for)
   parity    the same widths at a cut depth, per arch: kernel path against
             plain path (bf16 logits, float32 token ids where the weights fit
             in float32, and for the MoE configs the share of expert ids that
-            agree), and the three coherence modes against each other
+            agree), and the three coherence modes against each other;
+            Mamba-2, whose model path runs no kernel, instead holds prefill +
+            one decode step against forward_lm in float32 at a ragged prompt
   coherence the port's serving_coherence benchmark (three modes of
             Qwen3-14B at published widths, 4 layers, and the budget row)
-  profile   (only when asked for) the serving loop of Qwen3-14B, Gemma-3-4B
-            and Qwen3-235B-A22B (its serve depth) under
-            ``torch.profiler`` at two generation lengths: their difference
-            gives the device-busy time, the kernel launches and the largest
-            kernels of one decode step; the step's wall time comes from a run
+  profile   (only when asked for) the serving loop of Qwen3-14B, Gemma-3-4B,
+            Qwen3-235B-A22B (its serve depth), Mamba-2-370M and
+            RecurrentGemma-2B under ``torch.profiler`` at two generation
+            lengths: their difference gives the device-busy time, the kernel
+            launches and the largest kernels of one decode step, and the
+            shorter run less its decode steps those of one prefill; the
+            step's wall time comes from a run
             without the profiler; and the device operations of one page walk
             of each kind (a wave's first walk, an extension step, a steady
             step, the sync after the frees), which must be one kernel and one
@@ -83,8 +96,9 @@ from repro_torch.kernels.pte_gather import pte_gather, pte_gather_ref  # noqa: E
 from repro_torch.kvcache import PagedKVManager  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import (active_param_count,  # noqa: E402
-                                decode_step, init_decode_state, init_params,
-                                layer_groups, param_count, prefill)
+                                decode_step, forward_lm, greedy_sample,
+                                init_decode_state, init_params, layer_groups,
+                                param_count, prefill, prefill_encdec)
 from repro_torch.pagedpt.blocktable import (CoherenceMode,  # noqa: E402
                                             apply_mutations)
 
@@ -603,6 +617,27 @@ def phase_kernels():
     flash += [flash_case(B, H, 8, 1024, 128, True, None, dt)     # G = 6, 8
               for H in (48, 64) for B, dt in ((16, bf16), (4, f32))]
     flash += [flash_case(2, 8, 2, 333, 112, True, 100, dt) for dt in both]
+    # Yi-6B's serving shapes (32 query heads on 4 kv heads, G = 8, head_dim
+    # 128, batch 16, prompt 1 024 + 64 generated)
+    yi_paged = (16, 32, 4, 128, 16, 69, 4416, None)
+    paged += [paged_case(*yi_paged, dt, lens=lens, dead_row=dead)
+              for dt in both for lens in (np.full(16, 1057), None)
+              for dead in (False, True)]
+    flash += [flash_case(B, 32, 4, 1024, 128, True, None, dt)
+              for B, dt in ((16, bf16), (4, f32))]
+    # Whisper-base (batch 16, 8 heads on 8 kv heads, head_dim 64): the
+    # encoder's non-causal self-attention over 1 500 frames (23 full 64-row
+    # tiles and 28 rows), the decoder's 4-token prompt, and K1 on the
+    # decoder's slabs (384 frames, tables of 6 columns, lengths up to 4 + 64)
+    whisper_paged = (16, 8, 8, 64, 16, 6, 384, None)
+    paged += [paged_case(*whisper_paged, dt, lens=lens, dead_row=dead)
+              for dt in both for lens in (np.full(16, 68), None)
+              for dead in (False, True)]
+    flash += [flash_case(4, 8, 8, 1500, 64, False, None, dt) for dt in both]
+    flash += [flash_case(16, 8, 8, 4, 64, True, None, dt) for dt in both]
+    # RecurrentGemma-2B's local layers (10 query heads on one kv head, G =
+    # 10, head_dim 256, window 2 048, prompt 4 096)
+    flash += [flash_case(4, 10, 1, 4096, 256, True, 2048, dt) for dt in both]
     main = {
         "paged_attention": paged_case(16, 40, 8, 128, 16, 69, 4416, None, bf16,
                                       lens=np.full(16, 1057)),
@@ -623,6 +658,13 @@ def phase_kernels():
                                                 None, bf16),
         "flash_attention/kimi_k2": flash_case(16, 64, 8, 1024, 112, True,
                                               None, bf16),
+        # the encoder runs in float32 (models/transformer.py:_encode)
+        "flash_attention/whisper_encoder": flash_case(16, 8, 8, 1500, 64, False,
+                                                      None, f32),
+        "flash_attention/recurrentgemma_local": flash_case(
+            16, 10, 1, 4096, 256, True, 2048, bf16),
+        "paged_attention/whisper_decoder": paged_case(*whisper_paged, bf16,
+                                                      lens=np.full(16, 68)),
         "pte_gather": pte_case(64, 512, 16 * 69, 3, logical=np.where(
             np.arange(16 * 69) % 69 < 67,
             (np.arange(16 * 69) // 69) * 512 + np.arange(16 * 69) % 69, -1)),
@@ -635,9 +677,10 @@ def phase_kernels():
     ptes += [no_list, *serving.values()]
     # timed sub-dicts of a row, each also checked as a case
     subs = {"paged_attention": ["long_context", "gemma3_4b", "qwen3_moe",
-                                "kimi_k2"],
+                                "kimi_k2", "whisper_decoder"],
             "flash_attention": ["gemma3_4b_local", "gemma3_4b_global",
-                                "qwen3_moe", "kimi_k2"]}
+                                "qwen3_moe", "kimi_k2", "whisper_encoder",
+                                "recurrentgemma_local"]}
     controls = {"paged_attention": (paged_p_bf16, [None]),
                 "flash_attention": (flash_p_bf16, [None, "gemma3_4b_global"])}
     spec = {
@@ -730,17 +773,49 @@ def reset_counters() -> None:
 
 
 # the prompt each arch is served with: Gemma's is longer than its 1 024-token
-# window, so K2's tile skip and the ring's wrap both run
+# window and RecurrentGemma's than its 2 048-token one, so K2's tile skip and
+# the ring's wrap both run; Mamba-2's is not a multiple of its 64-token chunk,
+# so its prefill state comes from the replay over the partial chunk
 PROMPT_LEN = {"qwen3_14b": 1024, "gemma3_4b": 2048, "qwen3_moe_235b_a22b": 1024,
               "kimi_k2_1t_a32b": 1024, "nemotron_4_15b": 1024,
-              "chameleon_34b": 1024}
+              "chameleon_34b": 1024, "yi_6b": 1024, "mamba2_370m": 2000,
+              "recurrentgemma_2b": 4096}
 # the depth each arch is served at (None: all its layers).  Widths are never
 # cut; a depth is cut where the weights would not fit the card's 80 GB with
 # the KV slabs and the activations: Qwen3-235B-A22B's 8 layers hold 38.7 GB of
 # experts, Kimi-K2's 2 its dense first layer and one MoE layer (33.8 GB of
 # experts), Chameleon-34B's 24 34.3 GB of weights beside 6.9 GB of slabs
 SERVE_DEPTH = {"qwen3_14b": 40, "gemma3_4b": None, "qwen3_moe_235b_a22b": 8,
-               "kimi_k2_1t_a32b": 2, "nemotron_4_15b": None, "chameleon_34b": 24}
+               "kimi_k2_1t_a32b": 2, "nemotron_4_15b": None, "chameleon_34b": 24,
+               "yi_6b": None, "mamba2_370m": None, "recurrentgemma_2b": None}
+# Whisper-base's serve: 1 500 encoder frames (30 s of audio; the frontend is a
+# stub in the reference too), a 4-token decoder prompt (start of transcript)
+WHISPER = dict(batch=16, enc_len=1500, prompt_len=4, gen_len=64, n_requests=32)
+
+
+def attention_layers(cfg):
+    """(global attention layers, attention layers) of ``cfg``."""
+    groups = layer_groups(cfg)
+    n_global = sum(g.n_layers for g in groups
+                   if g.kind in ("attn", "dec_attn") and g.window is None)
+    n_attn = sum(g.n_layers for g in groups
+                 if g.kind in ("attn", "enc_attn", "dec_attn"))
+    return n_global, n_attn
+
+
+def expected_launches(cfg, waves: int, gen_len: int, warm_up: bool) -> dict:
+    """The kernel launches ``waves`` waves of the path make, from the
+    config's layer groups: K1 once a decode step in each global attention
+    layer (a local layer decodes from its ring, a recurrent one from its
+    state), K2 once a prefill in each attention layer, K3 once a walk (a
+    wave's first walk, one a decode step, and the sync of
+    ``check_device_table`` after the frees).  ``warm_up``: serve()'s warm-up
+    prefill and decode step add one launch a layer each."""
+    n_global, n_attn = attention_layers(cfg)
+    extra = 1 if warm_up else 0
+    return {"paged_attention": n_global * (gen_len * waves + extra),
+            "flash_attention": n_attn * (waves + extra),
+            "pte_gather": (2 + gen_len) * waves}
 
 
 def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
@@ -758,15 +833,9 @@ def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
     waves = -(-n_requests // batch)
     cfg = get_config(arch)
     L = r["n_layers"]
-    # K1 runs on the global layers only (a local layer decodes from its ring)
-    n_global = sum(g.n_layers for g in layer_groups(
-        dataclasses.replace(cfg, n_layers=L)) if g.window is None)
-    # the warm-up prefill and decode step add one launch a layer each
-    want = {"paged_attention": n_global * gen_len * waves + n_global,
-            "flash_attention": L * waves + L,
-            # each wave: its first walk, one a decode step, and the sync of
-            # check_device_table after the frees
-            "pte_gather": (2 + gen_len) * waves}
+    want = expected_launches(dataclasses.replace(cfg, n_layers=L), waves,
+                             gen_len, warm_up=True)
+    n_global = attention_layers(dataclasses.replace(cfg, n_layers=L))[0]
     check(counts == want, f"{arch}: launch counts {counts}, the path implies {want}")
     check(r["tokens"] == n_requests * gen_len, f"tokens {r['tokens']}")
     check(r["fetches"] > 0, "no numaPTE fetch in a 4-pod run")
@@ -774,21 +843,136 @@ def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
     ids = r.pop("token_ids")
     check(ids.shape == (n_requests, gen_len) and ids.min() >= 0
           and ids.max() < cfg.vocab_size, "token ids out of range")
+    groups = layer_groups(dataclasses.replace(cfg, n_layers=L))
     emit({"phase": "serve", "arch": arch, "widths": "published",
-          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "family": cfg.family, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
           "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
           "n_experts": cfg.n_experts, "experts_per_token": cfg.experts_per_token,
           "moe_d_ff": cfg.moe_d_ff, "n_shared_experts": cfg.n_shared_experts,
           "first_dense_layers": cfg.first_dense_layers,
+          "ssm_state": cfg.ssm_state, "lru_width": cfg.lru_width,
           "param_count": param_count(cfg),
           "active_param_count": active_param_count(cfg), "layers_run": L,
-          "layers_published": cfg.n_layers, "global_layers_run": n_global,
+          "layers_published": cfg.n_layers,
+          "layers_by_kind": {k: sum(g.n_layers for g in groups if g.kind == k)
+                             for k in dict.fromkeys(g.kind for g in groups)},
+          "global_layers_run": n_global,
           "local_window": cfg.local_window, "batch": batch,
           "prompt_len": prompt_len, "gen_len": gen_len, "launches": counts,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "wall_s": time.perf_counter() - t0, **r})
-    return counts
+    return counts, want
+
+
+@torch.no_grad()
+def whisper_serve(cfg, params, *, batch, enc_len, prompt_len, gen_len,
+                  n_requests, n_pods=4, mode="numapte", seed=0):
+    """The encoder-decoder's serving loop, the counterpart of serve() (which
+    takes decoder-only configs, as the reference's does): waves of
+    ``batch`` requests, each a clip of ``enc_len`` frame embeddings drawn
+    from a seeded generator and a decoder prompt, through the reference's
+    entry points ``prefill_encdec`` and ``decode_step`` over a
+    PagedKVManager's tables (start, walk, extend, finish, the invariants and
+    the device table checked after each wave).  The first decode step takes
+    the prefill's greedy token.  No warm-up: the kernels are built and the
+    GEMM library warm by the time this runs."""
+    bt = cfg.kv_block_tokens
+    max_blocks = -(-(prompt_len + gen_len) // bt) + 1
+    n_frames = batch * max_blocks * 4
+    kv = PagedKVManager(n_frames=n_frames, block_tokens=bt,
+                        max_blocks_per_seq=max_blocks, n_pods=n_pods,
+                        mode=CoherenceMode(mode), device=DEV)
+    state = init_decode_state(cfg, batch, n_frames, max_blocks,
+                              enc_len=enc_len, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    sampled, prefill_s, decode_s, waves = [], [], [], 0
+    t0 = time.perf_counter()
+    for first in range(0, n_requests, batch):
+        wave = list(range(first, min(first + batch, n_requests)))
+        active = wave + [-1] * (batch - len(wave))
+        for i, sid in enumerate(wave):
+            kv.start_sequence(sid, prompt_len, pod=i % n_pods)
+        feats = torch.randn((batch, enc_len, cfg.d_model), generator=gen,
+                            device=DEV).to(cfg.dtype)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, prompt_len))).to(DEV)
+        t_wave = time.perf_counter()
+        logits, st = prefill_encdec(cfg, params, feats, prompts, state,
+                                    kv.physical_tables(active))
+        torch.cuda.synchronize()
+        t_prefilled = time.perf_counter()
+        finite &= torch.isfinite(logits[:len(wave)]).all()
+        tokens = greedy_sample(logits)
+        steps = []
+        for t in range(gen_len):
+            for sid in wave:
+                kv.maybe_extend(sid, prompt_len + t + 1)
+            phys = kv.physical_tables(active, record=(t % 4 == 0))
+            logits, st = decode_step(cfg, params, st, tokens, phys)
+            finite &= torch.isfinite(logits[:len(wave)]).all()
+            tokens = greedy_sample(logits)
+            steps.append(tokens)
+        torch.cuda.synchronize()
+        prefill_s.append(t_prefilled - t_wave)
+        decode_s.append(time.perf_counter() - t_prefilled)
+        waves += 1
+        sampled.append(torch.stack(steps, dim=1)[:len(wave)].cpu().numpy())
+        for sid in wave:
+            kv.finish_sequence(sid)
+        kv.host.check_invariants()
+        kv.check_device_table()
+    dt = time.perf_counter() - t0
+    c = kv.host.counters
+    return {"mode": mode, "n_pods": n_pods, "tokens": n_requests * gen_len,
+            "tok_per_s": n_requests * gen_len / dt,
+            "invalidations_sent": c.invalidations_sent,
+            "invalidations_filtered": c.invalidations_filtered,
+            "coherence_bytes": c.coherence_bytes, "fetches": c.fetches,
+            "prefetched": c.prefetched, "table_pages": kv.footprint_pages(),
+            "prefill_ms": 1e3 * sum(prefill_s) / waves,
+            "prefill_ms_by_wave": [1e3 * x for x in prefill_s],
+            "decode_step_ms": 1e3 * sum(decode_s) / (waves * gen_len),
+            "decode_step_ms_by_wave": [1e3 * x / gen_len for x in decode_s],
+            "logits_finite": bool(finite), "token_ids": np.concatenate(sampled)}
+
+
+def phase_whisper(n_pods: int = 4):
+    """Whisper-base at published widths (all 12 layers) through
+    ``whisper_serve``, the launch counters zeroed before and read after."""
+    arch, spec = "whisper_base", WHISPER
+    cfg = get_config(arch)
+    release()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         param_dtype=cfg.dtype)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    r = whisper_serve(cfg, params, n_pods=n_pods, **spec)
+    counts = {name: fn.launches for name, fn in KERNEL_FNS.items()}
+    waves = -(-spec["n_requests"] // spec["batch"])
+    want = expected_launches(cfg, waves, spec["gen_len"], warm_up=False)
+    check(counts == want, f"{arch}: launch counts {counts}, the path implies {want}")
+    check(r["fetches"] > 0, "no numaPTE fetch in a 4-pod run")
+    check(r["logits_finite"], "non-finite logits")
+    ids = r.pop("token_ids")
+    check(ids.shape == (spec["n_requests"], spec["gen_len"]) and ids.min() >= 0
+          and ids.max() < cfg.vocab_size, "token ids out of range")
+    emit({"phase": "serve", "arch": arch, "widths": "published",
+          "family": cfg.family, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+          "param_count": param_count(cfg), "layers_run": cfg.n_layers,
+          "encoder_layers": cfg.n_encoder_layers,
+          "decoder_layers": cfg.n_decoder_layers, **spec,
+          "encoder_dtype": "float32", "launches": counts,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "wall_s": time.perf_counter() - t0, **r})
+    del params
+    release()
+    return counts, want
 
 
 @contextlib.contextmanager
@@ -855,20 +1039,31 @@ def route_agreement(mine: list, theirs: list) -> dict:
 
 def first_wave(cfg, params, batch, prompt_len, steps):
     """Prefill one wave and take ``steps`` decode steps on tokens drawn from
-    a seed (the same whichever path runs); the logits of each, float32."""
+    a seed (the same whichever path runs); the logits of each, float32.  An
+    encoder-decoder prefills through ``prefill_encdec`` on WHISPER's number
+    of frame embeddings, drawn from a seed too."""
     bt = cfg.kv_block_tokens
     max_blocks = -(-(prompt_len + steps) // bt) + 1
     kv = PagedKVManager(n_frames=batch * max_blocks, block_tokens=bt,
                         max_blocks_per_seq=max_blocks, n_pods=4,
                         mode=CoherenceMode.NUMAPTE, device=DEV)
-    state = init_decode_state(cfg, batch, kv.n_frames, max_blocks, device=DEV)
+    enc_len = WHISPER["enc_len"] if cfg.family == "encdec" else 0
+    state = init_decode_state(cfg, batch, kv.n_frames, max_blocks,
+                              enc_len=enc_len, device=DEV)
     ids = list(range(batch))
     for i in ids:
         kv.start_sequence(i, prompt_len, pod=i % 4)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, prompt_len + steps))).to(DEV)
-    logits, st = prefill(cfg, params, tokens[:, :prompt_len], state,
-                         kv.physical_tables(ids))
+    if cfg.family == "encdec":
+        feats = torch.randn((batch, enc_len, cfg.d_model), device=DEV,
+                            generator=torch.Generator(device=DEV).manual_seed(1))
+        logits, st = prefill_encdec(cfg, params, feats.to(cfg.dtype),
+                                    tokens[:, :prompt_len], state,
+                                    kv.physical_tables(ids))
+    else:
+        logits, st = prefill(cfg, params, tokens[:, :prompt_len], state,
+                             kv.physical_tables(ids))
     out = [logits.float()]
     for t in range(steps):
         for i in ids:
@@ -886,8 +1081,12 @@ def rel_err(a, b) -> float:
 # per arch: the depth, then (batch, prompt, decode steps) of the bf16 logits
 # check, and the serve() runs of the mode check (a partial last wave) and of
 # the float32 token check (None where the weights do not fit in float32: one
-# MoE layer of Kimi-K2 is 67.6 GB).  Gemma's prompts pass its 1 024-token
-# window.
+# MoE layer of Kimi-K2 is 67.6 GB).  Gemma's and RecurrentGemma's prompts
+# pass their windows (1 024, 2 048).  Mamba-2 runs no attention kernel, so
+# its bf16 check has nothing to hold against; instead ``forward`` holds
+# prefill + one decode step against forward_lm in float32 at (batch, a
+# prompt that is not a multiple of the 64-token chunk).  Whisper runs all
+# 12 layers through ``whisper_serve`` (serve() refuses an encoder-decoder).
 PARITY = {
     "qwen3_14b": dict(
         n_layers=2, bf16=(8, 512, 1),
@@ -905,7 +1104,49 @@ PARITY = {
         n_layers=2, bf16=(8, 512, 3),
         modes=dict(batch=8, prompt_len=128, gen_len=8, n_requests=20),
         f32=None),
+    "mamba2_370m": dict(
+        n_layers=4, bf16=None, forward=(4, 999),
+        modes=dict(batch=8, prompt_len=200, gen_len=8, n_requests=20),
+        f32=None),
+    "recurrentgemma_2b": dict(
+        n_layers=6, bf16=(4, 2600, 3),
+        modes=dict(batch=4, prompt_len=2100, gen_len=8, n_requests=10),
+        f32=dict(batch=4, prompt_len=2100, gen_len=8, n_requests=4)),
+    "whisper_base": dict(
+        n_layers=12, bf16=(16, 4, 3),
+        modes=dict(batch=8, enc_len=1500, prompt_len=4, gen_len=8, n_requests=20),
+        f32=dict(batch=8, enc_len=1500, prompt_len=4, gen_len=8, n_requests=8)),
 }
+
+
+def serve_any(arch, cfg, params, **kw):
+    """serve() for a decoder-only config, whisper_serve for an
+    encoder-decoder (``enc_len`` in ``kw``)."""
+    if cfg.family == "encdec":
+        return whisper_serve(cfg, params, **kw)
+    return serve(arch, cfg=cfg, params=params, verbose=False, **kw)
+
+
+def forward_parity(cfg, batch, prompt_len):
+    """float32: logits of prefill(prompt_len) + one decode step against the
+    last position of forward_lm over prompt_len + 1 tokens (test_models.py's
+    decode-vs-forward check, on the card)."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0),
+                         param_dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (batch, prompt_len + 1))).to(DEV)
+    want = forward_lm(cfg32, params, tokens)[0][:, -1]
+    bt = cfg.kv_block_tokens
+    MB = prompt_len // bt + 2
+    state = init_decode_state(cfg32, batch, batch * MB, MB, device=DEV)
+    phys = torch.arange(batch * MB, dtype=torch.int32, device=DEV).reshape(batch, MB)
+    _, state = prefill(cfg32, params, tokens[:, :prompt_len], state, phys)
+    got, _ = decode_step(cfg32, params, state, tokens[:, prompt_len], phys)
+    rel = rel_err(got, want)
+    check(rel < 1e-3, f"float32 decode against forward: rel {rel}")
+    return {"f32_decode_vs_forward_rel": rel, "batch": batch,
+            "prompt_len": prompt_len, "chunk": cfg.ssm_chunk}
 
 
 @torch.no_grad()
@@ -917,9 +1158,51 @@ def phase_parity(arch: str):
     release()
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                          param_dtype=cfg.dtype)
+    if spec["bf16"] is not None:
+        bf16_parity(cfg, params, spec["bf16"], out)
+    else:
+        out["bf16_rel"] = "not run: no kernel on this arch's model path"
+    # the three coherence modes serve the same tokens
+    runs = {mode: serve_any(arch, cfg, params, n_pods=4, mode=mode,
+                            **spec["modes"])
+            for mode in ("local", "eager", "numapte")}
+    ids = [r["token_ids"] for r in runs.values()]
+    check(all(np.array_equal(ids[0], x) for x in ids[1:]),
+          "token ids differ between local / eager / numapte")
+    out["modes_equal_tokens"] = int(ids[0].size)
+    out["fetches"] = {m: r["fetches"] for m, r in runs.items()}
+    del params, runs
+    release()
+    if "forward" in spec:
+        out.update(forward_parity(cfg, *spec["forward"]))
+        release()
+    if spec["f32"] is None:
+        if "forward" not in spec:
+            out["f32_equal_tokens"] = "not run: the float32 weights do not fit"
+        emit(out)
+        return
+    # float32 (TF32 off): greedy token ids equal, kernel path against plain
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0),
+                         param_dtype=torch.float32)
+    kw = dict(n_pods=4, mode="numapte", **spec["f32"])
+    got = serve_any(arch, cfg32, params, **kw)["token_ids"]
+    with plain_versions():
+        want = serve_any(arch, cfg32, params, **kw)["token_ids"]
+    check(np.array_equal(got, want),
+          "float32 token ids: kernel path and plain path differ")
+    out["f32_equal_tokens"] = int(got.size)
+    del params
+    release()
+    emit(out)
+
+
+def bf16_parity(cfg, params, shape, out: dict) -> None:
+    """bf16 logits of one wave (``shape``: batch, prompt, decode steps), the
+    kernel path against the plain path, into ``out``."""
     routes_got, routes_want = [], []
     with routes_recorded(routes_got):
-        got = first_wave(cfg, params, *spec["bf16"])
+        got = first_wave(cfg, params, *shape)
     if cfg.n_experts:
         from repro_torch.models.moe import NEAR_TIE
         # Run freely, the two paths' bf16 hidden states differ by an ulp
@@ -931,8 +1214,8 @@ def phase_parity(arch: str):
         # MoE layer), so its flips must be near-ties.
         routes_free = []
         with plain_versions(), routes_recorded(routes_free):
-            free = first_wave(cfg, params, *spec["bf16"])
-        per_step = len(routes_got) // (1 + spec["bf16"][2])
+            free = first_wave(cfg, params, *shape)
+        per_step = len(routes_got) // (1 + shape[2])
         first = route_agreement(routes_free[::per_step], routes_got[::per_step])
         out["free_running"] = {
             "bf16_rel": [rel_err(g, w) for g, w in zip(got, free)],
@@ -945,7 +1228,7 @@ def phase_parity(arch: str):
     # path's expert ids; its own picks may then differ only at near-ties.
     with plain_versions(), routes_recorded(
             routes_want, follow=routes_got if cfg.n_experts else None):
-        want = first_wave(cfg, params, *spec["bf16"])
+        want = first_wave(cfg, params, *shape)
     rels = [rel_err(g, w) for g, w in zip(got, want)]
     out["bf16_prefill_rel"], out["bf16_decode_rel"] = rels[0], rels[1:]
     if cfg.n_experts:
@@ -955,36 +1238,6 @@ def phase_parity(arch: str):
     del routes_got, routes_want
     check(max(rels) < 0.03,
           f"bf16 logits: kernel path and plain path differ: {out}")
-    # the three coherence modes serve the same tokens
-    runs = {mode: serve(arch, cfg=cfg, params=params, n_pods=4, mode=mode,
-                        verbose=False, **spec["modes"])
-            for mode in ("local", "eager", "numapte")}
-    ids = [r["token_ids"] for r in runs.values()]
-    check(all(np.array_equal(ids[0], x) for x in ids[1:]),
-          "token ids differ between local / eager / numapte")
-    out["modes_equal_tokens"] = int(ids[0].size)
-    out["fetches"] = {m: r["fetches"] for m, r in runs.items()}
-    del params, runs
-    release()
-    if spec["f32"] is None:
-        out["f32_equal_tokens"] = "not run: the float32 weights do not fit"
-        emit(out)
-        return
-    # float32 (TF32 off): greedy token ids equal, kernel path against plain
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0),
-                         param_dtype=torch.float32)
-    kw = dict(cfg=cfg32, params=params, n_pods=4, mode="numapte",
-              verbose=False, **spec["f32"])
-    got = serve(arch, **kw)["token_ids"]
-    with plain_versions():
-        want = serve(arch, **kw)["token_ids"]
-    check(np.array_equal(got, want),
-          "float32 token ids: kernel path and plain path differ")
-    out["f32_equal_tokens"] = int(got.size)
-    del params
-    release()
-    emit(out)
 
 
 @torch.no_grad()
@@ -1013,7 +1266,11 @@ def phase_profile(arch: str, n_layers=None, walks: bool = True,
     """One wave of the full-width serve at two generation lengths under the
     profiler.  Set-up, warm-up and prefill are the same in both, so the
     difference of the device's kernel time is that of ``long - short`` decode
-    steps.  ``walks`` adds the device operations of each kind of page walk."""
+    steps.  The shorter run less its ``short + 1`` decode steps (the warm-up
+    takes one) is two prefills of the same shapes (the warm-up's and the
+    wave's), with the set-up, the wave's first walk and the frees: half of
+    it is the device time of one prefill, to within those.  ``walks`` adds
+    the device operations of each kind of page walk."""
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
@@ -1047,6 +1304,10 @@ def phase_profile(arch: str, n_layers=None, walks: bool = True,
                     (n - few.get(k, (0.0, 0))[1]) / steps)
                 for k, (ms, n) in many.items()}
     busy_ms = sum(ms for ms, _ in per_step.values())
+    per_prefill = {k: ((ms - (short + 1) * per_step.get(k, (0.0, 0))[0]) / 2,
+                       (n - (short + 1) * per_step.get(k, (0.0, 0))[1]) / 2)
+                   for k, (ms, n) in few.items()}
+    prefill_busy_ms = sum(ms for ms, _ in per_prefill.values())
     emit({"phase": "profile", "arch": arch, "layers": cfg.n_layers,
           "batch": 16, "prompt_len": PROMPT_LEN[arch], "steps_differenced": steps,
           "prefill_ms": plain["prefill_ms"],
@@ -1057,7 +1318,13 @@ def phase_profile(arch: str, n_layers=None, walks: bool = True,
           "walk_device_ops_per_call": walk_ops,
           "top_kernels": [{"kernel": k[:80], "ms_per_step": ms,
                            "launches_per_step": n} for k, (ms, n) in sorted(
-                               per_step.items(), key=lambda kv: -kv[1][0])[:10]]})
+                               per_step.items(), key=lambda kv: -kv[1][0])[:10]],
+          "prefill_device_busy_ms": prefill_busy_ms,
+          "prefill_device_idle_share": 1 - prefill_busy_ms / plain["prefill_ms"],
+          "prefill_launches": sum(n for _, n in per_prefill.values()),
+          "prefill_top_kernels": [
+              {"kernel": k[:80], "ms": ms, "launches": n} for k, (ms, n) in sorted(
+                  per_prefill.items(), key=lambda kv: -kv[1][0])[:10]]})
 
 
 # ----------------------------------------------------------------------- main
@@ -1084,10 +1351,15 @@ def main() -> None:
 
     rows = phase_kernels() if "kernels" in phases else []
     if "serve" in phases:
-        counts = {arch: phase_serve(arch, n) for arch, n in depth.items()}
-        for arch, by_name in counts.items():
+        runs = {arch: phase_serve(arch, n) for arch, n in depth.items()}
+        runs["whisper_base"] = phase_whisper()
+        # every kernel that the arch's layer groups need ran, and no other
+        for arch, (by_name, want) in runs.items():
             for name, n in by_name.items():
-                check(n > 0, f"{name} never ran on the {arch} path")
+                check((n > 0) == (want[name] > 0),
+                      f"{name} ran {n} times on the {arch} path, which needs "
+                      f"{want[name]}")
+        counts = {arch: by_name for arch, (by_name, _) in runs.items()}
         for row in rows:
             row["launches_by_arch"] = {a: c[row["name"]] for a, c in counts.items()}
             row["launches"] = sum(row["launches_by_arch"].values())
@@ -1098,7 +1370,8 @@ def main() -> None:
         phase_coherence()
     if "profile" in phases:
         for i, arch in enumerate(("qwen3_14b", "gemma3_4b",
-                                  "qwen3_moe_235b_a22b")):
+                                  "qwen3_moe_235b_a22b", "mamba2_370m",
+                                  "recurrentgemma_2b")):
             phase_profile(arch, depth[arch], walks=i == 0)
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -10,20 +10,18 @@ import importlib
 
 from ..models.common import ModelConfig
 
-#: the architectures ported so far (decoder-only; global attention or a
-#: local : global pattern of windowed and global layers; a dense or a
-#: mixture-of-experts FFN)
+#: every architecture of the reference: dense global attention, a local :
+#: global pattern, mixture-of-experts FFNs, Mamba-2 SSD, the RG-LRU hybrid
+#: and the Whisper encoder-decoder
 ARCH_IDS = ["qwen3_14b", "yi_6b", "gemma3_4b", "qwen3_moe_235b_a22b",
-            "kimi_k2_1t_a32b", "nemotron_4_15b", "chameleon_34b"]
+            "kimi_k2_1t_a32b", "nemotron_4_15b", "chameleon_34b",
+            "mamba2_370m", "recurrentgemma_2b", "whisper_base"]
 
 
 def _module(name: str):
-    name = name.replace("-", "_")
-    if name not in ARCH_IDS:
-        raise NotImplementedError(
-            f"config {name!r} is not ported yet (ROADMAP queue 1 item 11); "
-            f"ported: {ARCH_IDS}")
-    return importlib.import_module(f".{name}", __package__)
+    """The config module of ``name``; an unknown name raises
+    ModuleNotFoundError, as the reference's registry does."""
+    return importlib.import_module(f".{name.replace('-', '_')}", __package__)
 
 
 def get_config(name: str) -> ModelConfig:

@@ -11,6 +11,8 @@ each policy.  Runs on the GPU unless ``device="cpu"`` is given.
         --full-width --requests 32 --batch 16 --prompt-len 2048 --gen-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b --mode eager
 
+An encoder-decoder config (whisper_base) raises here, as the reference's
+serve() cannot run it either: drive ``prefill_encdec`` + ``decode_step``.
 A mixture-of-experts config does not fit one card at its published depth;
 ``--layers`` cuts the depth and keeps every width:
 
@@ -67,6 +69,14 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         cfg = get_config(arch) if full_width else get_smoke_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.family == "encdec":
+        # the reference's serve() calls prefill(), which reads the decoder-only
+        # embedding an encoder-decoder lacks (ROADMAP queue 3)
+        raise ValueError(
+            f"{arch}: serve() drives decoder-only configs; an encoder-decoder "
+            "is served through prefill_encdec + decode_step over a "
+            "PagedKVManager's tables (ROADMAP queue 3: the reference's serve() "
+            "raises KeyError 'embedding' for it)")
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = init_params(

@@ -1,7 +1,8 @@
-"""GQA attention: prefill forward through the flash kernel, paged decode
-through the paged-attention kernel, and ring-buffer decode for the
-local-window layers (plain PyTorch, as the reference computes it outside any
-kernel).
+"""GQA attention: prefill self-attention (causal, windowed, or neither)
+through the flash kernel, paged decode through the paged-attention kernel,
+and, in plain PyTorch as the reference computes them outside any kernel, the
+ring-buffer decode of the local-window layers and cross-attention (the
+encoder-decoder's decoder: queries and keys of different lengths).
 
 Decode reads KV through the paged block-table substrate — the physical frame
 ids given to ``attn_decode_paged`` come from the block-table translation
@@ -21,7 +22,7 @@ from ..kvcache.gather import write_token_plain
 from .common import ModelConfig, _dense, rms_norm, rope_tables, rotate
 
 
-def init_attn(cfg: ModelConfig, gen: torch.Generator, dtype
+def init_attn(cfg: ModelConfig, gen: torch.Generator, dtype, cross: bool = False
               ) -> Dict[str, torch.Tensor]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     p = {
@@ -30,7 +31,7 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator, dtype
         "wv": _dense(gen, (d, cfg.n_kv_heads * hd), dtype),
         "wo": _dense(gen, (cfg.n_heads * hd, d), dtype),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
         p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
     return p
@@ -54,37 +55,68 @@ def _project_qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 Rope = Tuple[torch.Tensor, torch.Tensor]      # (cos, sin) of rope_tables
 
 
+def rope_for(cfg: ModelConfig, positions: torch.Tensor, theta: float
+             ) -> Optional[Rope]:
+    """The RoPE tables of ``positions`` [..., seq], or None for a config
+    without RoPE (learned or sinusoidal positions)."""
+    if not cfg.use_rope:
+        return None
+    return rope_tables(positions, cfg.resolved_head_dim, theta)
+
+
 def project_qk_rope_v(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                      x: torch.Tensor, rope: Rope
+                      x: torch.Tensor, rope: Optional[Rope]
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Self-attention projections with RoPE on q and k: each [B,S,heads,hd]."""
+    """Self-attention projections, RoPE on q and k unless ``rope`` is None:
+    each [B,S,heads,hd]."""
     q, k, v = _project_qkv(cfg, p, x, x)
+    if rope is None:
+        return q, k, v
     return rotate(q, rope), rotate(k, rope), v
 
 
-def attend_causal(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                  q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: Optional[int]) -> torch.Tensor:
-    """The flash kernel, causal, on projected q/k/v [B,S,heads,hd], then
+def attend(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+           q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """The flash kernel on projected q/k/v [B,S,heads,hd] (one S), then
     ``wo``.  The kernel takes [B,heads,S,hd]: it is handed transposed views
     (it reads through strides, no copy is made)."""
     B, S = q.shape[:2]
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True, window=window)
+                          v.transpose(1, 2), causal=causal, window=window)
     out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, -1)
     return out @ p["wo"].to(cfg.dtype)
 
 
-def attn_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                 positions: torch.Tensor, *, window: Optional[int],
-                 rope_theta: float) -> torch.Tensor:
-    """Training / prefill self-attention.  x: [B,S,D]; positions: [B,S] and
-    must count 0..S-1 along each row (what ``forward_lm`` and ``prefill``
-    pass): the kernel masks by index.  window: sliding-window size for local
-    layers (None = full)."""
-    rope = rope_tables(positions, cfg.resolved_head_dim, rope_theta)
-    q, k, v = project_qk_rope_v(cfg, p, x, rope)
-    return attend_causal(cfg, p, q, k, v, window=window)
+def cross_kv(cfg: ModelConfig, p: Dict[str, torch.Tensor], kv_x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention keys and values [B,Se,K,hd] of the encoder output
+    ``kv_x``, in its dtype (the weights are rounded to ``cfg.dtype`` first,
+    as the reference's promotion of a float32 encoder output computes)."""
+    B, Se, _ = kv_x.shape
+    hd = cfg.resolved_head_dim
+    k = kv_x @ p["wk"].to(cfg.dtype).to(kv_x.dtype)
+    v = kv_x @ p["wv"].to(cfg.dtype).to(kv_x.dtype)
+    return (k.reshape(B, Se, cfg.n_kv_heads, hd),
+            v.reshape(B, Se, cfg.n_kv_heads, hd))
+
+
+def cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                    x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
+                    ) -> torch.Tensor:
+    """Cross-attention of decoder rows x [B,Sq,D] on encoder keys and values
+    ck/cv [B,Se,K,hd], unmasked.  Scores, softmax and P·V are float32 (the
+    reference rounds P to bf16 in a bf16 run; the port keeps it, as its
+    kernels do), then ``wo`` in ``cfg.dtype``.  Plain PyTorch on both
+    devices: the flash kernel takes one length for queries and keys."""
+    B, Sq, _ = x.shape
+    K, G, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.resolved_head_dim
+    q = (x @ p["wq"].to(cfg.dtype)).reshape(B, Sq, K, G, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), ck.float()) * hd ** -0.5
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, cv.float())
+    out = out.reshape(B, Sq, K * G * hd).to(cfg.dtype)
+    return out @ p["wo"].to(cfg.dtype)
 
 
 def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -99,8 +131,9 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     each [n_blocks, bt, K, hd] and UPDATED IN PLACE; phys_blocks:
     [B, max_blocks] physical frame ids from the block-table translation
     (-1 = absent); seq_lens: [B] length INCLUDING the new token; rope: the
-    step's (cos, sin) tables of ``rope_tables(positions[:, None], ...)``,
-    made once by the caller because every layer of a group shares them.
+    step's (cos, sin) tables of ``rope_for(cfg, positions[:, None], ...)``
+    (None without RoPE), made once by the caller because every layer of a
+    group shares them.
     Returns (attn_out [B,1,D], the same slabs).
     """
     B = x.shape[0]
@@ -120,7 +153,7 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 def attn_decode_ring(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                      x: torch.Tensor, positions: torch.Tensor,
                      ring_k: torch.Tensor, ring_v: torch.Tensor, *,
-                     rope: Rope, window: int
+                     rope: Optional[Rope], window: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step of a sliding-window layer whose KV is a ring of
     ``window`` slots per sequence: slot i holds the latest position p with

@@ -79,6 +79,14 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model   # mamba2 inner width
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerGroup:
@@ -130,25 +138,16 @@ def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
 
 def require_ported(cfg: ModelConfig) -> List[LayerGroup]:
     """The layer groups of ``cfg``, or NotImplementedError naming the ROADMAP
-    item when the config needs a part that is not ported yet.  Ported:
-    decoder-only stacks of global and local-window attention (a window group
-    keeps a ring cache, a global group paged slabs) with a dense or a
-    mixture-of-experts FFN, RMSNorm, RoPE."""
-    def missing(what: str, item: str) -> NotImplementedError:
-        return NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1 item {item})")
-
-    if cfg.family == "encdec":
-        raise missing("the encoder-decoder stack", "11")
+    item when the config needs a part that is not ported yet.  Every family
+    of the reference is ported (attention with global, windowed or no
+    RoPE; dense and mixture-of-experts FFNs; SSD; RG-LRU; the
+    encoder-decoder); only the logit soft-cap, which no config sets, is
+    not."""
     if cfg.attn_logit_softcap is not None:
-        raise missing("attn_logit_softcap", "11")
-    if cfg.norm != "rmsnorm" or not cfg.use_rope:
-        raise missing("layernorm / learned positions", "11")
-    groups = layer_groups(cfg)
-    for g in groups:
-        if g.kind in ("ssd", "rglru"):
-            raise missing(f"the {g.kind} layer", "11")
-    return groups
+        raise NotImplementedError(
+            f"{cfg.name}: attn_logit_softcap is not ported yet "
+            "(ROADMAP queue 1 item 11)")
+    return layer_groups(cfg)
 
 
 # --------------------------------------------------------------------------- prims
@@ -159,9 +158,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias, computed in float32."""
+    out = F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(), eps)
+    return out.to(x.dtype)
+
+
 def apply_norm(cfg: ModelConfig, x: torch.Tensor, p: Dict[str, torch.Tensor]
                ) -> torch.Tensor:
-    """RMSNorm; ``require_ported`` has turned every other norm away."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
     return rms_norm(x, p["scale"])
 
 
@@ -247,4 +254,7 @@ def _dense(gen: torch.Generator, shape: Sequence[int], dtype,
 
 
 def init_norm(cfg: ModelConfig, d: int, dtype, device) -> Dict[str, torch.Tensor]:
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}

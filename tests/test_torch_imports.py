@@ -29,7 +29,9 @@ def test_torch_port_has_the_reference_layout():
                 "models.ffn", "models.moe", "configs.qwen3_14b", "configs.yi_6b",
                 "configs.gemma3_4b", "configs.qwen3_moe_235b_a22b",
                 "configs.kimi_k2_1t_a32b", "configs.nemotron_4_15b",
-                "configs.chameleon_34b", "launch.serve",
+                "configs.chameleon_34b", "configs.mamba2_370m",
+                "configs.recurrentgemma_2b", "configs.whisper_base",
+                "models.ssm", "models.rglru", "launch.serve",
                 "benchmarks.serving_coherence"):
         assert f"repro_torch.{sub}" in MODULES
 
@@ -69,7 +71,9 @@ def test_torch_chip_smoke_refuses_to_run_without_a_gpu():
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE_CONFIG"])
 @pytest.mark.parametrize("arch", ["qwen3_14b", "yi_6b", "gemma3_4b",
                                   "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b",
-                                  "nemotron_4_15b", "chameleon_34b"])
+                                  "nemotron_4_15b", "chameleon_34b",
+                                  "mamba2_370m", "recurrentgemma_2b",
+                                  "whisper_base"])
 def test_torch_configs_equal_reference_field_for_field(arch, which):
     import importlib
     ours = getattr(importlib.import_module(f"repro_torch.configs.{arch}"), which)
@@ -83,12 +87,20 @@ def test_torch_configs_equal_reference_field_for_field(arch, which):
         assert a == b, name
     assert ours.resolved_head_dim == theirs.resolved_head_dim
     assert ours.q_per_kv == theirs.q_per_kv
+    assert (ours.d_inner, ours.ssm_n_heads) == (theirs.d_inner, theirs.ssm_n_heads)
     from repro_torch import configs
     getter = configs.get_config if which == "CONFIG" else configs.get_smoke_config
     assert getter(arch) is ours and getter(arch.replace("_", "-")) is ours
 
 
 def test_torch_unported_archs_raise():
+    """Every arch of the reference is ported: the registries hold the same
+    ten, and a name neither knows raises as the reference's does."""
+    from repro import configs as reference
     from repro_torch import configs
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        configs.get_config("mamba2_370m")
+    assert sorted(configs.ARCH_IDS) == sorted(reference.ARCH_IDS)
+    for registry in (configs, reference):
+        with pytest.raises(ModuleNotFoundError, match="mamba3_1b"):
+            registry.get_config("mamba3_1b")
+        with pytest.raises(ModuleNotFoundError, match="mamba3_1b"):
+            registry.get_smoke_config("mamba3-1b")

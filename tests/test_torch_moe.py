@@ -276,7 +276,8 @@ def test_torch_moe_init_statistics_and_bf16_cast():
 
 
 @pytest.mark.parametrize("arch", ["qwen3_14b", "yi_6b", "gemma3_4b"] + MOE_ARCHS
-                         + ["nemotron_4_15b", "chameleon_34b"])
+                         + ["nemotron_4_15b", "chameleon_34b", "mamba2_370m",
+                            "recurrentgemma_2b", "whisper_base"])
 def test_torch_param_counts_equal_reference_without_allocation(arch, monkeypatch):
     """At full width, from shapes alone: nothing is drawn."""
     def refuse(*a, **k):
