@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py                  # every phase, needs one CUDA device
     python3 chip_smoke.py --phases kernels # build + kernel checks only
+    python3 chip_smoke.py --phases train   # build + the training slice only
     python3 chip_smoke.py --phases profile # where a decode step's time goes
+    python3 chip_smoke.py --phases profile_train  # ... and a train step's
 
 Phases (each prints one JSON object on a line of its own; any failure raises
 and the script exits non-zero):
@@ -22,7 +24,15 @@ and the script exits non-zero):
             lists too (a wave's allocations, a wave switch, an entry not
             applied), bit-exact, the updated table included; through the
             manager with lists that outgrow its first staging buffer; and on
-            arguments it must refuse
+            arguments it must refuse.
+            K2's backward (flash_attention_bwd) against its plain version
+            (each of dq, dk, dv within 2e-5 of the plain gradient's largest
+            magnitude) at the training shapes of the attention archs (Yi-6B's
+            q [8,32,1024,128], Gemma-3's head_dim 256 with its 1 024 window,
+            Whisper's non-causal encoder, RecurrentGemma's G = 10, a ragged
+            S), the forward's LSE against the plain one in both dtypes, a
+            dropped-tile control that the bound must see, and its time at
+            Yi-6B's shape beside SDPA's backward
   serve     each arch at its published widths served through
             the numaPTE paged-KV path (random weights from a seed): Qwen3-14B
             (global layers, depth ``--layers``), Gemma-3-4B (all 34
@@ -35,10 +45,10 @@ and the script exits non-zero):
             and RecurrentGemma-2B (all 26: 18 RG-LRU layers, 8 local
             attention layers on rings), then Whisper-base (all 12 layers)
             through ``whisper_serve``: ``prefill_encdec`` and ``decode_step``
-            over the manager's tables.  The launch counters of the three
-            kernels are zeroed before each and read after, and must equal
-            what the arch's layer groups imply (zero for a kernel it has no
-            layer for)
+            over the manager's tables.  The launch counters of the kernels
+            are zeroed before each and read after, and must equal what the
+            arch's layer groups imply (zero for a kernel it has no layer for,
+            and for K2's backward); no serving launch writes an LSE
   parity    the same widths at a cut depth, per arch: kernel path against
             plain path (bf16 logits, float32 token ids where the weights fit
             in float32, and for the MoE configs the share of expert ids that
@@ -47,6 +57,15 @@ and the script exits non-zero):
             one decode step against forward_lm in float32 at a ragged prompt
   coherence the port's serving_coherence benchmark (three modes of
             Qwen3-14B at published widths, 4 layers, and the budget row)
+  train     Yi-6B trained at published widths, 8 of its 32 layers (TRAIN),
+            batch 8 x seq 1 024, 6 steps of lm_loss -> backward -> AdamW
+            from seed 0, twice: the loss lists must be bit-equal, and K2's
+            forward and backward must run once a layer a step (K1 and K3
+            never); step time, tokens/s, peak memory.  Then one step at 2
+            layers, kernel path against plain path (loss rel <= 1e-3, every
+            gradient leaf within 2e-2 of its largest value), and the
+            fault-tolerant Trainer at the smoke width (12 steps, a checkpoint
+            every 4, a crash at 6) whose replay must match a clean run
   profile   (only when asked for) the serving loop of Qwen3-14B, Gemma-3-4B,
             Qwen3-235B-A22B (its serve depth), Mamba-2-370M and
             RecurrentGemma-2B under ``torch.profiler`` at two generation
@@ -57,7 +76,9 @@ and the script exits non-zero):
             without the profiler; and the device operations of one page walk
             of each kind (a wave's first walk, an extension step, a steady
             step, the sync after the frees), which must be one kernel and one
-            copy
+            copy; then Yi-6B's train step at the train phase's shape
+            (``profile_train`` alone): device-busy time, idle share, launches
+            and the largest kernels of a step, K2's forward and backward
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -70,8 +91,10 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -84,11 +107,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch._tree import tree_leaves  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 flash_attention_ref)
-from repro_torch.kernels.flash_attention.ref import NEG_INF  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    flash_attention_ref)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (NEG_INF,  # noqa: E402
+                                                     visible_mask)
 from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
                                                  paged_attention_ref)
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
@@ -98,9 +126,12 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import (active_param_count,  # noqa: E402
                                 decode_step, forward_lm, greedy_sample,
                                 init_decode_state, init_params, layer_groups,
-                                param_count, prefill, prefill_encdec)
+                                lm_loss, param_count, prefill, prefill_encdec)
+from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.pagedpt.blocktable import (CoherenceMode,  # noqa: E402
                                             apply_mutations)
+from repro_torch.runtime import (FailureInjector, Trainer,  # noqa: E402
+                                 TrainerConfig, train_step, trainable)
 
 DEV = torch.device("cuda", 0)
 # published peaks of one H100 SXM (dense): bytes/s of HBM, FLOP/s by input type
@@ -111,8 +142,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # differently between them, and a typical output at the serving shapes is
 # only about 0.05 (a looser bound would let a dropped block through).
 TOL = {"paged_attention": 5e-5, "flash_attention": 1e-4, "pte_gather": 0.0}
+# K2's backward: max |kernel - plain| of each of dq, dk, dv within this share
+# of the plain gradient's largest magnitude (both sides float32 from the same
+# inputs, bf16 ones included); a dropped 64 x 64 tile of P misses by far more
+BWD_TOL_REL = 2e-5
 KERNEL_FNS = {"paged_attention": paged_attention,
-              "flash_attention": flash_attention, "pte_gather": pte_gather}
+              "flash_attention": flash_attention,
+              "flash_attention_bwd": flash_attention_bwd,
+              "pte_gather": pte_gather}
 RNG = np.random.default_rng(0)
 
 
@@ -248,13 +285,7 @@ def flash_case(B, H, K, S, hd, causal, window, dtype):
 
 def flash_visible(S, causal, window):
     """[S, S] bool: may query row i see key j."""
-    i = torch.arange(S, device=DEV)
-    vis = torch.ones((S, S), dtype=torch.bool, device=DEV)
-    if causal:
-        vis &= i[:, None] >= i[None, :]
-    if window is not None:
-        vis &= (i[:, None] - i[None, :]) < window
-    return vis
+    return visible_mask(S, causal, window, DEV)
 
 
 def flash_bound(args, kw):
@@ -288,6 +319,139 @@ def flash_p_bf16(q, k, v, *, causal, window):
     s = s.masked_fill(~flash_visible(S, causal, window), NEG_INF)
     p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
     return torch.einsum("bkgqt,bktd->bkgqd", p, v.float()).reshape(B, H, S, hd)
+
+
+# -------------------------------------------------- flash attention backward
+def flash_bwd_case(B, H, K, S, hd, causal, window, dtype):
+    """The backward's inputs: q, k, v as ``flash_case`` makes them, the
+    kernel forward's output and LSE, and an output gradient; also the
+    forward's LSE error against the plain version's."""
+    (q, k, v), kw = flash_case(B, H, K, S, hd, causal, window, dtype)
+    out, lse = flash_ops._forward(q, k, v, causal, window, with_lse=True)
+    _, want = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    dout = randn((B, H, S, hd), torch.float32)
+    return (q, k, v, out, lse, dout), kw, max_err(lse, want)
+
+
+def flash_bwd_rel(got, want) -> dict:
+    """max |kernel - plain| of each gradient over the plain one's largest."""
+    return {name: float((g - w).abs().max() / w.abs().max())
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def flash_bwd_bound(args, kw):
+    """Bytes: q, k, v in their type, O, dO and the LSE read, dq, dk, dv
+    written (float32); operations: 2.5x the forward's 4 hd a visible pair."""
+    q, k, v, out, lse, dout = args
+    B, H, S, hd = q.shape
+    flops = 2.5 * 4 * B * H * hd * int(flash_visible(S, **kw).sum())
+    nbytes = ((q.numel() + k.numel() + v.numel()) * q.element_size()
+              + (out.numel() + dout.numel() + lse.numel()) * 4
+              + (q.numel() + k.numel() + v.numel()) * 4)
+    return nbytes / HBM_BPS, flops / PEAK_FLOPS[q.dtype]
+
+
+def flash_bwd_library(args, kw):
+    """Yardstick only (the port never calls it): SDPA's backward alone, the
+    forward run once beforehand; returns the call to time."""
+    q, k, v, out, lse, dout = args
+    leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=kw["causal"],
+                                       enable_gqa=True)
+    g = dout.to(o.dtype)
+    return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+
+def flash_bwd_drop_tile(q, k, v, out, lse, dout, *, causal, window):
+    """Negative control, not part of the port: the plain backward with one
+    64 x 64 tile of P (the last query rows against the first keys) dropped,
+    as a kernel that skipped a live tile would compute.  It must miss the
+    bound, or the bound could not see such a fault."""
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    G, scale = H // K, hd ** -0.5
+    vis = flash_visible(S, causal, window).clone()
+    vis[S - 64:, :64] = False
+    qg = q.reshape(B, K, G, S, hd).float()
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float()) * scale
+    p = torch.where(vis, torch.exp(s - lse.reshape(B, K, G, S, 1)), 0.0)
+    do = dout.reshape(B, K, G, S, hd)
+    d = (do * out.reshape(B, K, G, S, hd)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, do)
+    ds = p * (torch.einsum("bkgqd,bktd->bkgqt", do, v.float()) - d)
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qg) * scale
+    return dq.reshape(B, H, S, hd), dk, dv
+
+
+# Yi-6B's training shape (batch 8, seq 1 024, 32 heads on 4 kv heads)
+FLASH_BWD_TRAIN = (8, 32, 4, 1024, 128, True, None)
+
+
+def phase_kernels_bwd() -> dict:
+    """K2's backward against its plain version at the training shapes of
+    the attention archs, the forward's LSE against the plain one, the
+    dropped-tile control, and the timing row at Yi-6B's training shape."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(row, dt) for dt in (f32, bf16) for row in [
+        (2, 4, 2, 100, 16, True, None),          # ragged S, smoke head_dim
+        (2, 4, 2, 100, 64, True, None), (1, 8, 2, 333, 128, True, 100),
+        (1, 4, 2, 256, 64, False, None), (1, 2, 1, 70, 256, False, 33),
+        (2, 8, 4, 1024, 128, True, None)]]
+    cases += [
+        (FLASH_BWD_TRAIN, bf16), ((2,) + FLASH_BWD_TRAIN[1:], f32),
+        ((2, 8, 4, 2048, 256, True, 1024), bf16),    # Gemma-3's local layers
+        ((4, 8, 8, 1500, 64, False, None), f32),     # Whisper's encoder
+        ((2, 10, 1, 4096, 256, True, 2048), bf16),   # RecurrentGemma's local
+    ]
+    rel_by_dtype, lse_by_dtype = {}, {}
+    for row, dt in cases:
+        args, kw, lse_err = flash_bwd_case(*row, dt)
+        rel = flash_bwd_rel(flash_attention_bwd(*args, **kw),
+                            flash_attention_bwd_ref(*args, **kw))
+        torch.cuda.synchronize()
+        key = str(dt).replace("torch.", "")
+        check(max(rel.values()) <= BWD_TOL_REL,
+              f"flash_attention_bwd {row} {dt}: rel err {rel} > {BWD_TOL_REL}")
+        check(lse_err <= TOL["flash_attention"],
+              f"flash_attention lse {row} {dt}: |err| {lse_err}")
+        rel_by_dtype[key] = max(rel_by_dtype.get(key, 0.0), *rel.values())
+        lse_by_dtype[key] = max(lse_by_dtype.get(key, 0.0), lse_err)
+        del args
+    args, kw, lse_err = flash_bwd_case(*FLASH_BWD_TRAIN, bf16)
+    got = flash_attention_bwd(*args, **kw)
+    want = flash_attention_bwd_ref(*args, **kw)
+    again = flash_attention_bwd(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "flash_attention_bwd: two runs on the same inputs differ")
+    dropped = flash_bwd_rel(flash_bwd_drop_tile(*args, **kw), want)
+    check(min(dropped.values()) > BWD_TOL_REL,
+          f"a dropped tile misses by {dropped}, within {BWD_TOL_REL}: the "
+          "bound cannot see it")
+    t_bytes, t_ops = flash_bwd_bound(args, kw)
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+           "tpu_backward": "none: the reference differentiates its plain jnp "
+                           "attention (src/repro/models/attention.py:81)",
+           "launches": 0,
+           "max_abs_err": max_err(got, want),
+           "rel_err": flash_bwd_rel(got, want),
+           "ms": time_ms(lambda: flash_attention_bwd(*args, **kw)),
+           "plain_ms": time_ms(lambda: flash_attention_bwd_ref(*args, **kw)),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": time_ms(flash_bwd_library(args, kw)),
+           "library": "SDPA backward, is_causal, enable_gqa",
+           "timed_shape": [list(a.shape) for a in args],
+           "bit_reproducible": True,
+           "max_rel_err_by_dtype": rel_by_dtype, "tolerance_rel": BWD_TOL_REL,
+           "lse_max_abs_err_by_dtype": lse_by_dtype,
+           "lse_tolerance": TOL["flash_attention"],
+           "dropped_tile_rel_err": dropped, "cases": len(cases) + 1}
+    del args, got, want, again
+    release()
+    return row
 
 
 # ---------------------------------------------------------------- pte gather
@@ -744,6 +908,7 @@ def phase_kernels():
                   f"rounding P to bf16 misses by {at['naive_p_bf16_err']}, "
                   f"within {TOL[name]}: the bound cannot see it")
         rows.append(row)
+    rows.insert(2, phase_kernels_bwd())
     return rows
 
 
@@ -815,7 +980,31 @@ def expected_launches(cfg, waves: int, gen_len: int, warm_up: bool) -> dict:
     extra = 1 if warm_up else 0
     return {"paged_attention": n_global * (gen_len * waves + extra),
             "flash_attention": n_attn * (waves + extra),
+            "flash_attention_bwd": 0,
             "pte_gather": (2 + gen_len) * waves}
+
+
+@contextlib.contextmanager
+def lse_pointers_counted(into: dict):
+    """Count K2 forward launches that write the LSE (a non-null ``lse``
+    argument) into ``into["lse_writes"]``, by wrapping the launcher the
+    wrapper looks up.  Serving must write none, training one a launch."""
+    real = flash_ops._launcher
+    into["lse_writes"] = 0
+
+    def launcher():
+        fn = real()
+
+        def counted(*args):
+            into["lse_writes"] += args[4] is not None
+            return fn(*args)
+        return counted
+
+    flash_ops._launcher = launcher
+    try:
+        yield into
+    finally:
+        flash_ops._launcher = real
 
 
 def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
@@ -826,10 +1015,12 @@ def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.perf_counter()
-    r = serve(arch, full_width=True, n_layers=n_layers, batch=batch,
-              prompt_len=prompt_len, gen_len=gen_len, n_requests=n_requests,
-              n_pods=4, mode="numapte", verbose=False)
+    with lse_pointers_counted({}) as lse:
+        r = serve(arch, full_width=True, n_layers=n_layers, batch=batch,
+                  prompt_len=prompt_len, gen_len=gen_len, n_requests=n_requests,
+                  n_pods=4, mode="numapte", verbose=False)
     counts = {name: fn.launches for name, fn in KERNEL_FNS.items()}
+    check(lse["lse_writes"] == 0, f"{arch}: serving wrote an LSE {lse}")
     waves = -(-n_requests // batch)
     cfg = get_config(arch)
     L = r["n_layers"]
@@ -950,8 +1141,10 @@ def phase_whisper(n_pods: int = 4):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.perf_counter()
-    r = whisper_serve(cfg, params, n_pods=n_pods, **spec)
+    with lse_pointers_counted({}) as lse:
+        r = whisper_serve(cfg, params, n_pods=n_pods, **spec)
     counts = {name: fn.launches for name, fn in KERNEL_FNS.items()}
+    check(lse["lse_writes"] == 0, f"{arch}: serving wrote an LSE {lse}")
     waves = -(-spec["n_requests"] // spec["batch"])
     want = expected_launches(cfg, waves, spec["gen_len"], warm_up=False)
     check(counts == want, f"{arch}: launch counts {counts}, the path implies {want}")
@@ -1259,6 +1452,161 @@ def phase_coherence(n_layers: int = 4):
           "widths": "published", "layers": n_layers, "rows": rows})
 
 
+# ------------------------------------------------------------------ training
+# Yi-6B (the reference trainer's default arch) at published widths, depth cut
+# to 8 of 32 layers: 1.91 G parameters at the float32 param_dtype take 16 bytes
+# each with their gradients and two moments (30.5 GB), their bf16 copies for
+# the products 3.8 GB, the activations at batch 8 x seq 1 024 about 10.5 GB
+# and the logits with their float32 log-softmax about 9 GB: about 54 GB of the
+# card's 80; 16 layers would need about 89 GB.
+TRAIN = dict(arch="yi_6b", n_layers=8, batch=8, seq=1024, steps=6)
+
+
+def train_run(cfg, ds, steps):
+    """``steps`` train steps from seed 0 through ``train_step`` (lm_loss ->
+    backward -> AdamW); each step's wall time ends with ``float(loss)``,
+    which waits for the device.  The launch counters are zeroed before and
+    read after."""
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    params = trainable(init_params(cfg, torch.Generator(device=DEV).manual_seed(0)))
+    opt = adamw_init(params)
+    losses, norms, step_s = [], [], []
+    reset_counters()
+    with lse_pointers_counted({}) as lse:
+        for step in range(steps):
+            batch = {k: torch.from_numpy(v).to(DEV)
+                     for k, v in ds.batch_at(step).items()}
+            t0 = time.perf_counter()
+            params, opt, metrics = train_step(cfg, params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            norms.append(float(metrics["grad_norm"]))
+    counts = {name: fn.launches for name, fn in KERNEL_FNS.items()}
+    counts["lse_writes"] = lse["lse_writes"]
+    out = {"losses": losses, "grad_norms": norms, "step_s": step_s,
+           "counts": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "param_count": sum(p.numel() for p in tree_leaves(params))}
+    del params, opt
+    release()
+    return out
+
+
+def loss_and_grads(cfg, params, batch):
+    for p in tree_leaves(params):
+        p.grad = None
+    total, metrics = lm_loss(cfg, params, batch)
+    total.backward()
+    return (float(metrics["loss"].detach()),
+            [p.grad.clone() for p in tree_leaves(params)])
+
+
+def train_parity(n_layers=2, batch=2, seq=512) -> dict:
+    """One step's loss and gradients at published widths, 2 layers, the
+    kernel path (K2 forward and backward) against the plain path (autograd
+    through the plain attention), bf16 activations, float32 parameters."""
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=n_layers)
+    params = trainable(init_params(cfg, torch.Generator(device=DEV).manual_seed(1)))
+    data = {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLMDataset(
+        cfg.vocab_size, seq_len=seq, global_batch=batch, seed=1).batch_at(0).items()}
+    reset_counters()
+    loss, grads = loss_and_grads(cfg, params, data)
+    check(flash_attention.launches == flash_attention_bwd.launches == n_layers,
+          "the kernel path's step did not run K2 forward and backward once a layer")
+    with plain_versions():
+        reset_counters()
+        want_loss, want = loss_and_grads(cfg, params, data)
+        check(flash_attention.launches == flash_attention_bwd.launches == 0,
+              "the plain path launched K2")
+    rels = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(grads, want)]
+    out = {"layers": n_layers, "batch": batch, "seq": seq,
+           "loss_rel": abs(loss - want_loss) / abs(want_loss),
+           "grad_rel_max": max(rels), "grad_rel_median": float(np.median(rels)),
+           "grad_leaves": len(rels)}
+    check(out["loss_rel"] <= 1e-3 and out["grad_rel_max"] <= 2e-2,
+          f"training step: kernel path and plain path differ: {out}")
+    del params, grads, want
+    release()
+    return out
+
+
+def trainer_replay() -> dict:
+    """The fault-tolerant Trainer on the card at the smoke width (a
+    full-width checkpoint is 23 GB a save): 12 steps, a checkpoint every 4,
+    a crash at step 6; the replayed losses against a clean run."""
+    cfg = get_smoke_config(TRAIN["arch"])
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len=32, global_batch=4)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        runs = {}
+        for name, schedule in (("clean", {}), ("crash", {6: "crash"})):
+            runs[name] = Trainer(
+                cfg, TrainerConfig(total_steps=12, checkpoint_every=4,
+                                   checkpoint_dir=os.path.join(root, name),
+                                   log_every=100), ds,
+                injector=FailureInjector(schedule), device=DEV).run()
+    finally:
+        shutil.rmtree(root)
+    clean = {h["step"]: h["loss"] for h in runs["clean"]["history"]}
+    hist = runs["crash"]["history"]
+    rel = max(abs(h["loss"] - clean[h["step"]]) / abs(clean[h["step"]]) for h in hist)
+    out = {"arch": cfg.name, "restarts": runs["crash"]["restarts"],
+           "steps_run": [h["step"] for h in hist], "replay_rel_max": rel,
+           "replay_bit_equal": all(h["loss"] == clean[h["step"]] for h in hist),
+           "losses": [h["loss"] for h in hist]}
+    check(out["restarts"] == 1 and len(hist) == 14 and rel <= 1e-5,
+          f"crash/restore replay: {out}")
+    return out
+
+
+def phase_train():
+    """Yi-6B trains at published widths (TRAIN: depth 8 of 32) twice from
+    seed 0: the two loss lists must be bit-equal, K2 forward and backward
+    must run once a layer a step (writing the LSE each time) and K1 / K3
+    never; then the kernel path against the plain path for one step, and the
+    Trainer's crash/restore replay at the smoke width.  Returns the counts
+    of the first run and what the path implies."""
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN["n_layers"])
+    steps, tokens = TRAIN["steps"], TRAIN["batch"] * TRAIN["seq"]
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len=TRAIN["seq"],
+                            global_batch=TRAIN["batch"])
+    first, second = train_run(cfg, ds, steps), train_run(cfg, ds, steps)
+    want = {"paged_attention": 0, "flash_attention": cfg.n_layers * steps,
+            "flash_attention_bwd": cfg.n_layers * steps, "pte_gather": 0,
+            "lse_writes": cfg.n_layers * steps}
+    for run in (first, second):
+        check(run["counts"] == want,
+              f"train: launch counts {run['counts']}, the path implies {want}")
+        check(all(np.isfinite(run["losses"])), f"non-finite loss {run['losses']}")
+    check(first["losses"] == second["losses"],
+          f"two runs from seed 0 differ: {first['losses']} {second['losses']}")
+    step_ms = 1e3 * float(np.median(first["step_s"]))
+    emit({"phase": "train", "arch": TRAIN["arch"], "widths": "published",
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+          "layers_run": cfg.n_layers,
+          "layers_published": get_config(TRAIN["arch"]).n_layers,
+          "depth_cut": "8 of 32 layers: parameters, gradients and two float32 "
+                       "moments at 16 bytes a parameter, activations and "
+                       "logits fit 80 GB at 8 layers, not at 16",
+          "param_count_run": first["param_count"],
+          "param_dtype": str(cfg.param_dtype).replace("torch.", ""),
+          "dtype": str(cfg.dtype).replace("torch.", ""),
+          "batch": TRAIN["batch"], "seq": TRAIN["seq"], "steps": steps,
+          "step_ms_median": step_ms,
+          "step_ms": [1e3 * x for x in first["step_s"]],
+          "step_ms_second_run": [1e3 * x for x in second["step_s"]],
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "peak_mem_gb": first["peak_mem_gb"],
+          "loss_first": first["losses"][0], "loss_last": first["losses"][-1],
+          "losses": first["losses"], "grad_norms": first["grad_norms"],
+          "runs_bit_equal": True, "launches": first["counts"],
+          "parity": train_parity(), "trainer_replay": trainer_replay()})
+    counts = {k: v for k, v in first["counts"].items() if k in KERNEL_FNS}
+    return counts, {k: v for k, v in want.items() if k in KERNEL_FNS}
+
+
 # ------------------------------------------------------------------- profile
 @torch.no_grad()
 def phase_profile(arch: str, n_layers=None, walks: bool = True,
@@ -1327,10 +1675,62 @@ def phase_profile(arch: str, n_layers=None, walks: bool = True,
                   per_prefill.items(), key=lambda kv: -kv[1][0])[:10]]})
 
 
+def phase_profile_train(warm: int = 2, profiled: int = 2):
+    """Yi-6B's train step at TRAIN's shape under the profiler: device-busy
+    time and launches a step, the largest kernels, and the share of K2's
+    forward and backward; the step's wall time comes from the steps before,
+    unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN["n_layers"])
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len=TRAIN["seq"],
+                            global_batch=TRAIN["batch"])
+    release()
+    params = trainable(init_params(cfg, torch.Generator(device=DEV).manual_seed(0)))
+    opt = adamw_init(params)
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in ds.batch_at(i).items()}
+               for i in range(warm + profiled)]
+    wall = []
+    for b in batches[:warm]:
+        t0 = time.perf_counter()
+        params, opt, metrics = train_step(cfg, params, opt, b)
+        float(metrics["loss"])
+        wall.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches[warm:]:
+            params, opt, metrics = train_step(cfg, params, opt, b)
+            float(metrics["loss"])
+        torch.cuda.synchronize()
+    by_kernel = {e.key: (e.device_time_total / 1e3 / profiled, e.count / profiled)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.device_time_total > 0}
+    check(bool(by_kernel), "the profiler recorded no device time")
+    busy = sum(ms for ms, _ in by_kernel.values())
+    step_ms = 1e3 * wall[-1]
+
+    def share(word):
+        return sum(ms for k, (ms, _) in by_kernel.items() if word in k)
+
+    emit({"phase": "profile_train", "arch": TRAIN["arch"], "layers": cfg.n_layers,
+          "batch": TRAIN["batch"], "seq": TRAIN["seq"], "steps_profiled": profiled,
+          "step_ms_unprofiled": step_ms, "device_busy_ms": busy,
+          "device_idle_share": 1 - busy / step_ms,
+          "launches_per_step": sum(n for _, n in by_kernel.values()),
+          "k2_forward_ms": share("flash_attention_bf16_kernel"),
+          "k2_backward_ms": share("flash_bwd_"),
+          "gemm_ms": sum(ms for k, (ms, _) in by_kernel.items()
+                         if any(w in k.lower() for w in ("gemm", "nvjet", "xmma", "cutlass"))),
+          "top_kernels": [{"kernel": k[:80], "ms_per_step": ms, "launches_per_step": n}
+                          for k, (ms, n) in sorted(by_kernel.items(),
+                                                   key=lambda kv: -kv[1][0])[:15]]})
+    del params, opt
+    release()
+
+
 # ----------------------------------------------------------------------- main
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serve,parity,coherence")
+    ap.add_argument("--phases", default="kernels,serve,parity,coherence,train")
     ap.add_argument("--layers", type=int, default=SERVE_DEPTH["qwen3_14b"],
                     help="depth of the Qwen3-14B serve and profile (widths are "
                          "never cut; every other arch runs at SERVE_DEPTH)")
@@ -1350,29 +1750,35 @@ def main() -> None:
           "libraries": [p.name for p in built]})
 
     rows = phase_kernels() if "kernels" in phases else []
+    runs = {}
     if "serve" in phases:
         runs = {arch: phase_serve(arch, n) for arch, n in depth.items()}
         runs["whisper_base"] = phase_whisper()
-        # every kernel that the arch's layer groups need ran, and no other
-        for arch, (by_name, want) in runs.items():
-            for name, n in by_name.items():
-                check((n > 0) == (want[name] > 0),
-                      f"{name} ran {n} times on the {arch} path, which needs "
-                      f"{want[name]}")
-        counts = {arch: by_name for arch, (by_name, _) in runs.items()}
-        for row in rows:
-            row["launches_by_arch"] = {a: c[row["name"]] for a, c in counts.items()}
-            row["launches"] = sum(row["launches_by_arch"].values())
     if "parity" in phases:
         for arch in PARITY:
             phase_parity(arch)
     if "coherence" in phases:
         phase_coherence()
+    if "train" in phases:
+        runs["train_yi_6b"] = phase_train()
+    # every kernel that the path's layer groups need ran, and no other
+    for path, (by_name, want) in runs.items():
+        for name, n in by_name.items():
+            check((n > 0) == (want[name] > 0),
+                  f"{name} ran {n} times on the {path} path, which needs "
+                  f"{want[name]}")
+    if runs:
+        counts = {path: by_name for path, (by_name, _) in runs.items()}
+        for row in rows:
+            row["launches_by_arch"] = {a: c[row["name"]] for a, c in counts.items()}
+            row["launches"] = sum(row["launches_by_arch"].values())
     if "profile" in phases:
         for i, arch in enumerate(("qwen3_14b", "gemma3_4b",
                                   "qwen3_moe_235b_a22b", "mamba2_370m",
                                   "recurrentgemma_2b")):
             phase_profile(arch, depth[arch], walks=i == 0)
+    if "profile" in phases or "profile_train" in phases:
+        phase_profile_train()
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

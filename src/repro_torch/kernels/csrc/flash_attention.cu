@@ -48,7 +48,13 @@
 //   * ragged edges are masked, so S need not divide the tile; masked
 //     entries contribute an exact 0 (they are not exponentiated);
 //   * q, k, v and out are addressed through (batch, head, row) strides, so
-//     the caller's [B,S,H,hd] projections are read in place as [B,H,S,hd].
+//     the caller's [B,S,H,hd] projections are read in place as [B,H,S,hd];
+//   * with a non-null `lse` each row's log-sum-exp is written beside the
+//     output, as the backward (flash_attention_bwd.cu) reads it: the
+//     natural log of sum exp(scale * q.k) over the visible keys.  The FMA
+//     kernel keeps m in the scaled domain, the tensor-core kernel in the
+//     unscaled one (exp2 of scale_log2 * x): each converts at its end.  The
+//     serving path passes null and writes nothing.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -82,9 +88,10 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 template <typename T, int DPT>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, float* __restrict__ out, int G,
-                       int S, int hd, int causal, int window, float scale,
-                       Strides qs, Strides ks, Strides vs, Strides os) {
+                       const T* __restrict__ v, float* __restrict__ out,
+                       float* __restrict__ lse, int G, int S, int hd, int causal,
+                       int window, float scale, Strides qs, Strides ks,
+                       Strides vs, Strides os) {
     extern __shared__ __align__(16) float smem[];
     const int ld = hd + 4;            // keeps rows 16-byte aligned, spreads banks
     float* sq = smem;                 // [BQ][ld]
@@ -208,12 +215,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int d = tx + 16 * j;
             if (d < hd) ob[row * os.s + d] = acc[i][j] * inv;
         }
+        // m is the scaled row max here, l the sum of exp(s - m)
+        if (lse != nullptr && tx == 0)
+            lse[((int64_t)b * gridDim.y + h) * S + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
     }
 }
 
 template <typename T, int DPT>
 cudaError_t launch_dpt(const void* q, const void* k, const void* v, float* out,
-                       int B, int H, int K, int S, int hd, int causal, int window,
+                       float* lse, int B, int H, int K, int S, int hd, int causal,
+                       int window,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        cudaStream_t stream) {
     const size_t smem = ((size_t)(BQ + 2 * BK) * (hd + 4) + (size_t)BQ * LDP) * sizeof(float);
@@ -224,18 +235,19 @@ cudaError_t launch_dpt(const void* q, const void* k, const void* v, float* out,
     const dim3 grid((S + BQ - 1) / BQ, H, B);
     const float scale = 1.0f / sqrtf((float)hd);
     kernel<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, out,
-                                       H / K, S, hd, causal, window, scale, qs,
-                                       ks, vs, os);
+                                       lse, H / K, S, hd, causal, window, scale,
+                                       qs, ks, vs, os);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, float* out,
-                      int B, int H, int K, int S, int hd, int causal, int window,
+                      float* lse, int B, int H, int K, int S, int hd, int causal,
+                      int window,
                       Strides qs, Strides ks, Strides vs, Strides os,
                       cudaStream_t stream) {
     const int per_thread = (hd + 15) / 16;
-#define FA_ARGS q, k, v, out, B, H, K, S, hd, causal, window, qs, ks, vs, os, stream
+#define FA_ARGS q, k, v, out, lse, B, H, K, S, hd, causal, window, qs, ks, vs, os, stream
     if (per_thread <= 1) return launch_dpt<T, 1>(FA_ARGS);
     if (per_thread <= 2) return launch_dpt<T, 2>(FA_ARGS);
     if (per_thread <= 4) return launch_dpt<T, 4>(FA_ARGS);
@@ -275,9 +287,10 @@ __global__ void __launch_bounds__(TC_NT)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            float* __restrict__ out, int G, int S, int hd,
-                            int causal, int window, float scale_log2, Strides qs,
-                            Strides ks, Strides vs, Strides os) {
+                            float* __restrict__ out, float* __restrict__ lse,
+                            int G, int S, int hd, int causal, int window,
+                            float scale_log2, Strides qs, Strides ks, Strides vs,
+                            Strides os) {
     constexpr int LD = HDP + 8;              // +16 bytes: ldmatrix conflict-free
     constexpr int KSTEPS = HDP / 16;         // 16-wide slices of head_dim
     constexpr int DBLK = HDP / 8;            // 8-wide output column blocks
@@ -442,14 +455,19 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 *reinterpret_cast<float2*>(&ob[row * os.s + d]) =
                     make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
         }
+        // m is the unscaled row max here and lr the sum of
+        // 2^(scale_log2 (x - m)): ln(sum e^(scale x)) = ln 2 (m scale_log2 + log2 lr)
+        if (lse != nullptr && t == 0)
+            lse[((int64_t)b * gridDim.y + h) * S + row] =
+                0.69314718f * fmaf(m[r], scale_log2, log2f(fmaxf(lr, 1e-30f)));
     }
 }
 
 template <int HDP>
 cudaError_t launch_tc_hdp(const void* q, const void* k, const void* v, float* out,
-                          int B, int H, int K, int S, int hd, int causal,
-                          int window, Strides qs, Strides ks, Strides vs,
-                          Strides os, cudaStream_t stream) {
+                          float* lse, int B, int H, int K, int S, int hd,
+                          int causal, int window, Strides qs, Strides ks,
+                          Strides vs, Strides os, cudaStream_t stream) {
     const size_t smem = (size_t)(BQ + 4 * BK) * (HDP + 8) * sizeof(__nv_bfloat16);
     auto kernel = flash_attention_bf16_kernel<HDP>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -459,15 +477,15 @@ cudaError_t launch_tc_hdp(const void* q, const void* k, const void* v, float* ou
     const float scale_log2 = 1.44269504f / sqrtf((float)hd);   // log2(e) / sqrt(hd)
     kernel<<<grid, TC_NT, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        out, H / K, S, hd, causal, window, scale_log2, qs, ks, vs, os);
+        out, lse, H / K, S, hd, causal, window, scale_log2, qs, ks, vs, os);
     return cudaGetLastError();
 }
 
 cudaError_t launch_tc(const void* q, const void* k, const void* v, float* out,
-                      int B, int H, int K, int S, int hd, int causal, int window,
-                      Strides qs, Strides ks, Strides vs, Strides os,
+                      float* lse, int B, int H, int K, int S, int hd, int causal,
+                      int window, Strides qs, Strides ks, Strides vs, Strides os,
                       cudaStream_t stream) {
-#define FA_ARGS q, k, v, out, B, H, K, S, hd, causal, window, qs, ks, vs, os, stream
+#define FA_ARGS q, k, v, out, lse, B, H, K, S, hd, causal, window, qs, ks, vs, os, stream
     if (hd <= 16) return launch_tc_hdp<16>(FA_ARGS);
     if (hd <= 32) return launch_tc_hdp<32>(FA_ARGS);
     if (hd <= 64) return launch_tc_hdp<64>(FA_ARGS);
@@ -479,13 +497,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, float* out,
 }  // namespace
 
 // q [B,H,S,hd], k/v [B,K,S,hd] of `dtype`, out [B,H,S,hd] f32, each given by
-// its (batch, head, row) strides in elements with head_dim contiguous.
+// its (batch, head, row) strides in elements with head_dim contiguous; lse
+// null, or [B,H,S] f32 contiguous for the rows' log-sum-exp.
 // window < 0 means none.  Needs hd <= 256 and hd % 4 == 0, H <= 65535 and
 // B <= 65535 (grid limits); bf16 also needs hd % 16 == 0 and every stride a
 // multiple of 8 elements (16-byte copies).  The wrapper checks.  Returns the
 // launch's cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int B, int H, int K, int S,
+                                      void* out, void* lse, int B, int H, int K, int S,
                                       int hd, int causal, int window, int dtype,
                                       const int64_t* strides, void* stream) {
     if (B == 0 || S == 0) return 0;
@@ -495,8 +514,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     const Strides os{strides[9], strides[10], strides[11]};
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == DTYPE_BF16)
-        return (int)launch_tc(q, k, v, (float*)out, B, H, K, S, hd, causal,
-                              window, qs, ks, vs, os, st);
-    return (int)launch_hd<float>(q, k, v, (float*)out, B, H, K, S, hd, causal,
-                                 window, qs, ks, vs, os, st);
+        return (int)launch_tc(q, k, v, (float*)out, (float*)lse, B, H, K, S, hd,
+                              causal, window, qs, ks, vs, os, st);
+    return (int)launch_hd<float>(q, k, v, (float*)out, (float*)lse, B, H, K, S, hd,
+                                 causal, window, qs, ks, vs, os, st);
 }

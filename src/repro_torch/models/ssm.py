@@ -115,7 +115,10 @@ def ssd_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     L = torch.exp(torch.where(causal, seg, torch.full_like(seg, -1e30)))
     del seg
     scores = torch.einsum("bcqn,bckn->bcqk", C_c, B_c)       # [B,nc,Q,Q]
-    L.mul_(scores[..., None])                                 # scores ∘ L
+    if L.requires_grad or scores.requires_grad:
+        L = L * scores[..., None]        # exp saved its output for backward
+    else:
+        L.mul_(scores[..., None])                             # scores ∘ L
     y = torch.einsum("bcqkh,bckhp->bcqhp", L, xdt)            # y_diag
     del L, scores
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from .._tree import tree_leaves
 from ..kvcache.gather import scatter_prefill_plain
 from .attention import (attend, attn_decode_paged, attn_decode_ring,
                         cross_attention, cross_kv, init_attn,
@@ -96,21 +97,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     return params
 
 
-def _leaves(tree: PyTree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of ``cfg``, from shapes alone (meta tensors: nothing is
     drawn or allocated)."""
-    return sum(t.numel() for t in _leaves(init_params(cfg, SHAPES_ONLY)))
+    return sum(t.numel() for t in tree_leaves(init_params(cfg, SHAPES_ONLY)))
 
 
 def active_param_count(cfg: ModelConfig) -> int:
@@ -376,6 +366,33 @@ def prefill_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
     logits = _lm_head(cfg, params, y[:, -1])
     seq_lens = torch.full((B,), Sd, dtype=torch.int32, device=y.device)
     return logits, DecodeState(state.caches, seq_lens)
+
+
+def lm_loss(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy on a float32 log-softmax, plus 0.01 times
+    the MoE aux loss.  batch: ``tokens`` [B,S+1] (and ``enc_feats`` [B,Se,D]
+    for an encoder-decoder), optionally ``mask`` [B,S+1] (position 0 is
+    dropped with the inputs).  Returns (total, {loss, aux, tokens})."""
+    tokens = batch["tokens"]
+    if cfg.family == "encdec":
+        logits, aux = forward_encdec(cfg, params, batch["enc_feats"],
+                                     tokens[:, :-1])
+    else:
+        logits, aux = forward_lm(cfg, params, tokens[:, :-1])
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask[:, 1:].to(torch.float32)
+        loss = -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+    else:
+        loss = -ll.mean()
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux": aux,
+                   "tokens": torch.tensor(float(targets.numel()),
+                                          device=loss.device)}
 
 
 # --------------------------------------------------------------------------- decode

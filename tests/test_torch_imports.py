@@ -32,7 +32,9 @@ def test_torch_port_has_the_reference_layout():
                 "configs.chameleon_34b", "configs.mamba2_370m",
                 "configs.recurrentgemma_2b", "configs.whisper_base",
                 "models.ssm", "models.rglru", "launch.serve",
-                "benchmarks.serving_coherence"):
+                "benchmarks.serving_coherence", "kernels.flash_attention.ops",
+                "optim.adamw", "data.pipeline", "checkpoint.store",
+                "runtime.trainer", "launch.train"):
         assert f"repro_torch.{sub}" in MODULES
 
 

@@ -147,6 +147,62 @@ def test_torch_causal_conv_matches_jax(dtype):
         _check(got, want, dtype, "conv")
 
 
+def _grad_close(got, want, what):
+    """float32 gradients: within 1e-4 of the leaf's largest magnitude."""
+    got, want = _f32(got), _f32(want)
+    assert got.shape == want.shape and np.isfinite(got).all(), what
+    err = np.abs(got - want).max()
+    assert err <= 1e-4 * np.abs(want).max(), (what, err)
+
+
+@pytest.mark.parametrize("S", [16, 13])
+def test_torch_ssd_forward_backward_matches_jax_grad(S):
+    """Autograd through ``ssd_forward`` (the chunk products out of place
+    when autograd records, the tail pad at S = 13) against ``jax.grad`` of
+    the reference's, for every parameter and the input, float32."""
+    jcfg, tcfg = _cfgs("f32")
+    p = _module_params(jcfg, seed=4)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, S, jcfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, S, jcfg.d_model)).astype(np.float32)
+
+    def jloss(jp, jx):
+        return jnp.sum(jssm.ssd_forward(jcfg, jp, jx) * w)
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    tp = {k: torch.from_numpy(np.array(v)).requires_grad_() for k, v in p.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    (tssm.ssd_forward(tcfg, tp, tx) * torch.from_numpy(w)).sum().backward()
+    _grad_close(tx.grad, jgx, "x")
+    for name, leaf in tp.items():
+        _grad_close(leaf.grad, jgp[name], name)
+
+
+def test_torch_mamba_lm_loss_grads_match_jax():
+    """Backward through the Mamba-2 smoke model's ``lm_loss`` (it raised
+    before: an in-place product on ``exp``'s saved output), every leaf
+    against ``jax.grad`` of the reference's on converted weights."""
+    jcfg, tcfg, jparams, tparams = _setup(ARCH, "f32")
+    tokens = np.random.default_rng(8).integers(
+        0, jcfg.vocab_size, (2, 22)).astype(np.int32)
+    jgrads = jax.grad(lambda p: jm.lm_loss(
+        jcfg, p, {"tokens": jnp.asarray(tokens)}, remat=False)[0])(jparams)
+    for leaf in jax.tree.leaves(tparams, is_leaf=torch.is_tensor):
+        leaf.requires_grad_(True)
+    tm.lm_loss(tcfg, tparams, {"tokens": torch.from_numpy(tokens)})[0].backward()
+    assert "lm_head" not in tparams            # tied embeddings
+    _grad_close(tparams["embedding"].grad, jgrads["embedding"], "embedding")
+    _grad_close(tparams["final_norm"]["scale"].grad, jgrads["final_norm"]["scale"],
+                "final_norm")
+    for li, layer in enumerate(tparams["groups"][0]):
+        _grad_close(layer["norm1"]["scale"].grad,
+                    jgrads["groups"][0]["norm1"]["scale"][li], f"{li} norm1")
+        for name, leaf in layer["ssd"].items():
+            _grad_close(leaf.grad, jgrads["groups"][0]["ssd"][name][li],
+                        f"{li} {name}")
+
+
 def test_torch_init_ssd_shapes_and_constants_equal_reference():
     jcfg = jconfigs.get_smoke_config(ARCH)
     cfg = tconfigs.get_smoke_config(ARCH)
