@@ -12,7 +12,7 @@ their tree paths (``params/groups/0/1/attn/wq``).  numpy has no bfloat16: a
 bf16 leaf is stored as its uint16 bits with ``"dtype": "bfloat16"`` in the
 manifest and restored bit for bit.  ``restore`` puts each leaf on the
 device of the matching leaf of ``like`` (or on ``device``); a sharded
-restore is not ported (ROADMAP queue 1 item 13).  The async mode hands the
+restore is not ported (ROADMAP queue 1 item 16).  The async mode hands the
 host copies to a writer thread, so the train loop blocks only on the
 previous save; a writer's error is raised by the next ``wait()``.
 """

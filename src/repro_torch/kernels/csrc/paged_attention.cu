@@ -45,7 +45,12 @@
 //     block of each (sequence, kv head, group), found with a counter that it
 //     resets to 0, merges the partials by the reference's rule: max,
 //     rescale, sum, denominator floored at 1e-30.  A row with no live slot
-//     comes out as 0.
+//     comes out as 0;
+//   * an optional per-row log-sum-exp (`lse`, [B,H] float32, null when not
+//     asked for): ln of the sum of exp(scale q.k) over the row's live slots,
+//     NEG_INF for a row with none; written where the output is, by the
+//     single-split path or by the merging block.  Sequence-parallel decode
+//     combines shards' partials with it.  Serving passes null.
 // Scores are kept in log2 units (scale * log2(e) folded in), so every
 // exponential is one exp2f.
 #include <type_traits>
@@ -64,6 +69,12 @@ constexpr int MAX_SPLITS = 256;
 constexpr int COLS_PER_THREAD = MAX_COLS / NT;
 static_assert(MAX_COLS % NT == 0, "every thread stages whole columns");
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LN2 = 0.693147180559945309f;
+
+// ln sum exp(scale q.k) from the softmax state in log2 units: max m, sum l
+__device__ __forceinline__ float row_lse(float m, float l) {
+    return l > 0.f ? m * LN2 + logf(l) : NEG_INF;
+}
 
 struct Params {
     const void* q;
@@ -74,6 +85,7 @@ struct Params {
     float* out;
     float* part;        // B*H*n_splits rows: acc [hd] each, then m, then l
     int* counters;      // [B, K * n_gc], 0 between launches
+    float* lse;         // [B, H] or null
     int B, H, K, G, hd, bt, MB, window, n_gc, n_splits, cps;
     float scale_log2;
 };
@@ -541,6 +553,7 @@ paged_attention_kernel(const Params p) {
             const float inv = 1.0f / fmaxf(Lsum, 1e-30f);
             *reinterpret_cast<float4*>(p.out + (bh0 + g) * p.hd + d) =
                 make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
+            if (p.lse != nullptr && d == 0) p.lse[bh0 + g] = row_lse(M, Lsum);
         } else {
             const int64_t row = (bh0 + g) * p.n_splits + split;
             *reinterpret_cast<float4*>(part_acc + row * p.hd + d) = A;
@@ -578,7 +591,10 @@ paged_attention_kernel(const Params p) {
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) den += __shfl_xor_sync(FULL, den, off);
-        if (lane == 0) sden[g] = den;
+        if (lane == 0) {
+            sden[g] = den;
+            if (p.lse != nullptr) p.lse[bh0 + g] = row_lse(M, den);
+        }
     }
     __syncthreads();
     for (int idx = threadIdx.x; idx < Gc * hd4; idx += NT) {
@@ -642,28 +658,29 @@ cudaError_t dispatch(int dtype, int hd, F&& f) {
 
 // q [B,H,hd], k/v_slabs [N,bt,K,hd] (one layer, contiguous, all of `dtype`),
 // tables [B,MB] i32 physical frames (-1 absent), lens [B] i32, out [B,H,hd]
-// f32.  window < 0 means none.  The split plan (n_gc groups of up to 16 query
-// heads, n_splits ranges of cps columns) comes from the wrapper; with
-// n_splits > 1, `part` holds B*H*n_splits*(hd + 2) floats and `counters`
-// B*K*n_gc ints that are 0 (the kernel leaves them 0).  Needs hd <= 256, hd a
-// multiple of 16 bytes and 16-byte aligned operands; the wrapper checks.  A
-// plan outside 1 <= n_splits <= MAX_SPLITS, 1 <= cps <= MAX_COLS or
-// n_gc * 16 >= H / K returns cudaErrorInvalidValue and launches nothing.
+// f32, lse [B,H] f32 or null.  window < 0 means none.  The split plan (n_gc
+// groups of up to 16 query heads, n_splits ranges of cps columns) comes from
+// the wrapper; with n_splits > 1, `part` holds B*H*n_splits*(hd + 2) floats
+// and `counters` B*K*n_gc ints that are 0 (the kernel leaves them 0).  Needs
+// hd <= 256, hd a multiple of 16 bytes and 16-byte aligned operands; the
+// wrapper checks.  A plan outside 1 <= n_splits <= MAX_SPLITS,
+// 1 <= cps <= MAX_COLS or n_gc * 16 >= H / K returns cudaErrorInvalidValue and
+// launches nothing.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int paged_attention_launch(const void* q, const void* k_slabs,
                                       const void* v_slabs, const void* tables,
                                       const void* lens, void* out, void* part,
-                                      void* counters, int B, int H, int K, int hd,
-                                      int bt, int MB, int window, int n_gc,
-                                      int n_splits, int cps, int dtype,
+                                      void* counters, void* lse, int B, int H,
+                                      int K, int hd, int bt, int MB, int window,
+                                      int n_gc, int n_splits, int cps, int dtype,
                                       void* stream) {
     if (B == 0) return 0;
     if (n_splits < 1 || n_splits > MAX_SPLITS || cps < 1 || cps > MAX_COLS ||
         K < 1 || n_gc * GM < H / K)
         return (int)cudaErrorInvalidValue;
     Params p{q, k_slabs, v_slabs, (const int*)tables, (const int*)lens,
-             (float*)out, (float*)part, (int*)counters, B, H, K, H / K, hd, bt,
-             MB, window, n_gc, n_splits, cps,
+             (float*)out, (float*)part, (int*)counters, (float*)lse, B, H, K,
+             H / K, hd, bt, MB, window, n_gc, n_splits, cps,
              1.44269504f / sqrtf((float)hd)};   // log2(e) / sqrt(hd)
     cudaStream_t st = (cudaStream_t)stream;
     return (int)dispatch(dtype, hd, [&](auto t, auto h) {

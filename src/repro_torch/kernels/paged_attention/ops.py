@@ -8,7 +8,9 @@ call.
 The kernel splits each sequence's block-table columns across blocks
 (split-KV).  ``_split_plan`` picks the split from shapes alone, so the
 wrapper never reads ``seq_lens`` (or any device tensor) on the host; the
-partial results are merged inside the same launch.
+partial results are merged inside the same launch.  With ``lse`` the
+kernel also writes each row's log-sum-exp (for the sequence-parallel
+combine); serving passes none and the kernel writes nothing.
 """
 from __future__ import annotations
 
@@ -104,7 +106,7 @@ def _scratch(index: int, stream: int, n_counters: int,
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("paged_attention").paged_attention_launch
-    fn.argtypes = [_P] * 8 + [_I] * 11 + [_P]
+    fn.argtypes = [_P] * 9 + [_I] * 11 + [_P]
     fn.restype = _I
     return fn
 
@@ -112,15 +114,31 @@ def _launcher():
 def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
                     v_slabs: torch.Tensor, block_tables: torch.Tensor,
                     seq_lens: torch.Tensor, *,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: [B,H,hd]; k/v_slabs: [N,bt,K,hd] (one layer's slabs); block_tables:
     [B,MB] int32 physical frames (-1 absent); seq_lens: [B] int32, including
-    the newest token.  Returns [B,H,hd] float32.  A row with no live block
-    returns zeros."""
-    if not q.is_cuda:
-        return paged_attention_ref(q, k_slabs, v_slabs, block_tables,
-                                   seq_lens, window=window)
+    the newest token (a length <= 0 leaves the row with no live slot).
+    Returns [B,H,hd] float32.  A row with no live block returns zeros.
+    ``lse``: None, or a float32 [B,H] tensor into which each row's
+    ln sum exp(scale q.k) over its live slots is written (``NEG_INF`` for a
+    row with none)."""
     B, H, hd = q.shape
+    if lse is not None and (lse.shape != (B, H) or lse.dtype != torch.float32
+                            or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError("paged_attention: lse must be a contiguous float32 "
+                         f"[B, H] tensor on q's device, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if not q.is_cuda:
+        if lse is None:
+            return paged_attention_ref(q, k_slabs, v_slabs, block_tables,
+                                       seq_lens, window=window)
+        out, row_lse = paged_attention_ref(q, k_slabs, v_slabs, block_tables,
+                                           seq_lens, window=window,
+                                           return_lse=True)
+        lse.copy_(row_lse)
+        return out
     N, bt, K, hd2 = k_slabs.shape
     MB = block_tables.shape[1]
     if (q.dtype not in _DTYPES or k_slabs.dtype != q.dtype
@@ -155,7 +173,8 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
         code = _launcher()(
             q.data_ptr(), k_slabs.data_ptr(), v_slabs.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            partials, counters, B, H, K, hd, bt, MB,
+            partials, counters, None if lse is None else lse.data_ptr(),
+            B, H, K, hd, bt, MB,
             -1 if window is None else int(window), n_gc, n_splits, cps, dtype,
             stream)
     _build.check_launch("paged_attention", code)

@@ -18,9 +18,11 @@ def paged_attention_ref(q: torch.Tensor, k_slabs: torch.Tensor,
                         v_slabs: torch.Tensor, block_tables: torch.Tensor,
                         seq_lens: torch.Tensor, *,
                         window: Optional[int] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None, return_lse: bool = False):
     """q: [B,H,hd]; k/v_slabs: [N,bt,K,hd]; block_tables: [B,MB];
-    seq_lens: [B] (valid tokens per sequence).  Returns [B,H,hd] f32."""
+    seq_lens: [B] (valid tokens per sequence).  Returns [B,H,hd] f32; with
+    ``return_lse`` also each row's ln sum exp(scale q.k) over its live slots
+    [B,H] f32 (``NEG_INF`` for a row with none)."""
     B, H, hd = q.shape
     _, bt, K, _ = k_slabs.shape
     MB = block_tables.shape[1]
@@ -45,8 +47,13 @@ def paged_attention_ref(q: torch.Tensor, k_slabs: torch.Tensor,
     # a masked slot's probability is exactly 0 unless the whole row is
     # masked; zero it there too, so a row with no live block returns 0
     probs = probs * valid[:, None, None, :]
-    out = torch.einsum("bkgt,btkd->bkgd", probs, v)
-    return out.reshape(B, H, hd)
+    out = torch.einsum("bkgt,btkd->bkgd", probs, v).reshape(B, H, hd)
+    if not return_lse:
+        return out
+    live = valid.any(dim=1)[:, None, None]
+    lse = torch.logsumexp(scores, dim=-1)
+    lse = torch.where(live, lse, torch.full_like(lse, NEG_INF))
+    return out, lse.reshape(B, H)
 
 
 def paged_attention_split_ref(q: torch.Tensor, k_slabs: torch.Tensor,

@@ -15,11 +15,20 @@ mutations and the logical ids into one host staging buffer, sends it with one
 mutations to the device table and then translates (on the CPU: the plain
 version of the same).  Nothing on the walk waits for the device.  The host
 loop still records every access (the protocol and its counters).
+
+Pool-partitioned KV (``n_pools`` > 1): each pool has its own free list of
+pool-local frame ids, and a sequence takes its frames from its home pod's
+pool, so ``physical_tables`` returns ids local to a row's pool.  With ``replicas`` the manager also keeps the per-pod device replicas
+``[n_pods, n_tables, epb]`` that the coherence collectives
+(``pagedpt.coherence``) maintain: every mutation the walk drains is queued
+for them too (one drain, two consumers, the same entries in the same order),
+and ``coherence_inputs`` hands a step's share of that queue and the host's
+per-pod miss buffers to the prologue.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +55,7 @@ class PagedKVManager:
                  max_blocks_per_seq: int, n_pods: int = 1,
                  mode: CoherenceMode = CoherenceMode.NUMAPTE,
                  entries_per_table: int = 512, prefetch_degree: int = 3,
+                 n_pools: int = 1, replicas: bool = False,
                  device: DeviceLike = None):
         # table pages are metadata (one per active sequence at minimum, each
         # sequence opens its own VMA/table): keep a healthy pool
@@ -59,8 +69,15 @@ class PagedKVManager:
         # The host's free list spans every table entry, which can be more
         # than the slabs hold.  A frame id beyond the slabs would make the
         # attention kernel read out of bounds, so only the slabs' frames are
-        # handed out (in the same order) and running out raises MemoryError.
-        self.host.free_frames = list(range(n_frames))[::-1]
+        # handed out (in the same order) and running out raises MemoryError;
+        # pooled slabs split them into ``n_pools`` lists of pool-local ids.
+        if n_frames % n_pools:
+            raise ValueError(f"{n_frames} frames do not split into {n_pools} "
+                             "pools")
+        f_local = n_frames // n_pools
+        self.host.frame_pools = [list(range(f_local))[::-1]
+                                 for _ in range(n_pools)]
+        self.n_pools = n_pools
         self.block_tokens = block_tokens
         self.max_blocks = max_blocks_per_seq
         self.n_frames = n_frames
@@ -74,12 +91,22 @@ class PagedKVManager:
         self.device_table = torch.full((n_tables, entries_per_table), -1,
                                        dtype=torch.int32, device=self.device)
         self._staging = StagingRing(self.device)
+        #: per-pod replicas of the table, kept by the coherence collectives
+        self.replicas = (torch.full((n_pods, n_tables, entries_per_table), -1,
+                                    dtype=torch.int32, device=self.device)
+                         if replicas else None)
+        self._coherence_queue: List[Tuple[np.ndarray, ...]] = []
 
     # ------------------------------------------------------------- lifecycle
     def start_sequence(self, seq_id: int, prompt_len: int, pod: int = 0
                        ) -> None:
+        """With partitioned frames the sequence's frames come from its home
+        ``pod``'s pool."""
         n_blocks = max(1, -(-prompt_len // self.block_tokens))
-        self.host.alloc_sequence(seq_id, n_blocks, pod)
+        pool = pod if self.n_pools > 1 else 0
+        if pool >= self.n_pools:
+            raise ValueError(f"pod {pod} has no pool of the {self.n_pools}")
+        self.host.alloc_sequence(seq_id, n_blocks, pod, pool)
         self._seq_pod[seq_id] = pod
         self.stats.seqs_started += 1
 
@@ -121,6 +148,8 @@ class PagedKVManager:
                 break
             drains.append((tables[:n], idx[:n], val[:n], valid[:n]))
         cols = [np.concatenate(col) for col in zip(*drains)] if drains else None
+        if drains and self.replicas is not None:
+            self._coherence_queue.append(tuple(cols[:3]))
         n, M = (cols[0].size if drains else 0), logical.size
         if n == 0 and M == 0:
             return torch.empty((0,), dtype=torch.int32, device=self.device)
@@ -185,9 +214,56 @@ class PagedKVManager:
                               self.host.canonical):
             raise AssertionError("device block table differs from the host's")
 
+    # ------------------------------------------------------------ coherence
+    def coherence_pending(self) -> bool:
+        """Whether drained mutations or recorded misses still wait for the
+        replicas."""
+        return bool(self._coherence_queue) or any(
+            self.host._pending_miss.values())
+
+    def coherence_inputs(self, mutation_budget: Optional[int] = None,
+                         miss_budget: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, ...]:
+        """One step's coherence buffers, on the device: (sharers [T] int64,
+        owner [T] int32, mut_tables, mut_idx, mut_value [P, B] int32,
+        mut_valid [P, B] bool, miss [P, M] int32).  The queued mutations, in
+        program order, fill pod 0's buffer first, then pod 1's ... (the
+        pod-major all-gather keeps their order); what does not fit waits for
+        the next call.  Pod p's misses are its own (``drain_miss_buffer``)."""
+        P = self.spec.n_pods
+        B = mutation_budget or self.spec.mutation_budget
+        M = miss_budget or self.spec.miss_budget
+        queued = ([np.concatenate(c) for c in zip(*self._coherence_queue)]
+                  if self._coherence_queue else [np.empty(0, np.int32)] * 3)
+        n = min(queued[0].size, P * B)
+        rest = [c[n:] for c in queued]
+        self._coherence_queue = [tuple(rest)] if rest[0].size else []
+        tables = np.zeros(P * B, np.int32)
+        idx = np.zeros(P * B, np.int32)
+        value = np.full(P * B, -1, np.int32)
+        valid = np.zeros(P * B, bool)
+        tables[:n], idx[:n], value[:n] = (c[:n] for c in queued)
+        valid[:n] = True
+        miss = np.stack([self.host.drain_miss_buffer(p, M) for p in range(P)])
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return (dev(self.host.sharers.astype(np.int64)), dev(self.host.owner),
+                *(dev(a.reshape(P, B)) for a in (tables, idx, value, valid)),
+                dev(miss))
+
+    def replica_mismatches(self, full: bool) -> int:
+        """Entries where a replica differs from the host's canonical table:
+        everywhere (``full``: an eager replica holds every entry), or only
+        where ``host.present`` says the pod holds the entry (numaPTE's
+        partial replicas)."""
+        got = self.replicas.cpu().numpy()
+        want = np.broadcast_to(self.host.canonical, got.shape)
+        where = (np.ones(got.shape, bool) if full else self.host.present)
+        return int(((got != want) & where).sum())
+
     # ------------------------------------------------------------ accounting
     def utilization(self) -> float:
-        return 1.0 - len(self.host.free_frames) / self.n_frames
+        free = sum(map(len, self.host.frame_pools))
+        return 1.0 - free / self.n_frames
 
     def footprint_pages(self) -> int:
         return self.host.footprint_table_pages()

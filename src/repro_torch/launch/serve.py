@@ -11,6 +11,16 @@ each policy.  Runs on the GPU unless ``device="cpu"`` is given.
         --full-width --requests 32 --batch 16 --prompt-len 2048 --gen-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b --mode eager
 
+Over the pod axis: ``--pools 4`` partitions the KV slabs into one pool a pod
+(each row homed on its pool's pod), and ``--replicas`` keeps per-pod device
+replicas of the block table, maintained each step by the coherence prologue
+of ``--mode`` (eager or numapte; ``launch/specs.py:build_serve_step`` on
+``LoopPods``: one process, one card):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b \
+        --full-width --requests 32 --batch 16 --prompt-len 1024 --gen-len 64 \
+        --pools 4 --mode numapte --replicas
+
 An encoder-decoder config (whisper_base) raises here, as the reference's
 serve() cannot run it either: drive ``prefill_encdec`` + ``decode_step``.
 A mixture-of-experts config does not fit one card at its published depth;
@@ -35,10 +45,15 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..configs import ARCH_IDS, get_config, get_smoke_config
+from ..kernels.pte_gather.ops import pte_gather
 from ..kvcache import PagedKVManager
+from ..kvcache.gather import pool_of_rows
 from ..models import (ModelConfig, decode_step, greedy_sample,
                       init_decode_state, init_params, prefill)
-from ..pagedpt.blocktable import CoherenceMode
+from ..pagedpt.blocktable import (CoherenceMode, eager_sync_bytes,
+                                  numapte_fetch_bytes)
+from .mesh import make_debug_mesh
+from .specs import _coherence_prologue, build_serve_step, elapsed_ms, timed
 
 
 def _sync(device: torch.device) -> None:
@@ -52,7 +67,8 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
           mode: str = "numapte", seed: int = 0, verbose: bool = True,
           device: DeviceLike = None, full_width: bool = False,
           n_layers: Optional[int] = None, cfg: Optional[ModelConfig] = None,
-          params=None):
+          params=None, n_pools: int = 1, replicas: bool = False,
+          check_replicas: bool = False):
     """Serve ``n_requests`` random prompts in waves of ``batch``.
 
     ``full_width`` runs the published config instead of the smoke config;
@@ -63,8 +79,28 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
     host protocol and page walk included.  Random weights are
     stored in the config's working dtype at full width (a 14.8 B-parameter
     model does not fit in float32 beside its KV slabs) and in
-    ``cfg.param_dtype`` otherwise."""
+    ``cfg.param_dtype`` otherwise.
+
+    ``n_pools`` > 1 partitions the KV slabs into pools (it must equal
+    ``n_pods``): row b of a wave lives in pool ``b // (batch / n_pools)``
+    and its sequence is homed on that pod.  ``replicas`` keeps the per-pod
+    device replicas of the block table and runs ``mode``'s coherence
+    prologue (eager or numapte) in every decode step (``build_serve_step``
+    over ``LoopPods(n_pods)``), fed by the manager's drained mutations and
+    miss buffers; a step whose buffers outgrow the budgets runs extra
+    prologue rounds.  The result then adds the prologue's time a step
+    (``prologue_ms``: CUDA events around each prologue on the card, the
+    host clock on the CPU), its collective bytes (``wire_bytes_per_step``,
+    beside the budget model's ``eager_sync_bytes`` / ``numapte_fetch_bytes``),
+    its K3 launches a step, and with ``check_replicas`` the count of replica
+    entries that differed from the host's table after a step (eager: every
+    entry; numapte: where ``host.present`` holds one)."""
     device = resolve_device(device)
+    if n_pools > 1 and n_pools != n_pods:
+        raise ValueError(f"{n_pools} pools need as many pods, not {n_pods}")
+    if replicas and mode == CoherenceMode.LOCAL.value:
+        raise ValueError("device replicas need a coherence mode, eager or "
+                         "numapte, not local")
     if cfg is None:
         cfg = get_config(arch) if full_width else get_smoke_config(arch)
     if n_layers is not None:
@@ -86,8 +122,42 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
     n_frames = batch * max_blocks * 4
     kv = PagedKVManager(n_frames=n_frames, block_tokens=bt,
                         max_blocks_per_seq=max_blocks, n_pods=n_pods,
-                        mode=CoherenceMode(mode), device=device)
-    state = init_decode_state(cfg, batch, n_frames, max_blocks, device=device)
+                        mode=CoherenceMode(mode), n_pools=n_pools,
+                        replicas=replicas, device=device)
+    state = init_decode_state(cfg, batch, n_frames, max_blocks,
+                              n_pools=n_pools, device=device)
+    home = (pool_of_rows(batch, n_pools).tolist() if n_pools > 1
+            else [i % n_pods for i in range(batch)])
+    pods = make_debug_mesh(n_pods, device=device) if replicas else None
+    coherence = mode if replicas else "none"
+    timings: list = []
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    n_live = batch
+
+    def sample(logits: torch.Tensor) -> torch.Tensor:
+        nonlocal finite
+        finite &= torch.isfinite(logits[:n_live]).all()
+        return greedy_sample(logits)
+
+    step = build_serve_step(cfg, coherence=coherence, pods=pods,
+                            sample=sample, prologue_timer=timings)
+    k3_prologue = 0
+    mismatches = 0
+
+    def extra_rounds() -> int:
+        """Prologue rounds for what one step's budgets left queued, then
+        the replica check."""
+        nonlocal mismatches
+        launched = 0
+        while kv.coherence_pending():
+            before = pte_gather.launches
+            with timed(timings, device):
+                _coherence_prologue(coherence, pods, kv.replicas,
+                                    *kv.coherence_inputs())
+            launched += pte_gather.launches - before
+        if check_replicas:
+            mismatches += kv.replica_mismatches(full=coherence == "eager")
+        return launched
 
     # run prefill and decode once before the timer starts, so that building
     # the kernels and warming the GEMM library never land inside the
@@ -105,7 +175,6 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
     _sync(device)
 
     done_tokens = 0
-    finite = torch.ones((), dtype=torch.bool, device=device)
     sampled = []                  # per wave: (n_live, [gen_len] of [batch])
     prefill_s = decode_s = 0.0
     n_waves = 0
@@ -120,8 +189,9 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         # neither decode into a live sequence's KV frames nor double-count
         # record_access on its blocks
         active = wave + [-1] * (batch - len(wave))
+        n_live = len(wave)
         for i, sid in enumerate(wave):
-            kv.start_sequence(sid, prompt_len, pod=i % n_pods)
+            kv.start_sequence(sid, prompt_len, pod=home[i])
         prompts = torch.from_numpy(
             rng.integers(0, cfg.vocab_size, (batch, prompt_len))
         ).to(device=device, dtype=torch.int32)
@@ -138,9 +208,13 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
             for i, sid in enumerate(wave):
                 kv.maybe_extend(sid, prompt_len + t + 1)
             phys = kv.physical_tables(active, record=(t % 4 == 0))
-            logits, st = decode_step(cfg, params, st, tokens, phys)
-            finite &= torch.isfinite(logits[:len(wave)]).all()
-            tokens = greedy_sample(logits)
+            if pods is None:
+                tokens, st = step(params, st, tokens, phys)
+            else:
+                before = pte_gather.launches
+                tokens, st, _ = step(params, st, tokens, phys, kv.replicas,
+                                     *kv.coherence_inputs())
+                k3_prologue += pte_gather.launches - before + extra_rounds()
             steps.append(tokens)
             done_tokens += len(wave)
         _sync(device)
@@ -154,6 +228,8 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         kv.check_device_table()
     _sync(device)
     dt = time.perf_counter() - t0
+    if pods is not None:            # deliver the last frees, and check
+        k3_prologue += extra_rounds()
     c = kv.host.counters
     token_ids = np.concatenate(
         [torch.stack(steps, dim=1)[:n_live].cpu().numpy()
@@ -173,6 +249,19 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         "logits_finite": bool(finite),
         "token_ids": token_ids,          # [n_requests, gen_len]
     }
+    if n_pools > 1 or pods is not None:
+        result.update(n_pools=n_pools, replicas=replicas)
+    if pods is not None:
+        n_steps = max(n_waves * gen_len, 1)
+        _sync(device)
+        result.update({
+            "prologue_ms": sum(map(elapsed_ms, timings)) / n_steps,
+            "prologue_calls": len(timings),
+            "wire_bytes_per_step": pods.wire_bytes / n_steps,
+            "eager_sync_bytes": eager_sync_bytes(kv.spec),
+            "numapte_fetch_bytes": numapte_fetch_bytes(kv.spec),
+            "prologue_k3_launches": k3_prologue,
+            "replica_mismatches": mismatches if check_replicas else None})
     if verbose:
         print({k: (round(v, 1) if isinstance(v, float) else v)
                for k, v in result.items() if k != "token_ids"})
@@ -189,6 +278,11 @@ def main() -> None:
     ap.add_argument("--pods", type=int, default=4)
     ap.add_argument("--mode", choices=[m.value for m in CoherenceMode],
                     default="numapte")
+    ap.add_argument("--pools", type=int, default=1,
+                    help="KV pools (one a pod when > 1)")
+    ap.add_argument("--replicas", action="store_true",
+                    help="per-pod device replicas of the block table, kept "
+                         "by --mode's coherence prologue")
     ap.add_argument("--full-width", action="store_true",
                     help="the published config instead of the smoke config")
     ap.add_argument("--layers", type=int, default=None,
@@ -199,7 +293,7 @@ def main() -> None:
     serve(args.arch, n_requests=args.requests, prompt_len=args.prompt_len,
           gen_len=args.gen_len, batch=args.batch, n_pods=args.pods,
           mode=args.mode, device=args.device, full_width=args.full_width,
-          n_layers=args.layers)
+          n_layers=args.layers, n_pools=args.pools, replicas=args.replicas)
 
 
 if __name__ == "__main__":

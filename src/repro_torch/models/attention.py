@@ -15,10 +15,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..distributed.pods import Pods
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import NEG_INF
 from ..kernels.paged_attention.ops import paged_attention
-from ..kvcache.gather import write_token_plain
+from ..kvcache.gather import (decode_attention_sp, pooled_tables,
+                              write_token_plain)
 from .common import ModelConfig, _dense, rms_norm, rope_tables, rotate
 
 
@@ -123,28 +125,45 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       x: torch.Tensor, positions: torch.Tensor,
                       kv: Tuple[torch.Tensor, torch.Tensor],
                       phys_blocks: torch.Tensor, seq_lens: torch.Tensor, *,
-                      rope: Rope, window: Optional[int] = None
+                      rope: Rope, window: Optional[int] = None,
+                      sp: bool = False, pods: Optional[Pods] = None
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step (one new token per sequence) with paged KV.
 
     x: [B, 1, D]; positions: [B]; kv: (k_slabs, v_slabs) for THIS layer,
-    each [n_blocks, bt, K, hd] and UPDATED IN PLACE; phys_blocks:
-    [B, max_blocks] physical frame ids from the block-table translation
-    (-1 = absent); seq_lens: [B] length INCLUDING the new token; rope: the
+    each [n_blocks, bt, K, hd], or pool-partitioned [P, F_local, bt, K, hd],
+    and UPDATED IN PLACE; phys_blocks: [B, max_blocks] physical frame ids
+    from the block-table translation (-1 = absent; local to the row's pool
+    when pooled); seq_lens: [B] length INCLUDING the new token; rope: the
     step's (cos, sin) tables of ``rope_for(cfg, positions[:, None], ...)``
     (None without RoPE), made once by the caller because every layer of a
-    group shares them.
+    group shares them.  ``sp``: sequence-parallel decode over the pools
+    (``kvcache.gather.decode_attention_sp``; over ``pods`` when given, the
+    pools then being this process's).
     Returns (attn_out [B,1,D], the same slabs).
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     bt = kv[0].shape[-3]
     q, k_new, v_new = project_qk_rope_v(cfg, p, x, rope)
-    # write the new token's KV, then attend through the block table
-    k_slabs, v_slabs = write_token_plain(kv[0], kv[1], k_new[:, 0], v_new[:, 0],
-                                         phys_blocks, positions, bt)
-    out = paged_attention(q[:, 0].contiguous(), k_slabs, v_slabs, phys_blocks,
-                          seq_lens, window=window)
+    if sp:
+        out, k_slabs, v_slabs = decode_attention_sp(
+            q[:, 0].contiguous(), kv[0], kv[1], k_new[:, 0], v_new[:, 0],
+            phys_blocks, positions, seq_lens, block_tokens=bt,
+            n_kv=cfg.n_kv_heads, window=window, pods=pods)
+    else:
+        k_slabs, v_slabs, tables = kv[0], kv[1], phys_blocks
+        if k_slabs.dim() == 5:
+            # pools flattened, rows' frames made global: one launch
+            tables = pooled_tables(phys_blocks, *k_slabs.shape[:2])
+            k_slabs = k_slabs.flatten(0, 1)
+            v_slabs = v_slabs.flatten(0, 1)
+        # write the new token's KV, then attend through the block table
+        write_token_plain(k_slabs, v_slabs, k_new[:, 0], v_new[:, 0], tables,
+                          positions, bt)
+        out = paged_attention(q[:, 0].contiguous(), k_slabs, v_slabs, tables,
+                              seq_lens, window=window)
+        k_slabs, v_slabs = kv
     out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.dtype)
     out = out @ p["wo"].to(cfg.dtype)
     return out, (k_slabs, v_slabs)

@@ -31,7 +31,8 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves
-from ..kvcache.gather import scatter_prefill_plain
+from ..distributed.pods import Pods
+from ..kvcache.gather import scatter_prefill_plain, scatter_prefill_pooled
 from .attention import (attend, attn_decode_paged, attn_decode_ring,
                         cross_attention, cross_kv, init_attn,
                         project_qk_rope_v, rope_for)
@@ -215,8 +216,10 @@ def _store_kv(cfg: ModelConfig, g: LayerGroup, cache: Dict[str, torch.Tensor],
     and the warm-up, so the slots this prompt does not fill must not keep an
     earlier wave's keys)."""
     if "k_slabs" in cache:
-        scatter_prefill_plain(cache["k_slabs"][li], cache["v_slabs"][li],
-                              k, v, phys_blocks, positions, cfg.kv_block_tokens)
+        scatter = (scatter_prefill_pooled if cache["k_slabs"].dim() == 6
+                   else scatter_prefill_plain)
+        scatter(cache["k_slabs"][li], cache["v_slabs"][li], k, v, phys_blocks,
+                positions, cfg.kv_block_tokens)
         return
     W, S = g.window, k.shape[1]
     src = torch.arange(max(S - W, 0), S, device=k.device)
@@ -407,14 +410,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
                       dtype=None, device: DeviceLike = None) -> DecodeState:
     """n_blocks: physical KV frames in the pool; max_blocks: per-seq table;
     enc_len: encoder frames (the cross K/V of an encoder-decoder).  Global
-    attention groups get paged slabs, windowed groups a ring of ``window``
-    slots per sequence, SSD and RG-LRU groups a float32 state ``h`` and a
-    conv tail, the encoder nothing.  All zeros: a masked slot must hold a
-    finite value."""
-    if n_pools != 1:
-        raise NotImplementedError(
-            "pool-partitioned KV slabs are not ported yet "
-            "(ROADMAP queue 1 item 13)")
+    attention groups get paged slabs ``[L, n_blocks, bt, K, hd]``, or with
+    ``n_pools`` > 1 pool-partitioned ones ``[L, n_pools, n_blocks //
+    n_pools, bt, K, hd]`` (numaPTE's partitioned KV: each row's frames in
+    its own pool); windowed groups a ring of ``window`` slots per sequence,
+    SSD and RG-LRU groups a float32 state ``h`` and a conv tail, the encoder
+    nothing.  All zeros: a masked slot must hold a finite value."""
+    slab_dims = ((n_pools, n_blocks // n_pools) if n_pools > 1
+                 else (n_blocks,))
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
@@ -433,7 +436,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
             shapes = {"h": ((L, batch, w), torch.float32),
                       "conv": ((L, batch, W1, w), dtype)}
         elif g.kind in ("attn", "dec_attn") and g.window is None:
-            shapes = {n: ((L, n_blocks, bt, K, hd), dtype)
+            shapes = {n: ((L,) + slab_dims + (bt, K, hd), dtype)
                       for n in ("k_slabs", "v_slabs")}
             if g.kind == "dec_attn":
                 shapes.update({n: ((L, batch, enc_len, K, hd), dtype)
@@ -448,11 +451,15 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
-                tokens: torch.Tensor, phys_blocks: torch.Tensor
+                tokens: torch.Tensor, phys_blocks: torch.Tensor, *,
+                sp: bool = False, pods: Optional[Pods] = None
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """One token per sequence.  tokens: [B]; phys_blocks: [B, max_blocks]
-    int32 physical frame ids from the block-table translation.  The caches of
-    ``state`` are written in place.  Returns (logits [B,V], new state)."""
+    int32 physical frame ids from the block-table translation (local to a
+    row's pool when the slabs are pooled).  The caches of ``state`` are
+    written in place.  ``sp``: sequence-parallel decode of the global layers
+    over the pools (the table's columns split over them; over ``pods`` when
+    given).  Returns (logits [B,V], new state)."""
     positions = state.seq_lens                       # position of new token
     if cfg.family == "encdec":
         x = _dec_embed(cfg, params, tokens[:, None], positions[:, None])
@@ -464,7 +471,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
         if g.kind == "enc_attn":                    # no decode state
             continue
         x = _decode_group(cfg, g, gp, cache, x, positions, phys_blocks,
-                          seq_lens)
+                          seq_lens, sp=sp, pods=pods)
     logits = _lm_head(cfg, params, x)[:, 0]
     return logits, DecodeState(state.caches, seq_lens)
 
@@ -472,7 +479,8 @@ def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
 def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
                   cache: Dict[str, torch.Tensor], x: torch.Tensor,
                   positions: torch.Tensor, phys_blocks: torch.Tensor,
-                  seq_lens: torch.Tensor) -> torch.Tensor:
+                  seq_lens: torch.Tensor, *, sp: bool = False,
+                  pods: Optional[Pods] = None) -> torch.Tensor:
     rope = (rope_for(cfg, positions[:, None], g.rope_theta)
             if g.kind in ATTN_KINDS else None)
     for li, lp in enumerate(gp):
@@ -489,7 +497,7 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
             a, _ = attn_decode_paged(
                 cfg, lp["attn"], h, positions,
                 (cache["k_slabs"][li], cache["v_slabs"][li]), phys_blocks,
-                seq_lens, rope=rope)
+                seq_lens, rope=rope, sp=sp, pods=pods)
         else:
             a, _, _ = attn_decode_ring(
                 cfg, lp["attn"], h, positions, cache["ring_k"][li],

@@ -44,6 +44,7 @@ class _Sequence:
     seq_id: int
     pod: int
     logical_blocks: List[int]
+    pool: int = 0                    # the KV pool its frames come from
 
 
 class HostBlockManager:
@@ -59,7 +60,10 @@ class HostBlockManager:
         self.present = np.zeros((spec.n_pods, spec.n_tables, epb), dtype=bool)
         self.sharers = np.zeros(spec.n_tables, dtype=np.uint32)
         self.owner = np.full(spec.n_tables, -1, dtype=np.int32)
-        self.free_frames = list(range(spec.total_entries))[::-1]
+        #: the free frames of each KV pool (pool-local ids; one pool unless
+        #: the frames are partitioned)
+        self.frame_pools: List[List[int]] = [
+            list(range(spec.total_entries))[::-1]]
         self.free_tables = list(range(spec.n_tables))[::-1]
         self.seqs: Dict[int, _Sequence] = {}
         self._table_seq_owner: Dict[int, int] = {}
@@ -70,12 +74,14 @@ class HostBlockManager:
         self._pending_miss: Dict[int, List[int]] = {p: [] for p in range(spec.n_pods)}
 
     # ------------------------------------------------------------ allocation
-    def alloc_sequence(self, seq_id: int, n_blocks: int, pod: int) -> List[int]:
+    def alloc_sequence(self, seq_id: int, n_blocks: int, pod: int,
+                       pool: int = 0) -> List[int]:
         """mmap analogue: give a sequence `n_blocks` logical blocks backed by
-        physical frames.  The allocating pod owns the covering table pages."""
+        physical frames (of KV pool `pool` when the frames are partitioned).
+        The allocating pod owns the covering table pages."""
         if seq_id in self.seqs:
             raise ValueError(f"sequence {seq_id} already exists")
-        seq = _Sequence(seq_id, pod, [])
+        seq = _Sequence(seq_id, pod, [], pool)
         self.seqs[seq_id] = seq
         self.extend_sequence(seq_id, n_blocks)
         self.counters.allocs += 1
@@ -89,9 +95,10 @@ class HostBlockManager:
             tid = self._seq_table_with_room(seq)
             slot = self._next_free_slot[tid]
             self._next_free_slot[tid] += 1
-            if not self.free_frames:
+            free = self.frame_pools[seq.pool]
+            if not free:
                 raise MemoryError("out of physical KV frames")
-            frame = self.free_frames.pop()
+            frame = free.pop()
             logical = tid * epb + slot
             self.canonical[tid, slot] = _pack(frame, PERM_RW)
             # owner invariant I1: the owner pod's replica gets it immediately
@@ -132,7 +139,7 @@ class HostBlockManager:
         for logical in seq.logical_blocks:
             tid, slot = divmod(logical, epb)
             frame = int(self.canonical[tid, slot]) & ((1 << 28) - 1)
-            self.free_frames.append(frame)
+            self.frame_pools[seq.pool].append(frame)
             self.canonical[tid, slot] = -1
             self.present[:, tid, slot] = False
             self._pending_mut.append((tid, slot, -1))

@@ -7,9 +7,9 @@
     float atomics, so the replay is exact).
   * **straggler mitigation** — per-step wall times feed an EMA monitor;
     steps slower than ``factor`` x EMA are flagged.
-  * The elastic re-mesh of the reference (``shrink``) needs the multi-device
-    layer (ROADMAP queue 1 item 13): the injector accepts the kind and the
-    trainer ignores it, as the reference's loop does.
+  * The elastic re-mesh of the reference (``shrink``) waits for ROADMAP
+    queue 1 item 16: the injector accepts the kind and the trainer ignores
+    it, as the reference's loop does.
 
 A step is ``lm_loss`` -> ``.backward()`` -> ``adamw_update``; its time
 ``dt`` ends with ``float(loss)``, which waits for the device.  Parameters

@@ -34,7 +34,9 @@ def test_torch_port_has_the_reference_layout():
                 "models.ssm", "models.rglru", "launch.serve",
                 "benchmarks.serving_coherence", "kernels.flash_attention.ops",
                 "optim.adamw", "data.pipeline", "checkpoint.store",
-                "runtime.trainer", "launch.train"):
+                "runtime.trainer", "launch.train", "distributed.pods",
+                "distributed.compression", "pagedpt.coherence", "launch.mesh",
+                "launch.specs"):
         assert f"repro_torch.{sub}" in MODULES
 
 

@@ -321,12 +321,6 @@ def test_torch_smoke_forward_shapes_and_finiteness(arch):
     assert torch.isfinite(aux) and (float(aux) > 0) == (cfg.n_experts > 0)
 
 
-def test_torch_pooled_slabs_raise():
-    cfg = tconfigs.get_smoke_config("yi_6b")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.init_decode_state(cfg, 2, 8, 4, n_pools=2, device="cpu")
-
-
 @pytest.mark.parametrize("prim", ["rms_norm", "apply_rope", "rope_frequencies",
                                   "silu", "geglu", "gelu", "relu2", "ffn_forward",
                                   "layer_norm"])

@@ -38,8 +38,8 @@ def _assert_same_host(port, ref, n_frames=None):
     for name in ("canonical", "present", "sharers", "owner"):
         np.testing.assert_array_equal(getattr(port, name), getattr(ref, name))
     # the port's KV manager hands out only the slabs' frames, in the same order
-    assert port.free_frames == [f for f in ref.free_frames
-                                if n_frames is None or f < n_frames]
+    assert port.frame_pools == [[f for f in ref.free_frames
+                                 if n_frames is None or f < n_frames]]
     assert port.free_tables == ref.free_tables
     assert port.footprint_table_pages() == ref.footprint_table_pages()
 
@@ -285,7 +285,7 @@ def test_torch_frames_beyond_the_slabs_raise():
     for kv in (port, ref):
         kv.start_sequence(0, prompt_len=4 * 64, pod=0)       # all 64 frames
     frames = port.host.canonical[port.host.canonical >= 0] & tbt.FRAME_MASK
-    assert sorted(frames) == list(range(64)) and not port.host.free_frames
+    assert sorted(frames) == list(range(64)) and port.host.frame_pools == [[]]
     ref.start_sequence(1, prompt_len=4, pod=0)               # frame 64: no error
     assert ref.physical_tables([1]).max() == 64 >= ref.n_frames
     with pytest.raises(MemoryError):
