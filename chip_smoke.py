@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernels # build + kernel checks only
     python3 chip_smoke.py --phases train   # build + the training slice only
     python3 chip_smoke.py --phases kernels,multipod   # the pod axis
+    python3 chip_smoke.py --phases kernels,numa_sim   # the NUMA simulator
     python3 chip_smoke.py --phases profile # where a decode step's time goes
     python3 chip_smoke.py --phases profile_train  # ... and a train step's
 
@@ -95,6 +96,24 @@ and the script exits non-zero):
             (first and second step) against an independent int8 mean of the
             pods' own gradients within 1 ulp, a dropped pod's term caught,
             the int8 average within half a scale step of the float32 one
+  numa_sim  the NUMA simulator (``repro_torch.core``, host protocol in numpy)
+            with pass 1 of its batch engine on the fifo_miss kernel: fig08's
+            five apps x three policies at its full settings with --scale 16
+            (PAPER_8SOCKET, 40 000 accesses a thread, 4 096 pages a GB,
+            degree-9 prefetch, engine "batch": 8 kernel launches a run), and
+            the closed serving loop (``repro_torch.serving``, every serving
+            policy on one Poisson trace), each with REPRO_FIFO_MISS_BACKEND
+            set to cuda and to numpy: the results must be identical, and
+            fifo_miss must launch once an engine call and no other kernel
+            run.  Before that, the kernel against its plain version and the
+            numpy loop, bit for bit, at the reference's 25 trials, 200
+            streams over a handful of vpns (ids repeating inside the
+            kernel's groups of four, capacities 0-4), at the
+            largest engine call of the run (the fill vector in shared
+            memory) and at a stream of 2^24 accesses over 2^20 vpns (in
+            global memory); timed beside the whole cuda backend call, the
+            numpy loop, its byte bound and the chain's latency floor.  The
+            K3 coherence roles of the kernels phase carry their byte bound
   profile   (only when asked for) the serving loop of Qwen3-14B, Gemma-3-4B,
             Qwen3-235B-A22B (its serve depth), Mamba-2-370M and
             RecurrentGemma-2B under ``torch.profiler`` at two generation
@@ -150,6 +169,15 @@ from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
                                                  paged_attention_ref)
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.pte_gather import pte_gather, pte_gather_ref  # noqa: E402
+from repro_torch.kernels.fifo_miss import (densify, fifo_miss,  # noqa: E402
+                                           fifo_miss_ids, fifo_miss_ref)
+from repro_torch.kernels.fifo_miss import ops as fifo_ops  # noqa: E402
+from repro_torch.core import (APPS, PAPER_8SOCKET, Policy,  # noqa: E402
+                              SimConfig, run_app)
+from repro_torch.core import batch as sim_batch  # noqa: E402
+from repro_torch.serving import (SERVING_POLICIES,  # noqa: E402
+                                 nominal_capacity_rps, poisson_trace,
+                                 run_closed_loop)
 from repro_torch.distributed import LoopPods, compression  # noqa: E402
 from repro_torch.kvcache import PagedKVManager  # noqa: E402
 from repro_torch.kvcache import gather as kv_gather  # noqa: E402
@@ -185,7 +213,8 @@ BWD_TOL_REL = 2e-5
 KERNEL_FNS = {"paged_attention": paged_attention,
               "flash_attention": flash_attention,
               "flash_attention_bwd": flash_attention_bwd,
-              "pte_gather": pte_gather}
+              "pte_gather": pte_gather,
+              "fifo_miss": fifo_miss_ids}
 RNG = np.random.default_rng(0)
 
 
@@ -842,10 +871,24 @@ def coherence_roles() -> dict:
                                                         degree, pods), 2),
     }
     out = {}
+    real = coherence.pte_gather
     for name, (fn, launches) in roles.items():
         for replicas, inputs in coherence_role_inputs():
             before = pte_gather.launches
-            got = fn(replicas.clone(), *inputs, LoopPods(4, DEV))
+            walks = []
+
+            def recorded(*args):
+                # the bound reads each launch's drain list and ids before
+                # the launch updates the replicas in place
+                walks.append(pte_bound(tuple(args) + (None,) * (4 - len(args)),
+                                       {})[0])
+                return real(*args)
+
+            coherence.pte_gather = recorded
+            try:
+                got = fn(replicas.clone(), *inputs, LoopPods(4, DEV))
+            finally:
+                coherence.pte_gather = real
             torch.cuda.synchronize()
             n = pte_gather.launches - before
             want = fn(replicas.cpu(), *(t.cpu() for t in inputs),
@@ -860,7 +903,15 @@ def coherence_roles() -> dict:
                          # device time of the role (queued behind a sleep: no
                          # host gap), at the wave switch's inputs
                          "ms": time_ms(lambda: fn(replicas.clone(), *inputs,
-                                                  LoopPods(4, DEV)))}
+                                                  LoopPods(4, DEV))),
+                         # its K3 launches' bytes (pte_bound: each drain list
+                         # read once, each slot an applied mutation names and
+                         # each walked id's frame, flag and window in and out
+                         # once), over HBM_BPS; the replicas' clone (2 x 512
+                         # KB) that the timed call makes is beside it
+                         "bound_ms": 1e3 * sum(walks), "bound_by": "bytes",
+                         "clone_bound_ms": 1e3 * 2 * replicas.numel() * 4
+                         / HBM_BPS}
     return out
 
 
@@ -1160,7 +1211,7 @@ def expected_launches(cfg, waves: int, gen_len: int, warm_up: bool) -> dict:
     return {"paged_attention": n_global * (gen_len * waves + extra),
             "flash_attention": n_attn * (waves + extra),
             "flash_attention_bwd": 0,
-            "pte_gather": (2 + gen_len) * waves}
+            "pte_gather": (2 + gen_len) * waves, "fifo_miss": 0}
 
 
 @contextlib.contextmanager
@@ -1752,7 +1803,7 @@ def phase_train():
     first, second = train_run(cfg, ds, steps), train_run(cfg, ds, steps)
     want = {"paged_attention": 0, "flash_attention": cfg.n_layers * steps,
             "flash_attention_bwd": cfg.n_layers * steps, "pte_gather": 0,
-            "lse_writes": cfg.n_layers * steps}
+            "fifo_miss": 0, "lse_writes": cfg.n_layers * steps}
     for run in (first, second):
         check(run["counts"] == want,
               f"train: launch counts {run['counts']}, the path implies {want}")
@@ -1896,7 +1947,7 @@ def multipod_sp(params) -> dict:
     n_layers = cfg.n_layers
     sp_want = {"paged_attention": n_layers * n * steps,
                "flash_attention": n_layers, "flash_attention_bwd": 0,
-               "pte_gather": 1}
+               "pte_gather": 1, "fifo_miss": 0}
     check(sp_counts == sp_want, f"sp: launch counts {sp_counts}, the path "
           f"implies {sp_want}")
     reset_counters()
@@ -1918,7 +1969,7 @@ def multipod_sp(params) -> dict:
     torch.cuda.synchronize()
     one_counts = counts_now()
     one_want = {"paged_attention": n_layers * steps, "flash_attention": 0,
-                "flash_attention_bwd": 0, "pte_gather": 0}
+                "flash_attention_bwd": 0, "pte_gather": 0, "fifo_miss": 0}
     check(one_counts == one_want, f"sp one-pool: {one_counts} not {one_want}")
     check(max(rels) < 0.03 and len(flips) <= SP["max_flips"]
           and all(f["gap"] <= f["logit_err"] for f in flips),
@@ -2009,7 +2060,8 @@ def multipod_train() -> dict:
         torch.cuda.synchronize()
     counts = counts_now()
     want = {"paged_attention": 0, "flash_attention": cfg.n_layers * n,
-            "flash_attention_bwd": cfg.n_layers * n, "pte_gather": 0}
+            "flash_attention_bwd": cfg.n_layers * n, "pte_gather": 0,
+            "fifo_miss": 0}
     check(counts == want and lse["lse_writes"] == cfg.n_layers * n,
           f"pod train step: launches {counts} lse {lse}, not {want}")
     release()
@@ -2226,11 +2278,268 @@ def phase_profile_train(warm: int = 2, profiled: int = 2):
     release()
 
 
+# -------------------------------------------------------------- NUMA simulator
+# fig08_apps at its full settings with --scale 16 (benchmarks/fig08_apps.py):
+# the 8-socket machine, 40 000 accesses a thread, 4 096 pages a GB, every
+# page touched, degree-9 prefetch, the batch engine (8 fifo_miss calls a run)
+NUMA_APP = dict(accesses_per_thread=40_000, pages_per_gb=4_096, touch_stride=1)
+NUMA_APPS = tuple(sorted(APPS))
+NUMA_POLICIES = (Policy.LINUX, Policy.MITOSIS, Policy.NUMAPTE)
+# the global-memory path: a stream of 2^24 accesses over 2^20 vpns, whose
+# fill vector (4 MB) does not fit a block's shared memory
+FIFO_LONG = dict(n=1 << 24, distinct=1 << 20, capacity=1088)
+# the closed serving loop: one Poisson trace at 0.9 of nominal capacity
+CLOSED_LOOP = dict(n_requests=256, load=0.9, seed=0)
+# The fifo_miss chain's floor: a step's flag needs the fill count of the step
+# before, so each step is at least one dependent integer compare and one add,
+# at an assumed 4 cycles each (not measured here), at the card's maximum SM
+# clock.  Any load of the fill vector comes on top.
+CHAIN_CYCLES = 8
+
+
+def fifo_trials():
+    """The reference's 25 random streams, capacities and warm TLBs
+    (tests/test_trace_differential.py)."""
+    rng = np.random.default_rng(2024)
+    for _ in range(25):
+        cap = int(rng.integers(1, 64))
+        n0 = int(rng.integers(0, cap + 1))
+        init = rng.permutation(500)[:n0].astype(np.int64).tolist()
+        arr = rng.integers(0, 1 + int(rng.integers(1, 120)),
+                           size=int(rng.integers(0, 300))).astype(np.int64)
+        yield arr, init, cap
+
+
+def fifo_repeats():
+    """Streams over a handful of vpns at capacities 0-4: ids repeat inside
+    the kernel's groups of four, and lengths leave every remainder."""
+    rng = np.random.default_rng(3)
+    for _ in range(200):
+        cap = int(rng.integers(0, 5))
+        init = rng.permutation(10)[:int(rng.integers(0, cap + 1))].tolist()
+        arr = rng.integers(0, int(rng.integers(1, 7)),
+                           size=int(rng.integers(0, 41))).astype(np.int64)
+        yield arr, init, cap
+
+
+def fifo_long_stream():
+    rng = np.random.default_rng(1)
+    n, u = FIFO_LONG["n"], FIFO_LONG["distinct"]
+    arr = rng.integers(0, u, n)
+    arr[:u] = rng.permutation(u)          # every one of the u vpns appears
+    rng.shuffle(arr)
+    init = rng.permutation(u)[:FIFO_LONG["capacity"]].tolist()
+    return (1 << 20) + 7 * arr, [(1 << 20) + 7 * v for v in init], \
+        FIFO_LONG["capacity"]
+
+
+def fifo_check(arr, init, cap) -> dict:
+    """Kernel, plain version and numpy loop on one stream, bit for bit;
+    the seed fill vector stays as it was.  Returns the number of flags
+    that differ and the walls of the plain version and of the numpy loop on
+    this stream."""
+    fill0, n0, ids = densify(np.asarray(arr, np.int64), init, cap)
+    f, i = torch.from_numpy(fill0).to(DEV), torch.from_numpy(ids).to(DEV)
+    got = fifo_miss_ids(f, n0, i, cap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fifo_miss_ref(f, n0, i, cap)
+    t1 = time.perf_counter()
+    loop = fifo_miss(arr, init, cap, backend="numpy")
+    t2 = time.perf_counter()
+    err = max(int((got != want).sum()), int((got.cpu().numpy() != loop).sum()))
+    check(err == 0 and got.shape == (len(arr),) and got.dtype == torch.bool,
+          f"fifo_miss: {err} flags differ (n {len(arr)}, U {fill0.size}, "
+          f"capacity {cap})")
+    check(np.array_equal(f.cpu().numpy(), fill0), "fifo_miss wrote its seed")
+    return {"max_abs_err": err, "plain_wall_ms": 1e3 * (t1 - t0),
+            "numpy_wall_ms": 1e3 * (t2 - t1), "misses": int(loop.sum())}
+
+
+def fifo_times(arr, init, cap, sm_mhz: float, iters: int) -> dict:
+    """The kernel's device time, the whole ``"cuda"`` backend call's wall
+    (np.unique and both copies included), the byte bound and the chain's
+    floor at one stream."""
+    fill0, n0, ids = densify(np.asarray(arr, np.int64), init, cap)
+    f, i = torch.from_numpy(fill0).to(DEV), torch.from_numpy(ids).to(DEV)
+    n, U = ids.size, fill0.size
+    walls = []
+    for _ in range(max(iters // 2, 1)):
+        t0 = time.perf_counter()
+        fifo_miss(arr, init, cap, backend="cuda")
+        walls.append(time.perf_counter() - t0)
+    # each input read once (ids and the seed), each flag written once
+    t_bytes = (4 * n + 4 * U + n) / HBM_BPS
+    return {"n": n, "distinct_ids": U, "capacity": cap, "tlb_entries": n0,
+            "fill_vector": ("shared" if U <= fifo_ops._shared_ids(DEV.index)
+                            else "global"),
+            "ms": time_ms(lambda: fifo_miss_ids(f, n0, i, cap), iters=iters),
+            "backend_wall_ms": 1e3 * float(np.median(walls)),
+            "bound_ms": 1e3 * t_bytes, "bound_by": "bytes",
+            "chain_floor_ms": n * CHAIN_CYCLES / (sm_mhz * 1e3),
+            "bound_used": "bytes (bound_ms); chain_floor_ms beside it"}
+
+
+def fifo_rejections() -> dict:
+    """Arguments the kernel cannot take fail: the launch refuses a fill
+    vector too large for shared memory without a scratch, and ids that are
+    not 16-byte aligned, with cudaErrorInvalidValue; an id outside the fill
+    vector fails the device assert before the walk (in a process of its
+    own: the error ends its CUDA context)."""
+    f = torch.zeros(60_000, dtype=torch.int32, device=DEV)
+    ids = torch.zeros(8, dtype=torch.int32, device=DEV)
+    mask = torch.empty(8, dtype=torch.uint8, device=DEV)
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = fifo_ops._launcher()
+    too_big = launch(f.data_ptr(), 60_000, 0, ids.data_ptr(), 4, 1, None,
+                     mask.data_ptr(), stream)
+    misaligned = launch(f.data_ptr(), 16, 0, ids.data_ptr() + 4, 4, 1, None,
+                        mask.data_ptr(), stream)
+    check(too_big == 1 and misaligned == 1, f"fifo_miss launched on what it "
+          f"cannot take: codes {too_big}, {misaligned}")
+    prog = (
+        "import sys, torch\n"
+        "sys.path.insert(0, 'src')\n"
+        "from repro_torch.kernels.fifo_miss import fifo_miss_ids\n"
+        "i32 = dict(dtype=torch.int32, device='cuda')\n"
+        "fifo_miss_ids(torch.zeros(4, **i32), 0, torch.tensor([0, 4], **i32), 2)\n"
+        "torch.cuda.synchronize()\n")
+    run = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(run.returncode != 0 and "assert" in run.stderr.lower(),
+          f"an id outside the fill vector was not rejected: rc "
+          f"{run.returncode}, {run.stderr[-400:]}")
+    said = [ln for ln in run.stderr.splitlines() if "assert" in ln.lower()]
+    return {"too_big_code": too_big, "misaligned_code": misaligned,
+            "bad_id": said[0][-160:]}
+
+
+@contextlib.contextmanager
+def engine_calls(into: list, keep: bool = False):
+    """Record the batch engine's fifo_miss calls: their sizes, and with
+    ``keep`` their inputs."""
+    real = sim_batch.fifo_miss
+
+    def recorded(arr, initial, capacity, **kw):
+        initial = list(initial)
+        into.append((np.array(arr), initial, capacity) if keep else len(arr))
+        return real(arr, initial, capacity, **kw)
+
+    sim_batch.fifo_miss = recorded
+    try:
+        yield into
+    finally:
+        sim_batch.fifo_miss = real
+
+
+def numa_sim_apps(backend: str):
+    os.environ["REPRO_FIFO_MISS_BACKEND"] = backend
+    out, t0 = {}, time.perf_counter()
+    for app in NUMA_APPS:
+        for policy in NUMA_POLICIES:
+            out[f"{app}/{policy.value}"] = run_app(
+                policy, APPS[app], PAPER_8SOCKET,
+                config=SimConfig(prefetch_degree=9, engine="batch"), **NUMA_APP)
+    return out, time.perf_counter() - t0
+
+
+def numa_sim_closed_loop(backend: str):
+    os.environ["REPRO_FIFO_MISS_BACKEND"] = backend
+    rate = CLOSED_LOOP["load"] * nominal_capacity_rps()
+    trace = poisson_trace(CLOSED_LOOP["n_requests"], rate,
+                          seed=CLOSED_LOOP["seed"])
+    t0 = time.perf_counter()
+    rows = {p: run_closed_loop(p, arrival_rate_rps=rate,
+                               n_requests=len(trace), trace=trace)
+            for p in SERVING_POLICIES}
+    return rows, time.perf_counter() - t0
+
+
+def phase_numa_sim():
+    """The simulator's main path on the card: fig08's five apps x three
+    policies through the batch engine with pass 1 on the fifo_miss kernel,
+    then the closed serving loop, each against the numpy backend; and the
+    kernel against its plain version and the numpy loop at the reference's
+    trials, an engine call and a long stream.  Returns the kernel row, the
+    counts of the main path and what the path implies."""
+    t_phase = time.perf_counter()
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    # (b) first on numpy, recording the engine's calls for (a)
+    with engine_calls([], keep=True) as recorded:
+        want_apps, numpy_s = numa_sim_apps("numpy")
+    check(len(recorded) == 8 * len(want_apps),
+          f"{len(recorded)} fifo_miss calls in {len(want_apps)} runs, not 8 each")
+    want_loop, loop_numpy_s = numa_sim_closed_loop("numpy")
+    # (a) the kernel against its plain version and the numpy loop
+    trials = list(fifo_trials()) + list(fifo_repeats())
+    err = max(fifo_check(*case)["max_abs_err"] for case in trials)
+    engine = max(recorded, key=lambda c: np.unique(c[0]).size + len(c[1]))
+    engine_walls = fifo_check(*engine)
+    long = fifo_long_stream()
+    long_walls = fifo_check(*long)
+    err = max(err, engine_walls["max_abs_err"], long_walls["max_abs_err"])
+    # the main path: every count 0 before, read after
+    reset_counters()
+    with engine_calls([]) as sizes:
+        got_apps, cuda_s = numa_sim_apps("cuda")
+        got_loop, loop_cuda_s = numa_sim_closed_loop("cuda")
+    torch.cuda.synchronize()
+    counts = counts_now()
+    os.environ.pop("REPRO_FIFO_MISS_BACKEND")
+    check(got_apps == want_apps, "run_app differs between the cuda and the "
+          "numpy backends: " + ", ".join(k for k in want_apps
+                                          if got_apps[k] != want_apps[k]))
+    check(got_loop == want_loop, "run_closed_loop differs between backends")
+    launched = sum(1 for n in sizes if n > 0)
+    want = {"paged_attention": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0, "pte_gather": 0, "fifo_miss": launched}
+    check(launched == 8 * len(got_apps) and counts == want,
+          f"numa_sim: launch counts {counts}, the path implies {want}")
+    engine_t = fifo_times(*engine, sm_mhz=sm_mhz, iters=10)
+    long_t = fifo_times(*long, sm_mhz=sm_mhz, iters=3)
+    fill0, n0, ids = densify(np.asarray(engine[0], np.int64), *engine[1:])
+    f, i = torch.from_numpy(fill0).to(DEV), torch.from_numpy(ids).to(DEV)
+    row = {"name": "fifo_miss", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/fifo_miss.cu",
+           "replaces": "src/repro/kernels/fifo_miss.py:88", "launches": 0,
+           "max_abs_err": err,
+           "ms": engine_t["ms"],
+           "plain_ms": time_ms(lambda: fifo_miss_ref(f, n0, i, engine[2]),
+                               iters=3),
+           "bound_ms": engine_t["bound_ms"], "bound_by": "bytes",
+           "library_ms": None,
+           "numpy_wall_ms": engine_walls["numpy_wall_ms"],
+           "engine_call": {**engine_t, **engine_walls},
+           "long_stream": {**long_t, **long_walls},
+           "cases": len(trials) + 2, "tolerance": 0,
+           "rejections": fifo_rejections()}
+    emit({"phase": "numa_sim", "apps": list(NUMA_APPS),
+          "policies": [p.value for p in NUMA_POLICIES],
+          "topology": "PAPER_8SOCKET", **NUMA_APP, "prefetch_degree": 9,
+          "engine": "batch", "cuts": [],
+          "runs": len(got_apps), "fifo_miss_calls": len(sizes),
+          "fifo_miss_launches": counts["fifo_miss"],
+          "accesses_per_call_max": max(sizes),
+          "apps_wall_s": {"numpy": numpy_s, "cuda": cuda_s},
+          "closed_loop": {**CLOSED_LOOP, "policies": list(SERVING_POLICIES),
+                          "wall_s": {"numpy": loop_numpy_s, "cuda": loop_cuda_s},
+                          "p99_us": {p: r["p99_us"] for p, r in got_loop.items()}},
+          "results_identical": True, "sm_clock_max_mhz": sm_mhz,
+          "exec_ns": {k: r["exec_ns"] for k, r in got_apps.items()},
+          "wall_s": time.perf_counter() - t_phase})
+    return row, counts, want
+
+
 # ----------------------------------------------------------------------- main
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernels,serve,parity,coherence,train,multipod")
+                    default="kernels,serve,parity,coherence,train,multipod,"
+                            "numa_sim")
     ap.add_argument("--layers", type=int, default=SERVE_DEPTH["qwen3_14b"],
                     help="depth of the Qwen3-14B serve and profile (widths are "
                          "never cut; every other arch runs at SERVE_DEPTH)")
@@ -2263,6 +2572,9 @@ def main() -> None:
         runs["train_yi_6b"] = phase_train()
     if "multipod" in phases:
         runs.update(phase_multipod())
+    if "numa_sim" in phases:
+        fifo_row, *runs["numa_sim"] = phase_numa_sim()
+        rows.append(fifo_row)
     # every kernel that the path's layer groups need ran, and no other
     for path, (by_name, want) in runs.items():
         for name, n in by_name.items():

@@ -122,11 +122,14 @@ class LoopPods(Pods):
 
 class DistPods(Pods):
     """One pod a rank of ``group`` (default: the initialised world), over
-    ``torch.distributed``.  Tensors must lie where the backend works on them
-    (the CPU for gloo, the rank's card for NCCL)."""
+    ``torch.distributed``.  ``device`` is the rank's GPU unless it is
+    ``"cpu"``, and the constructor raises when there is no GPU.  Tensors must
+    lie where the backend works on them (the CPU for gloo, the rank's card
+    for NCCL)."""
 
-    def __init__(self, group=None, device: DeviceLike = "cpu"):
+    def __init__(self, group=None, device: DeviceLike = None):
         import torch.distributed as dist
+        self.device = resolve_device(device)
         if not dist.is_initialized():
             raise RuntimeError("DistPods: call torch.distributed."
                                "init_process_group first")
@@ -135,7 +138,6 @@ class DistPods(Pods):
         self.n = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.local = 1
-        self.device = torch.device(device)
         super().__init__()
 
     def index(self) -> torch.Tensor:

@@ -18,7 +18,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "pte_gather")
+           "pte_gather", "fifo_miss")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

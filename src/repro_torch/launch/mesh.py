@@ -20,7 +20,8 @@ def make_debug_mesh(n_pods: int = 4, *, device: DeviceLike = None) -> Pods:
     return LoopPods(n_pods, device)
 
 
-def make_production_mesh(*, group=None, device: DeviceLike = "cpu") -> Pods:
+def make_production_mesh(*, group=None, device: DeviceLike = None) -> Pods:
     """One pod a rank of the initialised ``torch.distributed`` process group
-    (``DistPods``; gloo on the CPU, NCCL with one card a rank)."""
+    (``DistPods``): on the rank's GPU unless ``device="cpu"`` (gloo), and it
+    raises when there is no GPU."""
     return DistPods(group, device=device)

@@ -36,7 +36,12 @@ def test_torch_port_has_the_reference_layout():
                 "optim.adamw", "data.pipeline", "checkpoint.store",
                 "runtime.trainer", "launch.train", "distributed.pods",
                 "distributed.compression", "pagedpt.coherence", "launch.mesh",
-                "launch.specs"):
+                "launch.specs", "core", "core.topology", "core.costmodel",
+                "core.tlb", "core.pagetable", "core.shootdown",
+                "core.shootdown_batch", "core.config", "kernels.fifo_miss",
+                "kernels.fifo_miss.ops", "kernels.fifo_miss.ref", "core.batch",
+                "core.sim", "core.mm_batch", "core.trace", "core.malloc",
+                "core.workloads", "serving", "serving.loop"):
         assert f"repro_torch.{sub}" in MODULES
 
 

@@ -60,7 +60,28 @@ def test_torch_pod_axis_checks_shapes_and_mesh_builds_it():
     with pytest.raises(ValueError):
         pods.all_to_all(torch.zeros(3, 2))
     with pytest.raises(RuntimeError):      # no process group here
-        mesh.make_production_mesh()
+        mesh.make_production_mesh(device="cpu")
+
+
+def test_torch_production_mesh_defaults_to_the_card(tmp_path):
+    """With no device the production pods take the rank's GPU: on a machine
+    without one they raise, even inside a process group, and never build
+    CPU pods on their own."""
+    import torch.distributed as dist
+    from repro_torch.distributed import DistPods
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        if torch.cuda.is_available():
+            assert mesh.make_production_mesh().device.type == "cuda"
+        else:
+            for build in (mesh.make_production_mesh, DistPods):
+                with pytest.raises(RuntimeError, match="none is available"):
+                    build()
+        pods = mesh.make_production_mesh(device="cpu")
+        assert pods.device == torch.device("cpu") and pods.n == 1
+    finally:
+        dist.destroy_process_group()
 
 
 WORKER = r'''
@@ -120,7 +141,7 @@ def run(pods, sl):
 def worker(rank, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=P, rank=rank)
-    got = run(make_production_mesh(), slice(rank, rank + 1))
+    got = run(make_production_mesh(device="cpu"), slice(rank, rank + 1))
     np.savez(f"{out_dir}/rank{rank}.npz", **{k: v.numpy() for k, v in got.items()})
     dist.destroy_process_group()
 
