@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, needs one CUDA device
     python3 chip_smoke.py --phases kernels # build + kernel checks only
     python3 chip_smoke.py --phases train   # build + the training slice only
+    python3 chip_smoke.py --phases kernels_bwd  # build + K2's backward row only
     python3 chip_smoke.py --phases kernels,multipod   # the pod axis
     python3 chip_smoke.py --phases kernels,numa_sim   # the NUMA simulator
     python3 chip_smoke.py --phases profile # where a decode step's time goes
@@ -32,9 +33,17 @@ and the script exits non-zero):
             magnitude) at the training shapes of the attention archs (Yi-6B's
             q [8,32,1024,128], Gemma-3's head_dim 256 with its 1 024 window,
             Whisper's non-causal encoder, RecurrentGemma's G = 10, a ragged
-            S), the forward's LSE against the plain one in both dtypes, a
-            dropped-tile control that the bound must see, and its time at
-            Yi-6B's shape beside SDPA's backward.
+            S, a head_dim of 80 below its tile's 128), bf16 up to head_dim
+            128 on the tensor cores (dO, P and dS as two bf16 halves) with
+            a float32 dO and with the train step's bf16-valued one (the
+            kernels then skip the dO lo products),
+            float32 and bf16 at head_dim 256 on the FMA kernels; two runs
+            bit-equal; the forward's LSE against the plain one in both
+            dtypes; a dropped-tile control and a single-bf16 P / dS control
+            that the bound must see; and its time at Yi-6B's shape (both
+            kinds of dO, and float32 inputs on the FMA kernels) beside the
+            plain version and SDPA's backward.
+            ``--phases kernels_bwd`` runs this row alone.
             K1's per-row log-sum-exp (``lse``) against the plain version's
             (within 1e-5, both dtypes, a dead row, shard-local lengths past
             either end of a shard, with and without a window, one split and
@@ -387,14 +396,18 @@ def flash_p_bf16(q, k, v, *, causal, window):
 
 
 # -------------------------------------------------- flash attention backward
-def flash_bwd_case(B, H, K, S, hd, causal, window, dtype):
+def flash_bwd_case(B, H, K, S, hd, causal, window, dtype, dout_bf16=False):
     """The backward's inputs: q, k, v as ``flash_case`` makes them, the
-    kernel forward's output and LSE, and an output gradient; also the
-    forward's LSE error against the plain version's."""
+    kernel forward's output and LSE, and an output gradient, float32, or
+    bf16-valued as the train step passes it (the model casts the attention
+    output to bf16); also the forward's LSE error against the plain
+    version's."""
     (q, k, v), kw = flash_case(B, H, K, S, hd, causal, window, dtype)
     out, lse = flash_ops._forward(q, k, v, causal, window, with_lse=True)
     _, want = flash_attention_ref(q, k, v, return_lse=True, **kw)
     dout = randn((B, H, S, hd), torch.float32)
+    if dout_bf16:
+        dout = dout.to(torch.bfloat16).float()
     return (q, k, v, out, lse, dout), kw, max_err(lse, want)
 
 
@@ -427,26 +440,45 @@ def flash_bwd_library(args, kw):
     return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
 
 
-def flash_bwd_drop_tile(q, k, v, out, lse, dout, *, causal, window):
-    """Negative control, not part of the port: the plain backward with one
-    64 x 64 tile of P (the last query rows against the first keys) dropped,
-    as a kernel that skipped a live tile would compute.  It must miss the
-    bound, or the bound could not see such a fault."""
+def flash_bwd_plain(q, k, v, out, lse, dout, vis, p_bf16=False):
+    """The plain backward over the visible pairs ``vis`` [S, S], with P and
+    dS rounded to one bf16 value each before the products that take them
+    when ``p_bf16``: the negative controls below."""
     B, H, S, hd = q.shape
     K = k.shape[1]
     G, scale = H // K, hd ** -0.5
-    vis = flash_visible(S, causal, window).clone()
-    vis[S - 64:, :64] = False
     qg = q.reshape(B, K, G, S, hd).float()
     s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float()) * scale
     p = torch.where(vis, torch.exp(s - lse.reshape(B, K, G, S, 1)), 0.0)
     do = dout.reshape(B, K, G, S, hd)
     d = (do * out.reshape(B, K, G, S, hd)).sum(-1, keepdim=True)
-    dv = torch.einsum("bkgqt,bkgqd->bktd", p, do)
     ds = p * (torch.einsum("bkgqd,bktd->bkgqt", do, v.float()) - d)
+    if p_bf16:
+        p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, do)
     dq = torch.einsum("bkgqt,bktd->bkgqd", ds, k.float()) * scale
     dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qg) * scale
     return dq.reshape(B, H, S, hd), dk, dv
+
+
+def flash_bwd_drop_tile(q, k, v, out, lse, dout, *, causal, window):
+    """Negative control, not part of the port: the plain backward with one
+    64 x 64 tile of P (the last query rows against the first keys) dropped,
+    as a kernel that skipped a live tile would compute.  It must miss the
+    bound, or the bound could not see such a fault."""
+    S = q.shape[2]
+    vis = flash_visible(S, causal, window).clone()
+    vis[S - 64:, :64] = False
+    return flash_bwd_plain(q, k, v, out, lse, dout, vis)
+
+
+def flash_bwd_p_bf16(q, k, v, out, lse, dout, *, causal, window):
+    """Negative control, not part of the port: P and dS rounded to one bf16
+    value each, as a tensor-core kernel without their lo halves would
+    compute.  It must miss the bound, or the bound could not see the
+    halves."""
+    vis = flash_visible(q.shape[2], causal, window)
+    return flash_bwd_plain(q, k, v, out, lse, dout, vis, p_bf16=True)
 
 
 # Yi-6B's training shape (batch 8, seq 1 024, 32 heads on 4 kv heads)
@@ -455,29 +487,38 @@ FLASH_BWD_TRAIN = (8, 32, 4, 1024, 128, True, None)
 
 def phase_kernels_bwd() -> dict:
     """K2's backward against its plain version at the training shapes of
-    the attention archs, the forward's LSE against the plain one, the
-    dropped-tile control, and the timing row at Yi-6B's training shape."""
+    the attention archs, with a float32 dO and with the train step's
+    bf16-valued one (the tensor-core kernels' general and zero-lo branches),
+    the forward's LSE against the plain one, the dropped-tile and the
+    single-bf16 P / dS controls, and the timing row at Yi-6B's training
+    shape."""
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(row, dt) for dt in (f32, bf16) for row in [
+    cases = [(row, dt, False) for dt in (f32, bf16) for row in [
         (2, 4, 2, 100, 16, True, None),          # ragged S, smoke head_dim
         (2, 4, 2, 100, 64, True, None), (1, 8, 2, 333, 128, True, 100),
         (1, 4, 2, 256, 64, False, None), (1, 2, 1, 70, 256, False, 33),
         (2, 8, 4, 1024, 128, True, None)]]
     cases += [
-        (FLASH_BWD_TRAIN, bf16), ((2,) + FLASH_BWD_TRAIN[1:], f32),
-        ((2, 8, 4, 2048, 256, True, 1024), bf16),    # Gemma-3's local layers
-        ((4, 8, 8, 1500, 64, False, None), f32),     # Whisper's encoder
-        ((2, 10, 1, 4096, 256, True, 2048), bf16),   # RecurrentGemma's local
+        (FLASH_BWD_TRAIN, bf16, False), ((2,) + FLASH_BWD_TRAIN[1:], f32, False),
+        ((2, 8, 4, 2048, 256, True, 1024), bf16, False),  # Gemma-3's local layers
+        ((4, 8, 8, 1500, 64, False, None), f32, False),   # Whisper's encoder
+        ((2, 10, 1, 4096, 256, True, 2048), bf16, False), # RecurrentGemma's local
+        ((2, 4, 2, 100, 80, True, None), bf16, False),    # head_dim below its tile's
     ]
+    # the train step's bf16-valued dO: the zero-lo branch of the tensor cores
+    cases += [(row, bf16, True) for row in [
+        FLASH_BWD_TRAIN, (2, 4, 2, 100, 16, True, None),
+        (1, 8, 2, 333, 128, True, 100), (1, 4, 2, 256, 64, False, None),
+        (2, 6, 2, 77, 32, True, None), (2, 4, 2, 100, 80, True, None)]]
     rel_by_dtype, lse_by_dtype = {}, {}
-    for row, dt in cases:
-        args, kw, lse_err = flash_bwd_case(*row, dt)
+    for row, dt, dout_bf16 in cases:
+        args, kw, lse_err = flash_bwd_case(*row, dt, dout_bf16=dout_bf16)
         rel = flash_bwd_rel(flash_attention_bwd(*args, **kw),
                             flash_attention_bwd_ref(*args, **kw))
         torch.cuda.synchronize()
-        key = str(dt).replace("torch.", "")
+        key = str(dt).replace("torch.", "") + ("/bf16_valued_dout" if dout_bf16 else "")
         check(max(rel.values()) <= BWD_TOL_REL,
-              f"flash_attention_bwd {row} {dt}: rel err {rel} > {BWD_TOL_REL}")
+              f"flash_attention_bwd {row} {key}: rel err {rel} > {BWD_TOL_REL}")
         check(lse_err <= TOL["flash_attention"],
               f"flash_attention lse {row} {dt}: |err| {lse_err}")
         rel_by_dtype[key] = max(rel_by_dtype.get(key, 0.0), *rel.values())
@@ -493,16 +534,29 @@ def phase_kernels_bwd() -> dict:
     check(min(dropped.values()) > BWD_TOL_REL,
           f"a dropped tile misses by {dropped}, within {BWD_TOL_REL}: the "
           "bound cannot see it")
+    single = flash_bwd_rel(flash_bwd_p_bf16(*args, **kw), want)
+    check(min(single.values()) > BWD_TOL_REL,
+          f"one bf16 P and dS miss by {single}, within {BWD_TOL_REL}: the "
+          "bound cannot see the halves")
+    # the train step's dO at the same shape, and the FMA route on float32
+    # inputs there (the same kernels as the first design, wider inputs)
+    args_b, kw_b, _ = flash_bwd_case(*FLASH_BWD_TRAIN, bf16, dout_bf16=True)
+    args_f, kw_f, _ = flash_bwd_case(*FLASH_BWD_TRAIN, f32)
     t_bytes, t_ops = flash_bwd_bound(args, kw)
     row = {"name": "flash_attention_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
            "tpu_backward": "none: the reference differentiates its plain jnp "
                            "attention (src/repro/models/attention.py:81)",
+           "route_by_dtype": {"float32": flash_ops.bwd_route(f32, 128),
+                              "bfloat16": flash_ops.bwd_route(bf16, 128),
+                              "bfloat16_head_dim_256": flash_ops.bwd_route(bf16, 256)},
            "launches": 0,
            "max_abs_err": max_err(got, want),
            "rel_err": flash_bwd_rel(got, want),
            "ms": time_ms(lambda: flash_attention_bwd(*args, **kw)),
+           "ms_bf16_valued_dout": time_ms(lambda: flash_attention_bwd(*args_b, **kw_b)),
+           "ms_float32_fma": time_ms(lambda: flash_attention_bwd(*args_f, **kw_f)),
            "plain_ms": time_ms(lambda: flash_attention_bwd_ref(*args, **kw)),
            "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -513,8 +567,9 @@ def phase_kernels_bwd() -> dict:
            "max_rel_err_by_dtype": rel_by_dtype, "tolerance_rel": BWD_TOL_REL,
            "lse_max_abs_err_by_dtype": lse_by_dtype,
            "lse_tolerance": TOL["flash_attention"],
-           "dropped_tile_rel_err": dropped, "cases": len(cases) + 1}
-    del args, got, want, again
+           "dropped_tile_rel_err": dropped, "p_bf16_rel_err": single,
+           "cases": len(cases) + 1}
+    del args, got, want, again, args_b, args_f
     release()
     return row
 
@@ -2558,7 +2613,11 @@ def main() -> None:
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "libraries": [p.name for p in built]})
 
-    rows = phase_kernels() if "kernels" in phases else []
+    rows = []
+    if "kernels" in phases:
+        rows = phase_kernels()
+    elif "kernels_bwd" in phases:         # K2's backward row alone
+        rows = [phase_kernels_bwd()]
     runs = {}
     if "serve" in phases:
         runs = {arch: phase_serve(arch, n) for arch, n in depth.items()}

@@ -5,8 +5,11 @@ forward, ``csrc/flash_attention_bwd.cu`` backward) or raises; only a CPU
 tensor takes the plain PyTorch versions.  ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count kernel launches (the backward's one
 call is its three kernels: the D pre-pass, dK/dV and dQ).  bfloat16 inputs
-run the forward on the tensor cores, float32 inputs on the CUDA cores; the
-backward computes in float32 on the CUDA cores for both.
+run the forward on the tensor cores, float32 inputs on the CUDA cores.  The
+backward runs bfloat16 inputs up to head_dim 128 on the tensor cores, with
+dO, P and dS split into two bf16 halves each, and float32 inputs (and
+bfloat16 at head_dim 256) as float32 FMAs on the CUDA cores
+(``bwd_route``); both accumulate in float32.
 
 ``flash_attention`` is differentiable: when autograd records (grad mode on
 and an input requires grad) it runs as ``FlashAttentionFn``, whose forward
@@ -44,7 +47,7 @@ def _launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [_P] * 10 + [_I] * 8 + [ctypes.POINTER(ctypes.c_int64), _P]
+    fn.argtypes = [_P] * 12 + [_I] * 8 + [ctypes.POINTER(ctypes.c_int64), _P]
     fn.restype = _I
     return fn
 
@@ -112,6 +115,19 @@ def _vec4(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+# the largest head_dim whose dK and dV accumulators fit the tensor-core
+# backward's registers (16 rows a warp: hd / 2 floats a thread each)
+TC_BWD_MAX_HEAD_DIM = 128
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels ``flash_attention_bwd`` launches for a CUDA tensor:
+    ``"tensor_cores"`` (bfloat16 up to head_dim 128) or ``"fma"``."""
+    if dtype == torch.bfloat16 and head_dim <= TC_BWD_MAX_HEAD_DIM:
+        return "tensor_cores"
+    return "fma"
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
@@ -141,10 +157,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or S == 0:
         return dq, dk, dv
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # the tensor-core kernels' scratch: dO's bf16 hi and lo halves, and a flag
+    # the pre-pass sets when a lo half is nonzero; the C entry runs those
+    # kernels when it is handed the scratch and the FMA ones when not
+    do_split = lo_flag = None
+    if bwd_route(q.dtype, hd) == "tensor_cores":
+        do_split = torch.empty((2, B, H, S, hd), dtype=torch.bfloat16,
+                               device=q.device)
+        lo_flag = torch.empty(1, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         code = _bwd_launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if do_split is None else do_split.data_ptr(),
+            None if lo_flag is None else lo_flag.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, K, S, hd, int(bool(causal)),
             -1 if window is None else int(window), _DTYPES[q.dtype],
             _strides(q, k, v, out, dout, dq, dk, dv),
