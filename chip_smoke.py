@@ -117,11 +117,15 @@ and the script exits non-zero):
             run.  Before that, the kernel against its plain version and the
             numpy loop, bit for bit, at the reference's 25 trials, 200
             streams over a handful of vpns (ids repeating inside the
-            kernel's groups of four, capacities 0-4), at the
-            largest engine call of the run (the fill vector in shared
-            memory) and at a stream of 2^24 accesses over 2^20 vpns (in
-            global memory); timed beside the whole cuda backend call, the
-            numpy loop, its byte bound and the chain's latency floor.  The
+            kernel's windows of 32, capacities 0-4), adversarial streams
+            (one vpn 32 times, capacities 0, 1, 31, 32, 33, every length
+            mod 32, windows that take 19 and 33 rounds), every engine call
+            of the run through the engine's own ids (``dense``), the
+            largest engine call (the fill vector in shared memory) and a
+            stream of 2^24 accesses over 2^20 vpns (in global memory);
+            timed beside the whole cuda backend call, the numpy loop, its
+            byte bound and a one-step-at-a-time floor, with the walk's
+            rounds a window.  The
             K3 coherence roles of the kernels phase carry their byte bound
   profile   (only when asked for) the serving loop of Qwen3-14B, Gemma-3-4B,
             Qwen3-235B-A22B (its serve depth), Mamba-2-370M and
@@ -2345,10 +2349,12 @@ NUMA_POLICIES = (Policy.LINUX, Policy.MITOSIS, Policy.NUMAPTE)
 FIFO_LONG = dict(n=1 << 24, distinct=1 << 20, capacity=1088)
 # the closed serving loop: one Poisson trace at 0.9 of nominal capacity
 CLOSED_LOOP = dict(n_requests=256, load=0.9, seed=0)
-# The fifo_miss chain's floor: a step's flag needs the fill count of the step
-# before, so each step is at least one dependent integer compare and one add,
-# at an assumed 4 cycles each (not measured here), at the card's maximum SM
-# clock.  Any load of the fill vector comes on top.
+# A one-step-at-a-time floor, kept beside the byte bound for comparison with
+# the first design: it assumed a walk that takes one access at a time, each
+# step at least one dependent integer compare and one add, at an assumed 4
+# cycles each (not measured here), at the card's maximum SM clock.  The warp
+# walk settles 32 accesses a round and is not bound by it; ``bound_ms`` (the
+# bytes) is the row's bound.
 CHAIN_CYCLES = 8
 
 
@@ -2367,7 +2373,7 @@ def fifo_trials():
 
 def fifo_repeats():
     """Streams over a handful of vpns at capacities 0-4: ids repeat inside
-    the kernel's groups of four, and lengths leave every remainder."""
+    the kernel's windows of 32, and lengths leave every remainder."""
     rng = np.random.default_rng(3)
     for _ in range(200):
         cap = int(rng.integers(0, 5))
@@ -2375,6 +2381,30 @@ def fifo_repeats():
         arr = rng.integers(0, int(rng.integers(1, 7)),
                            size=int(rng.integers(0, 41))).astype(np.int64)
         yield arr, init, cap
+
+
+def fifo_adversarial():
+    """Streams aimed at the warp walk (tests/test_torch_fifo_window.py):
+    one vpn 32 times, capacities around the window's width, every length
+    mod 32, and two windows that need many rounds: a cold vpn then a sweep
+    of the oldest entries of a full TLB (33 rounds), and a window over three
+    vpns with peers on every lane (19)."""
+    for cap in (0, 1, 2, 31, 32, 33):
+        for init in ([], [7], [3, 7, 9][:max(cap, 1)]):
+            yield [7] * 37, init, cap
+    rng = np.random.default_rng(100)
+    for cap in (0, 1, 31, 32, 33):
+        for _ in range(12):
+            alphabet = int(rng.choice([2, 5, 40, 100, 1000]))
+            init = rng.permutation(alphabet + 50)[:int(rng.integers(0, cap + 1))]
+            yield (rng.integers(0, alphabet, int(rng.integers(1, 400))),
+                   init.tolist(), cap)
+    for r in range(32):
+        yield rng.integers(0, 60, 96 + r), rng.permutation(60)[:20].tolist(), 24
+    init = list(range(1000, 1040))
+    yield [init[-1]] * 32 + [5] + init[:31], init, 40
+    yield ([0, 2, 2, 0, 2, 1, 0, 2, 1, 0, 0, 1, 2, 0, 1, 1,
+            0, 1, 0, 1, 2, 1, 2, 0, 0, 1, 1, 2, 0, 0, 0, 2], [1], 2)
 
 
 def fifo_long_stream():
@@ -2388,12 +2418,33 @@ def fifo_long_stream():
         FIFO_LONG["capacity"]
 
 
+def fifo_rounds(fill0: torch.Tensor, n0: int, ids: torch.Tensor,
+                cap: int) -> int:
+    """The warp walk's rounds over all its windows on one stream (the
+    launch's diagnostic output; the wrapper passes none, so this launch is
+    not counted)."""
+    U = fill0.numel()
+    mask = torch.empty(ids.numel(), dtype=torch.uint8, device=DEV)
+    rounds = torch.zeros(1, dtype=torch.int32, device=DEV)
+    scratch = (None if U <= fifo_ops._shared_ids(DEV.index)
+               else torch.empty(U, dtype=torch.int32, device=DEV))
+    code = fifo_ops._launcher()(
+        fill0.data_ptr(), U, n0, ids.data_ptr(), ids.numel(), cap,
+        None if scratch is None else scratch.data_ptr(), mask.data_ptr(),
+        rounds.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch("fifo_miss", code)
+    return int(rounds.item())
+
+
 def fifo_check(arr, init, cap) -> dict:
-    """Kernel, plain version and numpy loop on one stream, bit for bit;
-    the seed fill vector stays as it was.  Returns the number of flags
-    that differ and the walls of the plain version and of the numpy loop on
-    this stream."""
-    fill0, n0, ids = densify(np.asarray(arr, np.int64), init, cap)
+    """Kernel, plain version and numpy loop on one stream, bit for bit: the
+    kernel over ``densify``'s ids, and the whole ``"cuda"`` backend call
+    through the stream's own ids (``dense``, as the batch engine passes
+    them); the seed fill vector stays as it was.  Returns the number of
+    flags that differ, the walls of the plain version and of the numpy loop
+    on this stream, and the walk's rounds."""
+    arr = np.asarray(arr, np.int64)
+    fill0, n0, ids = densify(arr, init, cap)
     f, i = torch.from_numpy(fill0).to(DEV), torch.from_numpy(ids).to(DEV)
     got = fifo_miss_ids(f, n0, i, cap)
     torch.cuda.synchronize()
@@ -2402,43 +2453,58 @@ def fifo_check(arr, init, cap) -> dict:
     t1 = time.perf_counter()
     loop = fifo_miss(arr, init, cap, backend="numpy")
     t2 = time.perf_counter()
-    err = max(int((got != want).sum()), int((got.cpu().numpy() != loop).sum()))
-    check(err == 0 and got.shape == (len(arr),) and got.dtype == torch.bool,
+    dense = fifo_miss(arr, init, cap, backend="cuda",
+                      dense=np.unique(arr, return_inverse=True))
+    err = max(int((got != want).sum()), int((got.cpu().numpy() != loop).sum()),
+              int((dense != loop).sum()))
+    check(err == 0 and got.shape == (len(arr),) and got.dtype == torch.bool
+          and dense.shape == (len(arr),) and dense.dtype == bool,
           f"fifo_miss: {err} flags differ (n {len(arr)}, U {fill0.size}, "
           f"capacity {cap})")
     check(np.array_equal(f.cpu().numpy(), fill0), "fifo_miss wrote its seed")
+    rounds = fifo_rounds(f, n0, i, cap) if len(arr) else 0
+    windows = -(-len(arr) // 32)
+    check(windows <= rounds <= 33 * windows,
+          f"fifo_miss: {rounds} rounds over {windows} windows")
     return {"max_abs_err": err, "plain_wall_ms": 1e3 * (t1 - t0),
-            "numpy_wall_ms": 1e3 * (t2 - t1), "misses": int(loop.sum())}
+            "numpy_wall_ms": 1e3 * (t2 - t1), "misses": int(loop.sum()),
+            "windows": windows, "rounds": rounds}
 
 
 def fifo_times(arr, init, cap, sm_mhz: float, iters: int) -> dict:
     """The kernel's device time, the whole ``"cuda"`` backend call's wall
-    (np.unique and both copies included), the byte bound and the chain's
-    floor at one stream."""
-    fill0, n0, ids = densify(np.asarray(arr, np.int64), init, cap)
+    as the batch engine makes it (its ids given, staging and both copies
+    included) and without them (``np.unique`` inside), the byte bound and
+    the one-step-at-a-time floor at one stream."""
+    arr = np.asarray(arr, np.int64)
+    fill0, n0, ids = densify(arr, init, cap)
     f, i = torch.from_numpy(fill0).to(DEV), torch.from_numpy(ids).to(DEV)
     n, U = ids.size, fill0.size
-    walls = []
+    dense = np.unique(arr, return_inverse=True)
+    walls = {"dense": [], "arr_only": []}
     for _ in range(max(iters // 2, 1)):
-        t0 = time.perf_counter()
-        fifo_miss(arr, init, cap, backend="cuda")
-        walls.append(time.perf_counter() - t0)
+        for kind, kw in (("dense", {"dense": dense}), ("arr_only", {})):
+            t0 = time.perf_counter()
+            fifo_miss(arr, init, cap, backend="cuda", **kw)
+            walls[kind].append(time.perf_counter() - t0)
     # each input read once (ids and the seed), each flag written once
     t_bytes = (4 * n + 4 * U + n) / HBM_BPS
     return {"n": n, "distinct_ids": U, "capacity": cap, "tlb_entries": n0,
             "fill_vector": ("shared" if U <= fifo_ops._shared_ids(DEV.index)
                             else "global"),
             "ms": time_ms(lambda: fifo_miss_ids(f, n0, i, cap), iters=iters),
-            "backend_wall_ms": 1e3 * float(np.median(walls)),
+            "backend_wall_ms": 1e3 * float(np.median(walls["dense"])),
+            "backend_wall_ms_arr_only": 1e3 * float(np.median(walls["arr_only"])),
             "bound_ms": 1e3 * t_bytes, "bound_by": "bytes",
             "chain_floor_ms": n * CHAIN_CYCLES / (sm_mhz * 1e3),
-            "bound_used": "bytes (bound_ms); chain_floor_ms beside it"}
+            "bound_used": "bytes (bound_ms); chain_floor_ms, a one-step-at-a-"
+                          "time floor, beside it"}
 
 
 def fifo_rejections() -> dict:
     """Arguments the kernel cannot take fail: the launch refuses a fill
     vector too large for shared memory without a scratch, and ids that are
-    not 16-byte aligned, with cudaErrorInvalidValue; an id outside the fill
+    not 4-byte aligned, with cudaErrorInvalidValue; an id outside the fill
     vector fails the device assert before the walk (in a process of its
     own: the error ends its CUDA context)."""
     f = torch.zeros(60_000, dtype=torch.int32, device=DEV)
@@ -2447,9 +2513,9 @@ def fifo_rejections() -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     launch = fifo_ops._launcher()
     too_big = launch(f.data_ptr(), 60_000, 0, ids.data_ptr(), 4, 1, None,
-                     mask.data_ptr(), stream)
-    misaligned = launch(f.data_ptr(), 16, 0, ids.data_ptr() + 4, 4, 1, None,
-                        mask.data_ptr(), stream)
+                     mask.data_ptr(), None, stream)
+    misaligned = launch(f.data_ptr(), 16, 0, ids.data_ptr() + 2, 4, 1, None,
+                        mask.data_ptr(), None, stream)
     check(too_big == 1 and misaligned == 1, f"fifo_miss launched on what it "
           f"cannot take: codes {too_big}, {misaligned}")
     prog = (
@@ -2530,13 +2596,20 @@ def phase_numa_sim():
           f"{len(recorded)} fifo_miss calls in {len(want_apps)} runs, not 8 each")
     want_loop, loop_numpy_s = numa_sim_closed_loop("numpy")
     # (a) the kernel against its plain version and the numpy loop
-    trials = list(fifo_trials()) + list(fifo_repeats())
-    err = max(fifo_check(*case)["max_abs_err"] for case in trials)
+    trials = (list(fifo_trials()) + list(fifo_repeats())
+              + list(fifo_adversarial()))
+    checked = [fifo_check(*case) for case in trials]
+    adversarial = checked[-2:]
+    check([c["rounds"] for c in adversarial] == [2 + 33, 19],
+          f"fifo_miss: the constructed windows took "
+          f"{[c['rounds'] for c in adversarial]} rounds, not [2 + 33, 19]")
+    engine_checked = [fifo_check(*case) for case in recorded]
     engine = max(recorded, key=lambda c: np.unique(c[0]).size + len(c[1]))
     engine_walls = fifo_check(*engine)
     long = fifo_long_stream()
     long_walls = fifo_check(*long)
-    err = max(err, engine_walls["max_abs_err"], long_walls["max_abs_err"])
+    err = max(c["max_abs_err"] for c in
+              checked + engine_checked + [engine_walls, long_walls])
     # the main path: every count 0 before, read after
     reset_counters()
     with engine_calls([]) as sizes:
@@ -2570,7 +2643,10 @@ def phase_numa_sim():
            "numpy_wall_ms": engine_walls["numpy_wall_ms"],
            "engine_call": {**engine_t, **engine_walls},
            "long_stream": {**long_t, **long_walls},
-           "cases": len(trials) + 2, "tolerance": 0,
+           "cases": len(trials) + len(recorded) + 2, "tolerance": 0,
+           "engine_calls_rounds_per_window": sum(
+               c["rounds"] for c in engine_checked) / max(
+               sum(c["windows"] for c in engine_checked), 1),
            "rejections": fifo_rejections()}
     emit({"phase": "numa_sim", "apps": list(NUMA_APPS),
           "policies": [p.value for p in NUMA_POLICIES],

@@ -643,9 +643,11 @@ def _general_vec(ctx: _BatchContext, arr: np.ndarray) -> bool:
     data_total = float(charge_tab[dn_arr][inv].sum())
 
     # ---- pass 1: FIFO TLB simulation -> ordered miss list (the scan
-    # kernel; REPRO_FIFO_MISS_BACKEND=cuda runs it as one kernel launch) ----
+    # kernel: one launch on the card over pass 0's ids, or with
+    # REPRO_FIFO_MISS_BACKEND=numpy the dict loop) ----
     len0 = len(entries)
-    miss: List[int] = arr[fifo_miss(arr, entries, cap)].tolist()
+    miss: List[int] = arr[fifo_miss(arr, entries, cap,
+                                    dense=(uniq, inv))].tolist()
     n_miss = len(miss)
     nfill = len0 + n_miss
 

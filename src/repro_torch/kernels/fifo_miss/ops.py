@@ -8,16 +8,19 @@ number per vpn and a running fill count.
 
 Two entry points:
 
-* ``fifo_miss(arr, initial, capacity, *, backend=None)`` takes and returns
-  numpy, as the engine calls it.  Its backend is picked per call or by
-  ``REPRO_FIFO_MISS_BACKEND``:
+* ``fifo_miss(arr, initial, capacity, *, backend=None, dense=None)`` takes
+  and returns numpy, as the engine calls it.  Its backend is picked per call
+  or by ``REPRO_FIFO_MISS_BACKEND``:
 
-  - ``"numpy"`` (default) — the engine's original dict loop;
-  - ``"cuda"`` — densify the vpns with ``np.unique`` (the TLB's keys and the
-    stream share one id space), seed the fill vector from the TLB's fill
-    order, and run the scan as one kernel launch on the card
-    (``csrc/fifo_miss.cu``) through ``fifo_miss_ids``.  It raises where there
-    is no card, and never gives way to numpy.
+  - ``"cuda"`` (default) — map the vpns to dense ids, seed the fill vector
+    from the TLB's fill order, send both to the card in one copy
+    (``stage``), and run the scan as one kernel launch (``csrc/fifo_miss.cu``)
+    through ``fifo_miss_ids``; the flags come back in one copy.  The ids are
+    the caller's ``dense = np.unique(arr, return_inverse=True)`` where it
+    has them (the batch engine's pass 0), so nothing is sorted here; else
+    ``np.unique`` runs here.  It raises where there is no card, and never
+    gives way to numpy;
+  - ``"numpy"`` — the engine's original dict loop (it ignores ``dense``).
 
   Integer-only, so both give the same flags.
 * ``fifo_miss_ids(fill0, nfill0, ids, capacity)`` works on the densified
@@ -30,17 +33,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ... import _device
+from ...kvcache.staging import StagingRing
 from .. import _build
 from .ref import fifo_miss_ref
 
 __all__ = ["BACKENDS", "default_backend", "densify", "fifo_miss",
-           "fifo_miss_ids"]
+           "fifo_miss_ids", "seed_fill", "stage"]
 
 BACKENDS = ("numpy", "cuda")
 
@@ -53,19 +57,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def default_backend() -> str:
     """Backend used when the call doesn't pick one: the
-    ``REPRO_FIFO_MISS_BACKEND`` env var, else ``"numpy"``."""
-    return os.environ.get("REPRO_FIFO_MISS_BACKEND", "numpy")
+    ``REPRO_FIFO_MISS_BACKEND`` env var, else ``"cuda"`` (the card; it
+    raises where there is none, as every entry point of the port does)."""
+    return os.environ.get("REPRO_FIFO_MISS_BACKEND", "cuda")
 
 
 def fifo_miss(arr: np.ndarray, initial: Iterable[int], capacity: int, *,
-              backend: Optional[str] = None) -> np.ndarray:
+              backend: Optional[str] = None,
+              dense: Optional[Tuple[np.ndarray, np.ndarray]] = None
+              ) -> np.ndarray:
     """Classify every access of ``arr`` against a FIFO TLB.
 
     ``initial`` is the TLB's current contents in fill (insertion) order;
     ``capacity`` its entry count.  Returns a bool array over ``arr``: True
     where the access misses (and therefore fills).  A vpn can miss more than
     once — each fill restarts its lifetime — which is exactly what the
-    fill-number recurrence captures.
+    fill-number recurrence captures.  ``dense`` is
+    ``np.unique(arr, return_inverse=True)`` where the caller already has it.
     """
     if backend is None:
         backend = default_backend()
@@ -74,7 +82,10 @@ def fifo_miss(arr: np.ndarray, initial: Iterable[int], capacity: int, *,
                          f"pick from {BACKENDS}")
     arr = np.asarray(arr, dtype=np.int64).ravel()
     if backend == "cuda":
-        return _fifo_miss_cuda(arr, initial, int(capacity))
+        device = _device.resolve_device(None)
+        fill0, n0, ids = stage(arr, initial, int(capacity), dense=dense,
+                               device=device)
+        return fifo_miss_ids(fill0, n0, ids, int(capacity)).cpu().numpy()
     return _fifo_miss_numpy(arr, initial, int(capacity))
 
 
@@ -112,19 +123,57 @@ def densify(arr: np.ndarray, initial: Iterable[int], capacity: int):
     return fill0, n0, inv[n0:]
 
 
-def _fifo_miss_cuda(arr: np.ndarray, initial: Iterable[int],
-                    capacity: int) -> np.ndarray:
-    device = _device.resolve_device(None)
-    fill0, n0, ids = densify(arr, initial, capacity)
-    mask = fifo_miss_ids(torch.from_numpy(fill0).to(device), n0,
-                         torch.from_numpy(ids).to(device), capacity)
-    return mask.cpu().numpy()
+def seed_fill(uniq: np.ndarray, initial: Iterable[int], capacity: int,
+              out: Optional[np.ndarray] = None):
+    """The seed fill vector over the ids of ``uniq`` (sorted, unique vpns):
+    ``(fill0 [U] int32, n0)``.  The TLB's entries map into that id space by
+    ``np.searchsorted`` and hold their fill order; every other id starts at
+    the sentinel ``-(capacity + 1)``.  An entry that ``uniq`` lacks takes no
+    id and counts only in ``n0``: no access of the stream reads it."""
+    init = np.fromiter(initial, dtype=np.int64)
+    fill0 = np.empty(uniq.size, np.int32) if out is None else out
+    fill0.fill(-(capacity + 1))
+    if init.size and uniq.size:
+        pos = np.searchsorted(uniq, init)
+        held = pos < uniq.size
+        held[held] = uniq[pos[held]] == init[held]
+        fill0[pos[held]] = np.flatnonzero(held)
+    return fill0, int(init.size)
+
+
+@functools.lru_cache(maxsize=None)
+def _staging(device: torch.device) -> StagingRing:
+    return StagingRing(device)
+
+
+def stage(arr: np.ndarray, initial: Iterable[int], capacity: int, *,
+          dense: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+          device: torch.device) -> Tuple[torch.Tensor, int, torch.Tensor]:
+    """``fifo_miss_ids``' operands on ``device``: ``(fill0 [U], n0, ids [n])``,
+    int32.  The ids are ``inv`` of ``dense = (uniq, inv)``, which is
+    ``np.unique(arr, return_inverse=True)`` (computed here when the caller
+    has none), and the seed is ``seed_fill(uniq, ...)``; both are written
+    into one host staging buffer (pinned on the card) and sent in one copy."""
+    uniq, inv = np.unique(arr, return_inverse=True) if dense is None else dense
+    U, n = uniq.size, inv.size
+    if n != arr.size:
+        raise ValueError(f"fifo_miss: dense ids for {n} accesses, the "
+                         f"stream has {arr.size}")
+    init = np.fromiter(initial, dtype=np.int64)
+
+    def fill(host: np.ndarray) -> None:
+        words = host.view(np.int32)
+        seed_fill(uniq, init, capacity, out=words[:U])
+        words[U:] = inv.ravel()
+
+    words = _staging(device).send(fill, 4 * (U + n)).view(torch.int32)
+    return words[:U], init.size, words[U:]
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("fifo_miss").fifo_miss_launch
-    fn.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _P]
+    fn.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P]
     fn.restype = _I
     return fn
 
@@ -162,9 +211,7 @@ def fifo_miss_ids(fill0: torch.Tensor, nfill0: int, ids: torch.Tensor,
     if not (fill0.is_cuda and fill0.device == ids.device):
         raise ValueError("fifo_miss: operands must be on one CUDA device")
     dev = ids.device
-    fill0 = fill0.contiguous()
-    if not ids.is_contiguous() or ids.data_ptr() % 16:
-        ids = ids.clone()      # the kernel loads ids 16 bytes at a time
+    fill0, ids = fill0.contiguous(), ids.contiguous()
     U = fill0.numel()
     mask = torch.empty((n,), dtype=torch.uint8, device=dev)
     if n == 0:                  # nothing to classify: no launch
@@ -175,7 +222,7 @@ def fifo_miss_ids(fill0: torch.Tensor, nfill0: int, ids: torch.Tensor,
         code = _launcher()(
             fill0.data_ptr(), U, nfill0, ids.data_ptr(), n, capacity,
             None if scratch is None else scratch.data_ptr(), mask.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            None, torch.cuda.current_stream().cuda_stream)
     _build.check_launch("fifo_miss", code)
     fifo_miss_ids.launches += 1
     return mask.view(torch.bool)

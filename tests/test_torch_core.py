@@ -33,6 +33,13 @@ CONTENTION = tuple(R.CONTENTION_MODELS)
 SETTLE = R.SETTLE_MODES
 
 
+@pytest.fixture(autouse=True)
+def pass1_on_numpy(monkeypatch):
+    """The batch engine's pass 1 takes the card unless asked otherwise; the
+    CPU tests ask for the numpy loop."""
+    monkeypatch.setenv("REPRO_FIFO_MISS_BACKEND", "numpy")
+
+
 # --------------------------------------------------------------------------
 # the comparator
 # --------------------------------------------------------------------------

@@ -24,6 +24,13 @@ APP_KW = dict(accesses_per_thread=1500, pages_per_gb=8, touch_stride=1,
               mm_phases=True)
 
 
+@pytest.fixture(autouse=True)
+def pass1_on_numpy(monkeypatch):
+    """The batch engine's pass 1 takes the card unless asked otherwise; the
+    CPU tests ask for the numpy loop."""
+    monkeypatch.setenv("REPRO_FIFO_MISS_BACKEND", "numpy")
+
+
 def test_torch_core_public_api_is_the_reference_api():
     assert P.__all__ == R.__all__
     assert P.ENGINES == R.ENGINES and P.SETTLE_MODES == R.SETTLE_MODES
@@ -72,17 +79,18 @@ def test_torch_core_run_app_other_engines(engine):
 
 
 def test_torch_core_batch_engine_through_the_plain_scan(monkeypatch):
-    """The engine's pass 1 as the card runs it — densified ids through
-    ``fifo_miss_ids`` — here on CPU tensors (the kernel's plain version):
-    the run equals the reference's numpy one."""
+    """The engine's pass 1 as the card runs it — pass 0's ids and the seed
+    staged by ``stage`` and sent through ``fifo_miss_ids`` — here on CPU
+    tensors (the kernel's plain version): the run equals the reference's
+    numpy one."""
     calls = []
 
-    def through_ids(arr, initial, capacity):
-        fill0, n0, ids = port_fifo.densify(
-            np.asarray(arr, np.int64), initial, capacity)
-        calls.append(ids.size)
-        return port_fifo.fifo_miss_ids(torch.from_numpy(fill0), n0,
-                                       torch.from_numpy(ids), capacity).numpy()
+    def through_ids(arr, initial, capacity, *, dense):
+        assert np.array_equal(dense[0][dense[1]], arr)   # pass 0's ids
+        fill0, n0, ids = port_fifo.stage(arr, initial, capacity, dense=dense,
+                                         device=torch.device("cpu"))
+        calls.append(ids.numel())
+        return port_fifo.fifo_miss_ids(fill0, n0, ids, capacity).numpy()
 
     monkeypatch.setattr(port_batch, "fifo_miss", through_ids)
     want, got = run_app_both("xsbench", "numapte",

@@ -17,22 +17,41 @@ from repro.kernels import fifo_miss as reference  # noqa: E402
 from repro_torch.kernels import fifo_miss as port  # noqa: E402
 
 
-def plain(arr, initial, capacity):
-    """The port's plain scan, through the tensor entry point on the CPU."""
-    fill0, n0, ids = port.densify(np.asarray(arr, np.int64), initial, capacity)
+CPU = torch.device("cpu")
+
+
+def through_ids(fill0, n0, ids, capacity):
     launches = port.fifo_miss_ids.launches
-    got = port.fifo_miss_ids(torch.from_numpy(fill0), n0,
-                             torch.from_numpy(ids), capacity)
+    got = port.fifo_miss_ids(fill0, n0, ids, capacity)
     assert port.fifo_miss_ids.launches == launches      # no kernel on the CPU
     assert got.dtype == torch.bool and got.device.type == "cpu"
     return got.numpy()
+
+
+def plain(arr, initial, capacity):
+    """The port's plain scan over ``densify``'s ids (the TLB's keys and the
+    stream sorted together), through the tensor entry point on the CPU."""
+    fill0, n0, ids = port.densify(np.asarray(arr, np.int64), initial, capacity)
+    return through_ids(torch.from_numpy(fill0), n0, torch.from_numpy(ids),
+                       capacity)
+
+
+def plain_dense(arr, initial, capacity):
+    """The ``"cuda"`` backend's front end as the batch engine calls it (the
+    caller's ``np.unique`` ids, the TLB mapped in by ``searchsorted``, one
+    staging buffer), then the plain scan on the CPU."""
+    arr = np.asarray(arr, np.int64)
+    dense = np.unique(arr, return_inverse=True)
+    return through_ids(*port.stage(arr, initial, capacity, dense=dense,
+                                   device=CPU), capacity)
 
 
 def assert_all_agree(arr, initial, capacity, tag="", jit=True):
     arr = np.asarray(arr, dtype=np.int64)
     want = reference.fifo_miss(arr, initial, capacity, backend="numpy")
     others = [port.fifo_miss(arr, initial, capacity, backend="numpy"),
-              plain(arr, initial, capacity)]
+              plain(arr, initial, capacity),
+              plain_dense(arr, initial, capacity)]
     if jit:
         others.append(reference.fifo_miss(arr, initial, capacity, backend="jit"))
     for got in others:
@@ -80,7 +99,7 @@ def test_torch_fifo_miss_edge_cases():
 
 def test_torch_fifo_miss_repeated_ids():
     """Streams over a handful of vpns, capacities 0-4: the same vpn recurs
-    within a few accesses (the card's kernel takes ids four at a time)."""
+    within a few accesses (the card's kernel takes 32 ids a window)."""
     rng = np.random.default_rng(3)
     for trial in range(200):
         cap = int(rng.integers(0, 5))
@@ -110,13 +129,23 @@ def test_torch_fifo_miss_refusals(monkeypatch):
     with pytest.raises(ValueError, match="numpy"):
         port.fifo_miss(arr, [], 4)
     monkeypatch.delenv("REPRO_FIFO_MISS_BACKEND")
-    assert port.default_backend() == "numpy" and port.BACKENDS == ("numpy", "cuda")
-    if not torch.cuda.is_available():     # no fallback to numpy
+    # the card is the default, and without one the call raises: no fallback
+    assert port.default_backend() == "cuda" and port.BACKENDS == ("numpy", "cuda")
+    if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            port.fifo_miss(arr, [], 4, backend="cuda")
+            port.fifo_miss(arr, [], 4)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            port.fifo_miss(arr, [], 4, backend="cuda",
+                           dense=np.unique(arr, return_inverse=True))
         monkeypatch.setenv("REPRO_FIFO_MISS_BACKEND", "cuda")
         with pytest.raises(RuntimeError, match="CUDA"):
             port.fifo_miss(arr, [], 4)
+    monkeypatch.setenv("REPRO_FIFO_MISS_BACKEND", "numpy")
+    assert port.default_backend() == "numpy"
+    # dense ids of another stream are refused
+    with pytest.raises(ValueError, match="dense ids"):
+        port.stage(arr, [], 4, dense=np.unique(arr[:5], return_inverse=True),
+                   device=CPU)
     # int32 arithmetic: a fill count that could reach 2^31 is refused
     ids = torch.zeros(10, dtype=torch.int32)
     fill0 = torch.full((1,), -5, dtype=torch.int32)
@@ -131,10 +160,49 @@ def test_torch_fifo_miss_refusals(monkeypatch):
         port.fifo_miss_ids(fill0, 0, ids + 1, 4)
 
 
+FRONT_END_CASES = {
+    # name: (stream, TLB in fill order, capacity)
+    "entries absent from the stream": ([40, 3, 40, 7, 3, 9, 1, 40],
+                                       [100, 3, 55, 9, 200], 6),
+    "empty TLB": ([4, 4, 2, 8, 2, 4, 16, 8], [], 3),
+    "empty stream": ([], [5, 6, 7], 4),
+    "empty stream, empty TLB": ([], [], 4),
+    "full TLB": ([1, 2, 3, 9, 1, 2, 30, 3], [30, 1, 2, 3], 4),
+    "full TLB, none in the stream": ([8, 9, 8, 10], [1, 2, 3], 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FRONT_END_CASES))
+def test_torch_fifo_miss_dense_front_end(case):
+    """``stage`` with the caller's ``np.unique`` ids gives what ``densify``
+    gives, access for access: the same vpn behind each id, the same seed
+    fill number, the same fill count; and through the plain scan the same
+    flags as the reference."""
+    arr, init, cap = FRONT_END_CASES[case]
+    arr = np.asarray(arr, np.int64)
+    uniq, inv = np.unique(arr, return_inverse=True)
+    fill0, n0, ids = port.stage(arr, init, cap, dense=(uniq, inv), device=CPU)
+    assert fill0.dtype == ids.dtype == torch.int32
+    assert fill0.shape == uniq.shape and ids.shape == arr.shape
+    s_fill0, s_n0, s_ids = port.densify(arr, init, cap)
+    assert n0 == s_n0 == len(init)
+    np.testing.assert_array_equal(uniq[ids.numpy()], arr)
+    np.testing.assert_array_equal(fill0.numpy()[ids.numpy()], s_fill0[s_ids])
+    # an id holds its entry's fill order, or the sentinel when the TLB
+    # lacks it; entries the stream never reads take no id
+    order = {v: p for p, v in enumerate(init)}
+    np.testing.assert_array_equal(
+        fill0.numpy(), [order.get(int(v), -(cap + 1)) for v in uniq])
+    np.testing.assert_array_equal(port.seed_fill(uniq, init, cap)[0],
+                                  fill0.numpy())
+    assert_all_agree(arr, init, cap, case, jit=arr.size > 0 or bool(init))
+
+
 def test_torch_fifo_miss_kernel_source_is_built_for_hopper():
     from repro_torch.kernels import _build
     src = (_build.CSRC / "fifo_miss.cu").read_text()
     assert "src/repro/kernels/fifo_miss.py" in src
     assert 'extern "C" int fifo_miss_launch' in src
+    assert "__match_any_sync" in src and "__ballot_sync" in src
     assert "fifo_miss" in _build.KERNELS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -13,6 +13,13 @@ from repro_torch import serving as P
 N_REQUESTS = 24
 
 
+@pytest.fixture(autouse=True)
+def pass1_on_numpy(monkeypatch):
+    """The batch engine's pass 1 takes the card unless asked otherwise; the
+    CPU tests ask for the numpy loop."""
+    monkeypatch.setenv("REPRO_FIFO_MISS_BACKEND", "numpy")
+
+
 def test_torch_serving_poisson_trace_equals_reference():
     for rate, seed in ((2e6, 0), (5e5, 3)):
         want = [dataclasses.asdict(r) for r in R.poisson_trace(40, rate, seed=seed)]
