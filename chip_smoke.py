@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases train   # build + the training slice only
     python3 chip_smoke.py --phases kernels_bwd  # build + K2's backward row only
     python3 chip_smoke.py --phases kernels,multipod   # the pod axis
+    python3 chip_smoke.py --phases kernels,model_axis # the in-pod model axis
     python3 chip_smoke.py --phases kernels,numa_sim   # the NUMA simulator
     python3 chip_smoke.py --phases profile # where a decode step's time goes
     python3 chip_smoke.py --phases profile_train  # ... and a train step's
@@ -105,6 +106,21 @@ and the script exits non-zero):
             (first and second step) against an independent int8 mean of the
             pods' own gradients within 1 ulp, a dropped pod's term caught,
             the int8 average within half a scale step of the float32 one
+  model_axis the in-pod model axis (tensor parallelism, ``LoopPods`` on one
+            card; the kernels phase holds K1 on a shard's kv heads of the
+            replicated slab, K2 and its backward at the shard shapes).  A:
+            ``serve()`` of Qwen3-14B (all 40 layers, published widths, the
+            serve phase's traffic, one pod) at model = 1 and at model = 2
+            from the same seeded weights: the first decode step's logits
+            within 0.03, tokens equal but for first flips at near-ties (in
+            at most MAX_FLIP_SHARE of the compared decisions), K1 and K2
+            once a shard a layer, K3 as at
+            model = 1; prefill / step ms, tokens/s, peak GB, the model axis's
+            bytes a step.  B: Yi-6B (8 of 32 layers, batch 8 x 1 024, float32
+            master weights) 4 steps at model = 2 against model = 1.  C: Yi-6B
+            (2 of 32 layers) 6 steps at (data 2, model 4), a checkpoint equal
+            to the gathered live shards, 4 more steps there and 4 restored
+            onto (data 2, model 2): within 2e-2 and the bound from readings
   numa_sim  the NUMA simulator (``repro_torch.core``, host protocol in numpy)
             with pass 1 of its batch engine on the fifo_miss kernel: fig08's
             five apps x three policies at its full settings with --scale 16
@@ -207,6 +223,10 @@ from repro_torch.pagedpt.blocktable import (CoherenceMode,  # noqa: E402
                                             apply_mutations)
 from repro_torch.runtime import (FailureInjector, Trainer,  # noqa: E402
                                  TrainerConfig, train_step, trainable)
+from repro_torch._tree import tree_leaves_with_path  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.models.common import SHAPES_ONLY  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 # published peaks of one H100 SXM (dense): bytes/s of HBM, FLOP/s by input type
@@ -223,6 +243,17 @@ LSE_TOL = 1e-5
 # of the plain gradient's largest magnitude (both sides float32 from the same
 # inputs, bf16 ones included); a dropped 64 x 64 tile of P misses by far more
 BWD_TOL_REL = 2e-5
+# the model axis phase's bounds, set from readings (PERF.md, CHANGES.md):
+# part A's share of compared decisions that may flip at a near-tie (a row's
+# token is compared while its tokens so far are equal: with random weights
+# the top logits of 151 936 lie within a bf16 step of each other often, and
+# the first reading flipped 32 of 571 such decisions, 0.056, each at a
+# margin of at most 2 bf16 steps), and the largest loss difference of part B
+# (model 2 against 1: read 1.08e-3) and of part C (the restored run against
+# the uninterrupted one: read 1.92e-4)
+MAX_FLIP_SHARE = 0.1
+MODEL_TRAIN_LOSS_TOL = 5e-3
+ELASTIC_LOSS_TOL = 2e-3
 KERNEL_FNS = {"paged_attention": paged_attention,
               "flash_attention": flash_attention,
               "flash_attention_bwd": flash_attention_bwd,
@@ -290,18 +321,28 @@ def make_tables(B, MB, bt, N, lens=None, dead_row=False):
 
 
 # ----------------------------------------------------------- paged attention
-def paged_case(B, H, K, hd, bt, MB, N, window, dtype, lens=None, dead_row=False):
+def paged_case(B, H, K, hd, bt, MB, N, window, dtype, lens=None, dead_row=False,
+               kv_heads=None):
+    """``kv_heads`` = (first, count): q's H heads read ``count`` of the
+    slabs' K kv heads (a model shard of the replicated slab)."""
     q = randn((B, H, hd), dtype)
     ks = randn((N, bt, K, hd), dtype)
     vs = randn((N, bt, K, hd), dtype)
     tables, lens = make_tables(B, MB, bt, N, lens, dead_row)
-    return (q, ks, vs, tables, lens), {"window": window}
+    kw = {"window": window}
+    if kv_heads is not None:
+        kw["kv_heads"] = kv_heads
+    return (q, ks, vs, tables, lens), kw
 
 
 def paged_bound(args, kw):
+    """Bytes: the live slots' K and V rows of the kv heads read, q, the
+    float32 output, the tables and lengths; operations: 4 hd a live (query
+    head, slot) pair."""
     q, ks, vs, tables, lens = args
     B, H, hd = q.shape
-    _, bt, K, _ = ks.shape
+    bt = ks.shape[1]
+    K = kw.get("kv_heads", (0, ks.shape[2]))[1]
     pos = torch.arange(tables.shape[1] * bt, device=DEV)[None, :]
     live = (pos < lens[:, None]) & (tables >= 0).repeat_interleave(bt, dim=1)
     if kw["window"] is not None:
@@ -314,8 +355,12 @@ def paged_bound(args, kw):
 
 
 def paged_library(args, kw):
-    """Yardstick only (the port never calls it): gather the blocks, then SDPA."""
+    """Yardstick only (the port never calls it): gather the blocks (of the
+    kv heads read), then SDPA."""
     q, ks, vs, tables, lens = args
+    if kw.get("kv_heads") is not None:
+        first, count = kw["kv_heads"]
+        ks, vs = ks[:, :, first:first + count], vs[:, :, first:first + count]
     B, H, hd = q.shape
     _, bt, K, _ = ks.shape
     frames = tables.long().clamp_min(0)
@@ -485,8 +530,10 @@ def flash_bwd_p_bf16(q, k, v, out, lse, dout, *, causal, window):
     return flash_bwd_plain(q, k, v, out, lse, dout, vis, p_bf16=True)
 
 
-# Yi-6B's training shape (batch 8, seq 1 024, 32 heads on 4 kv heads)
+# Yi-6B's training shape (batch 8, seq 1 024, 32 heads on 4 kv heads), and
+# one shard of it at model = 2 (16 heads on 2 kv heads)
 FLASH_BWD_TRAIN = (8, 32, 4, 1024, 128, True, None)
+FLASH_BWD_SHARD = (8, 16, 2, 1024, 128, True, None)
 
 
 def phase_kernels_bwd() -> dict:
@@ -508,12 +555,14 @@ def phase_kernels_bwd() -> dict:
         ((4, 8, 8, 1500, 64, False, None), f32, False),   # Whisper's encoder
         ((2, 10, 1, 4096, 256, True, 2048), bf16, False), # RecurrentGemma's local
         ((2, 4, 2, 100, 80, True, None), bf16, False),    # head_dim below its tile's
+        (FLASH_BWD_SHARD, bf16, False),                   # a model shard
     ]
     # the train step's bf16-valued dO: the zero-lo branch of the tensor cores
     cases += [(row, bf16, True) for row in [
         FLASH_BWD_TRAIN, (2, 4, 2, 100, 16, True, None),
         (1, 8, 2, 333, 128, True, 100), (1, 4, 2, 256, 64, False, None),
-        (2, 6, 2, 77, 32, True, None), (2, 4, 2, 100, 80, True, None)]]
+        (2, 6, 2, 77, 32, True, None), (2, 4, 2, 100, 80, True, None),
+        FLASH_BWD_SHARD]]
     rel_by_dtype, lse_by_dtype = {}, {}
     for row, dt, dout_bf16 in cases:
         args, kw, lse_err = flash_bwd_case(*row, dt, dout_bf16=dout_bf16)
@@ -574,6 +623,20 @@ def phase_kernels_bwd() -> dict:
            "dropped_tile_rel_err": dropped, "p_bf16_rel_err": single,
            "cases": len(cases) + 1}
     del args, got, want, again, args_b, args_f
+    # Yi-6B's shard at model = 2, the train step's bf16-valued dO
+    args, kw, _ = flash_bwd_case(*FLASH_BWD_SHARD, bf16, dout_bf16=True)
+    t_bytes, t_ops = flash_bwd_bound(args, kw)
+    row["yi_6b_model_shard"] = {
+        "rel_err": flash_bwd_rel(flash_attention_bwd(*args, **kw),
+                                 flash_attention_bwd_ref(*args, **kw)),
+        "ms": time_ms(lambda: flash_attention_bwd(*args, **kw)),
+        "plain_ms": time_ms(lambda: flash_attention_bwd_ref(*args, **kw)),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": time_ms(flash_bwd_library(args, kw)),
+        "timed_shape": [list(a.shape) for a in args],
+        "dout": "bf16-valued (the train step's)"}
+    del args
     release()
     return row
 
@@ -1085,6 +1148,21 @@ def phase_kernels():
               for dead in (False, True)]
     flash += [flash_case(4, 8, 8, 1500, 64, False, None, dt) for dt in both]
     flash += [flash_case(16, 8, 8, 4, 64, True, None, dt) for dt in both]
+    # the model axis (tensor parallelism, 2 shards): K1 on one shard's kv
+    # heads of the replicated slab (a head range of the contiguous slab,
+    # first heads 0-4, one split and many, a dead row), K2 on a shard's
+    # heads as strided views of the projection
+    paged += [paged_case(*row, dt, dead_row=dead, kv_heads=heads)
+              for dt in both
+              for row, heads in (((16, 20, 8, 128, 16, 69, 4416, None), (4, 4)),
+                                 ((16, 20, 8, 128, 16, 69, 4416, None), (0, 4)),
+                                 ((2, 8, 4, 64, 16, 8, 32, None), (1, 2)),
+                                 ((2, 4, 4, 64, 16, 8, 32, 24), (3, 1)),
+                                 ((1, 20, 8, 128, 16, 2048, 2048, None), (4, 4)))
+              for dead in (False, True)]
+    paged += [paged_case(16, 20, 8, 128, 16, 69, 4416, None, dt,
+                         lens=np.full(16, 1057), kv_heads=(4, 4)) for dt in both]
+    flash += [flash_case(4, 20, 4, 1024, 128, True, None, dt) for dt in both]
     # RecurrentGemma-2B's local layers (10 query heads on one kv head, G =
     # 10, head_dim 256, window 2 048, prompt 4 096)
     flash += [flash_case(4, 10, 1, 4096, 256, True, 2048, dt) for dt in both]
@@ -1115,6 +1193,13 @@ def phase_kernels():
             16, 10, 1, 4096, 256, True, 2048, bf16),
         "paged_attention/whisper_decoder": paged_case(*whisper_paged, bf16,
                                                       lens=np.full(16, 68)),
+        # Qwen3-14B at model = 2: shard 1's 20 query heads on kv heads 4-7
+        # of the replicated slab
+        "paged_attention/qwen3_14b_model_shard": paged_case(
+            16, 20, 8, 128, 16, 69, 4416, None, bf16, lens=np.full(16, 1057),
+            kv_heads=(4, 4)),
+        "flash_attention/qwen3_14b_model_shard": flash_case(
+            16, 20, 4, 1024, 128, True, None, bf16),
         "pte_gather": pte_case(64, 512, 16 * 69, 3, logical=np.where(
             np.arange(16 * 69) % 69 < 67,
             (np.arange(16 * 69) // 69) * 512 + np.arange(16 * 69) % 69, -1)),
@@ -1127,10 +1212,11 @@ def phase_kernels():
     ptes += [no_list, *serving.values()]
     # timed sub-dicts of a row, each also checked as a case
     subs = {"paged_attention": ["long_context", "gemma3_4b", "qwen3_moe",
-                                "kimi_k2", "whisper_decoder"],
+                                "kimi_k2", "whisper_decoder",
+                                "qwen3_14b_model_shard"],
             "flash_attention": ["gemma3_4b_local", "gemma3_4b_global",
                                 "qwen3_moe", "kimi_k2", "whisper_encoder",
-                                "recurrentgemma_local"]}
+                                "recurrentgemma_local", "qwen3_14b_model_shard"]}
     controls = {"paged_attention": (paged_p_bf16, [None]),
                 "flash_attention": (flash_p_bf16, [None, "gemma3_4b_global"])}
     spec = {
@@ -2217,6 +2303,281 @@ def phase_multipod() -> dict:
     return runs
 
 
+# ---------------------------------------------------------------- model axis
+# A: Qwen3-14B (all 40 layers) served at model = 2 on one pod, the serve
+# phase's traffic, against model = 1 on the same weights and prompts
+MODEL_SERVE = dict(batch=16, prompt_len=1024, gen_len=64, n_requests=32,
+                   n_pods=1, mode="numapte", model=2, top_k=8,
+                   max_flip_share=MAX_FLIP_SHARE)
+# B: Yi-6B at the train phase's cut (8 of 32 layers, batch 8 x 1 024),
+# 4 steps at model = 2 against model = 1
+MODEL_TRAIN = dict(arch="yi_6b", n_layers=8, batch=8, seq=1024, steps=4,
+                   model=2, loss_tol=MODEL_TRAIN_LOSS_TOL)
+# C: Yi-6B (2 of 32 layers): 6 steps at (data 2, model 4), a checkpoint,
+# 4 more there and 4 restored onto (data 2, model 2)
+ELASTIC = dict(arch="yi_6b", n_layers=2, batch=8, seq=1024, first=6, then=4,
+               grid_a=(2, 4), grid_b=(2, 2), ref_tol=2e-2,
+               loss_tol=ELASTIC_LOSS_TOL)
+
+
+def first_flips(ids1, ids2, top1, top2):
+    """For each row whose tokens differ: the first step where they do, the
+    two tokens and model = 1's margin between them (its logit of its own
+    token less its logit of the other's, from its top-k), and each run's
+    logit of both tokens where its top-k holds them.  After that step a row
+    continues from another token, so only its first flip is a comparison."""
+    (v1, i1), (v2, i2) = top1, top2
+    flips = []
+    for r in np.nonzero((ids1 != ids2).any(axis=1))[0]:
+        s = int(np.argmax(ids1[r] != ids2[r]))
+        a, b = int(ids1[r, s]), int(ids2[r, s])
+        pick = lambda v, i, tok: (float(v[r, s][i[r, s] == tok][0])
+                                  if (i[r, s] == tok).any() else None)
+        one_b = pick(v1, i1, b)
+        flips.append({"row": int(r), "step": s, "token_model1": a,
+                      "token_model2": b,
+                      "margin_model1": (None if one_b is None
+                                        else float(v1[r, s, 0]) - one_b),
+                      "model1_logits": [float(v1[r, s, 0]), one_b],
+                      "model2_logits": [pick(v2, i2, a), float(v2[r, s, 0])]})
+    return flips
+
+
+def model_axis_serve() -> dict:
+    """A: ``serve()`` of Qwen3-14B at model = 1 and at model = 2 (the same
+    seeded bf16 weights, split by ``shard_params`` after the first run has
+    let its copy go: both at once would need 59 GB beside the slabs), the
+    same prompts.  The first decode step's logits within 0.03, tokens equal
+    but for first flips at near-ties (model = 1's margin no larger than
+    the first step's largest logit difference), K1 and K2 once a shard a
+    layer, K3 as at model = 1."""
+    t_part = time.perf_counter()
+    cfg = get_config("qwen3_14b")
+    traffic = {k: MODEL_SERVE[k] for k in ("batch", "prompt_len", "gen_len",
+                                           "n_requests", "n_pods", "mode")}
+    t = MODEL_SERVE["model"]
+    runs, rows = {}, {}
+    for model in (1, t):
+        release()
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                             param_dtype=cfg.dtype)
+        if model > 1:
+            params = specs.shard_params(
+                params, make_debug_mesh(1, model=model, device=DEV), cfg)
+            release()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        with lse_pointers_counted({}) as lse:
+            r = serve("qwen3_14b", full_width=True, cfg=cfg, params=params,
+                      verbose=False, model=model,
+                      trace_logits=MODEL_SERVE["top_k"], **traffic)
+        counts = counts_now()
+        r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        want = expected_launches(cfg, waves=2, gen_len=traffic["gen_len"],
+                                 warm_up=True)
+        want["paged_attention"] *= model
+        want["flash_attention"] *= model
+        check(counts == want and lse["lse_writes"] == 0,
+              f"model {model}: launch counts {counts}, the path implies "
+              f"{want}; LSE writes {lse}")
+        check(r["logits_finite"] and r["tokens"] == traffic["n_requests"]
+              * traffic["gen_len"], f"model {model}: {r['tokens']} tokens")
+        runs[f"model_axis_serve_{model}"] = (counts, want)
+        rows[model] = r
+    one, two = rows[1], rows[t]
+    first_err = float(np.abs(two["first_logits"] - one["first_logits"]).max())
+    first_rel = first_err / float(np.abs(one["first_logits"]).max())
+    flips = first_flips(one["token_ids"], two["token_ids"],
+                        (one["top_values"], one["top_ids"]),
+                        (two["top_values"], two["top_ids"]))
+    at_tie = [f["margin_model1"] is not None and f["margin_model1"] <= first_err
+              for f in flips]
+    equal_rows = int((one["token_ids"] == two["token_ids"]).all(axis=1).sum())
+    # decisions compared: a row's steps up to and including its first flip
+    compared = int(sum(f["step"] + 1 for f in flips)
+                   + equal_rows * traffic["gen_len"])
+    check(first_rel <= 0.03, f"model {t}: first-step logits rel {first_rel}")
+    check(all(at_tie) and len(flips) <= MODEL_SERVE["max_flip_share"] * compared,
+          f"model {t}: token flips {flips} in {compared} compared decisions "
+          f"(at most a share {MODEL_SERVE['max_flip_share']}, each at a margin "
+          f"<= {first_err})")
+    keep = ("prefill_ms", "decode_step_ms", "tok_per_s", "peak_mem_gb",
+            "model_wire_bytes_per_step", "model_calls", "kv_layout",
+            "fetches", "invalidations_sent")
+    emit({"phase": "model_axis_serve", "arch": "qwen3_14b",
+          "widths": "published", "layers": cfg.n_layers, **MODEL_SERVE,
+          "grid": {"pod": 1, "data": 1, "model": t},
+          "logits_traced": "every step's top-k is gathered for the flip "
+                           "check; its bytes are not counted as the step's",
+          "first_step_logits_rel_err": first_rel,
+          "first_step_logits_max_abs_err": first_err,
+          "rows_token_equal": equal_rows, "rows": traffic["n_requests"],
+          "decisions_compared": compared, "flips": len(flips),
+          "flip_share": len(flips) / compared,
+          "flip_margins_model1": sorted(f["margin_model1"] for f in flips),
+          "first_flips": flips, "launches": {m: runs[f"model_axis_serve_{m}"][0]
+                                             for m in (1, t)},
+          "model_1": {k: one.get(k) for k in keep},
+          f"model_{t}": {k: two.get(k) for k in keep},
+          "wall_s": time.perf_counter() - t_part})
+    del rows, one, two
+    release()
+    return runs
+
+
+def grid_train(cfg, ds, grid, steps, params=None, opt=None, start=0):
+    """``steps`` train steps of ``build_train_step`` over ``grid`` (from
+    seed 0's weights, split over its model axis, unless ``params`` / ``opt``
+    are given) from batch ``start``; each step's wall time ends with
+    ``float(loss)``."""
+    if params is None:
+        params = specs.shard_params(init_params(
+            cfg, torch.Generator(device=DEV).manual_seed(0)), grid, cfg)
+        opt = adamw_init(params)
+    step = specs.build_train_step(cfg, pods=grid)
+    losses, step_s = [], []
+    for i in range(start, start + steps):
+        batch = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in ds.batch_at(i).items()}
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    return params, opt, losses, step_s
+
+
+def model_axis_train() -> dict:
+    """B: Yi-6B (8 of 32 layers, float32 master weights) 4 steps at
+    model = 1 and at model = 2 from the same weights and batches."""
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MODEL_TRAIN["arch"]),
+                              n_layers=MODEL_TRAIN["n_layers"])
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len=MODEL_TRAIN["seq"],
+                            global_batch=MODEL_TRAIN["batch"])
+    steps, t = MODEL_TRAIN["steps"], MODEL_TRAIN["model"]
+    runs, out = {}, {}
+    for model in (1, t):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        with lse_pointers_counted({}) as lse:
+            params, opt, losses, step_s = grid_train(
+                cfg, ds, make_debug_mesh(1, model=model, device=DEV), steps)
+        counts = counts_now()
+        want = {"paged_attention": 0, "flash_attention": cfg.n_layers * steps * model,
+                "flash_attention_bwd": cfg.n_layers * steps * model,
+                "pte_gather": 0, "fifo_miss": 0}
+        check(counts == want and lse["lse_writes"] == want["flash_attention"],
+              f"train at model {model}: launches {counts} lse {lse}, not {want}")
+        step_ms = 1e3 * float(np.median(step_s))
+        out[model] = {"losses": losses, "step_ms": [1e3 * x for x in step_s],
+                      "step_ms_median": step_ms,
+                      "tokens_per_s": MODEL_TRAIN["batch"] * MODEL_TRAIN["seq"]
+                      / (step_ms / 1e3),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": counts}
+        runs[f"model_axis_train_{model}"] = (counts, want)
+        del params, opt
+    diff = max(abs(a - b) for a, b in zip(out[1]["losses"], out[t]["losses"]))
+    check(all(np.isfinite(out[t]["losses"])) and diff <= MODEL_TRAIN["loss_tol"],
+          f"train at model {t}: losses {out[t]['losses']} against "
+          f"{out[1]['losses']}: {diff} > {MODEL_TRAIN['loss_tol']}")
+    emit({"phase": "model_axis_train", "arch": MODEL_TRAIN["arch"],
+          "widths": "published", **MODEL_TRAIN,
+          "grid": {"pod": 1, "data": 1, "model": t},
+          "param_dtype": "float32", "dtype": "bfloat16",
+          "loss_max_abs_diff": diff, "model_1": out[1], f"model_{t}": out[t],
+          "wall_s": time.perf_counter() - t_part})
+    release()
+    return runs
+
+
+def model_axis_elastic() -> dict:
+    """C: Yi-6B (2 of 32 layers) 6 steps at (data 2, model 4), a checkpoint
+    (its leaves must equal a gather of the live shards, bit for bit), 4
+    more steps there, and 4 restored onto (data 2, model 2): the two last-4
+    trajectories within the reference's 2e-2 and the bound from readings."""
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ELASTIC["arch"]),
+                              n_layers=ELASTIC["n_layers"])
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len=ELASTIC["seq"],
+                            global_batch=ELASTIC["batch"])
+    grid_a = make_debug_mesh(1, data=ELASTIC["grid_a"][0],
+                             model=ELASTIC["grid_a"][1], device=DEV)
+    grid_b = make_debug_mesh(1, data=ELASTIC["grid_b"][0],
+                             model=ELASTIC["grid_b"][1], device=DEV)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        params, opt, first, _ = grid_train(cfg, ds, grid_a, ELASTIC["first"])
+        ckpt = CheckpointManager(root, async_save=False)
+        t0 = time.perf_counter()
+        ckpt.save(ELASTIC["first"], {"params": params, "opt": opt}, grid=grid_a)
+        save_s = time.perf_counter() - t0
+        live = specs.gather_params({"params": params, "opt": opt}, grid_a)
+        entries = json.loads(open(os.path.join(
+            root, f"step_{ELASTIC['first']}", "manifest.json")).read())["leaves"]
+        by_name = {"/".join(p): leaf for p, leaf in tree_leaves_with_path(live)}
+        for e in entries:
+            stored = np.load(os.path.join(root, f"step_{ELASTIC['first']}",
+                                          f"leaf_{e['i']}.npy"))
+            held = by_name[e["name"]].detach().cpu().numpy()
+            check(stored.shape == held.shape and stored.tobytes() == held.tobytes(),
+                  f"checkpoint leaf {e['name']} is not the gathered live leaf")
+        del live, by_name
+        params, opt, uninterrupted, _ = grid_train(
+            cfg, ds, grid_a, ELASTIC["then"], params, opt, ELASTIC["first"])
+        del params, opt
+        release()
+        whole = init_params(cfg, SHAPES_ONLY)
+        t0 = time.perf_counter()
+        state = ckpt.restore(ELASTIC["first"],
+                             {"params": whole, "opt": adamw_init(whole)},
+                             device=DEV, grid=grid_b, cfg=cfg)
+        restore_s = time.perf_counter() - t0
+        _, _, resumed, _ = grid_train(cfg, ds, grid_b, ELASTIC["then"],
+                                      state["params"], state["opt"],
+                                      ELASTIC["first"])
+        del state
+    finally:
+        shutil.rmtree(root)
+    counts = counts_now()
+    da, ma = ELASTIC["grid_a"]
+    db, mb = ELASTIC["grid_b"]
+    k2 = cfg.n_layers * ((ELASTIC["first"] + ELASTIC["then"]) * da * ma
+                         + ELASTIC["then"] * db * mb)
+    want = {"paged_attention": 0, "flash_attention": k2,
+            "flash_attention_bwd": k2, "pte_gather": 0, "fifo_miss": 0}
+    check(counts == want, f"elastic: launches {counts}, not {want}")
+    drift = max(abs(a - b) for a, b in zip(uninterrupted, resumed))
+    check(all(np.isfinite(resumed)) and drift <= ELASTIC["loss_tol"]
+          and drift < ELASTIC["ref_tol"],
+          f"elastic: restored {resumed} against {uninterrupted}: {drift}")
+    emit({"phase": "model_axis_elastic", "arch": ELASTIC["arch"],
+          "widths": "published", **ELASTIC, "losses_first": first,
+          "losses_uninterrupted": uninterrupted, "losses_restored": resumed,
+          "drift": drift, "checkpoint_equals_gathered_shards": True,
+          "checkpoint_leaves": len(entries),
+          "checkpoint_gb": sum(int(np.prod(e["shape"])) * (2 if e["dtype"] ==
+                               "bfloat16" else np.dtype(e["dtype"]).itemsize)
+                               for e in entries) / 1e9,
+          "save_s": save_s, "restore_s": restore_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": counts, "wall_s": time.perf_counter() - t_part})
+    release()
+    return {"model_axis_elastic": (counts, want)}
+
+
+def phase_model_axis() -> dict:
+    runs = model_axis_serve()
+    runs.update(model_axis_train())
+    runs.update(model_axis_elastic())
+    return runs
+
+
 # ------------------------------------------------------------------- profile
 @torch.no_grad()
 def phase_profile(arch: str, n_layers=None, walks: bool = True,
@@ -2670,7 +3031,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,serve,parity,coherence,train,multipod,"
-                            "numa_sim")
+                            "model_axis,numa_sim")
     ap.add_argument("--layers", type=int, default=SERVE_DEPTH["qwen3_14b"],
                     help="depth of the Qwen3-14B serve and profile (widths are "
                          "never cut; every other arch runs at SERVE_DEPTH)")
@@ -2707,6 +3068,8 @@ def main() -> None:
         runs["train_yi_6b"] = phase_train()
     if "multipod" in phases:
         runs.update(phase_multipod())
+    if "model_axis" in phases:
+        runs.update(phase_model_axis())
     if "numa_sim" in phases:
         fifo_row, *runs["numa_sim"] = phase_numa_sim()
         rows.append(fifo_row)

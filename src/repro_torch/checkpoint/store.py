@@ -11,10 +11,18 @@ writes are left as .tmp-* and removed by the next save.  Leaves are named by
 their tree paths (``params/groups/0/1/attn/wq``).  numpy has no bfloat16: a
 bf16 leaf is stored as its uint16 bits with ``"dtype": "bfloat16"`` in the
 manifest and restored bit for bit.  ``restore`` puts each leaf on the
-device of the matching leaf of ``like`` (or on ``device``); a sharded
-restore is not ported (ROADMAP queue 1 item 16).  The async mode hands the
-host copies to a writer thread, so the train loop blocks only on the
-previous save; a writer's error is raised by the next ``wait()``.
+device of the matching leaf of ``like`` (or on ``device``).  The async mode
+hands the host copies to a writer thread, so the train loop blocks only on
+the previous save; a writer's error is raised by the next ``wait()``.
+
+Over a grid (``launch/mesh.py``) a save gathers every leaf split over the
+model axis into the whole leaf first (``launch/specs.py:gather_params``),
+so a checkpoint taken at any model size holds the same leaf names, shapes
+and bytes as the unsharded one, and one rank (the first of every axis)
+writes it; a restore takes a target grid and splits the whole leaves onto
+it (``shard_params``) — the counterpart of the reference's
+``restore_pytree(..., shardings=)``, which is what lets a run continue on a
+grid of another size.
 """
 from __future__ import annotations
 
@@ -101,10 +109,29 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _writer(grid) -> bool:
+    """Whether this process writes a checkpoint of ``grid``: the first rank
+    of every axis (every process without a grid)."""
+    return grid is None or all(axis.local_indices()[0] == 0
+                               for axis in (grid, grid.data, grid.model))
+
+
+def gather_for_save(tree: PyTree, grid=None) -> PyTree:
+    """``tree`` with its model-split leaves gathered whole (as is without a
+    grid or with a model axis of size 1)."""
+    if grid is None or grid.model.n == 1:
+        return tree
+    from ..launch.specs import gather_params
+    return gather_params(tree, grid)
+
+
 def restore_pytree(directory: str, step: int, like: PyTree,
-                   device: DeviceLike = None) -> PyTree:
-    """Restore into the structure of ``like``: each leaf with its stored
-    dtype, on ``device`` if given, else on the device of ``like``'s leaf."""
+                   device: DeviceLike = None, grid=None, cfg=None) -> PyTree:
+    """Restore into the structure of ``like`` (whole leaves, or shapes
+    only: ``init_params(cfg, SHAPES_ONLY)``, and then ``device`` is
+    needed): each leaf with its stored dtype, on ``device`` if given, else on
+    the device of ``like``'s leaf.  With ``grid`` (and the model ``cfg``)
+    the leaves are then split over its model axis (``shard_params``)."""
     path = pathlib.Path(directory) / f"step_{step}"
     manifest = json.loads((path / "manifest.json").read_text())
     by_name = {e["name"]: e for e in manifest["leaves"]}
@@ -122,7 +149,11 @@ def restore_pytree(directory: str, step: int, like: PyTree,
             ref.device if torch.is_tensor(ref) else "cpu")
         return _from_numpy(arr, entry["dtype"]).to(target)
 
-    return tree_map_with_path(load, like)
+    tree = tree_map_with_path(load, like)
+    if grid is None or grid.model.n == 1:
+        return tree
+    from ..launch.specs import shard_params
+    return shard_params(tree, grid, cfg)
 
 
 class CheckpointManager:
@@ -144,9 +175,15 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def save(self, step: int, tree: PyTree, extra: Optional[Dict] = None
-             ) -> None:
+    def save(self, step: int, tree: PyTree, extra: Optional[Dict] = None,
+             grid=None) -> None:
+        """Write ``tree`` as step ``step``; over ``grid`` its model-split
+        leaves are gathered whole first, and only the grid's first rank
+        writes."""
         self.wait()
+        tree = gather_for_save(tree, grid)
+        if not _writer(grid):
+            return
         host_tree = tree_map(_host, tree)
 
         def _write():
@@ -174,7 +211,8 @@ class CheckpointManager:
         self.wait()
         return latest_step(str(self.directory))
 
-    def restore(self, step: int, like: PyTree,
-                device: DeviceLike = None) -> PyTree:
+    def restore(self, step: int, like: PyTree, device: DeviceLike = None,
+                grid=None, cfg=None) -> PyTree:
         self.wait()
-        return restore_pytree(str(self.directory), step, like, device)
+        return restore_pytree(str(self.directory), step, like, device, grid,
+                              cfg)

@@ -31,10 +31,22 @@ pods, summed over the n pods.  Every collective is counted as an all-gather
 moves it: each pod receives the n - 1 slices of the others (an all-to-all:
 the n - 1 chunks addressed to it; psum and pmax: the n - 1 operands it
 reduces).  ``calls`` counts collectives by kind.
+
+The same interface serves the in-pod ``data`` and ``model`` axes of the grid
+(``launch/mesh.py``): each is a ``Pods`` object of its own, with counters of
+its own, carried by the pod axis as ``.data`` and ``.model`` (an axis of
+size 1 when the grid has none).  Training through the ``model`` axis needs
+collectives that differentiate, Megatron's conjugate pair: ``copy_in`` at a
+column-parallel input (identity forward, a sum of the gradients over the
+axis backward) and ``psum`` at a row-parallel output (sum forward, identity
+backward).  ``LoopPods``' views differentiate as they are (``copy_in`` is an
+expand, whose backward sums the shards' gradients in shard order, each
+shard's own first, as separate ranks would); ``DistPods`` runs them as
+``torch.autograd.Function``s.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -50,6 +62,34 @@ class Pods:
 
     def __init__(self) -> None:
         self.reset_counters()
+        self._axes: Dict[str, "Pods"] = {}
+
+    # the grid: the pod axis carries the in-pod axes
+    @property
+    def pod(self) -> "Pods":
+        return self
+
+    @property
+    def data(self) -> "Pods":
+        return self._axis("data")
+
+    @property
+    def model(self) -> "Pods":
+        return self._axis("model")
+
+    def _axis(self, name: str) -> "Pods":
+        if name not in self._axes:          # a grid without the axis: size 1
+            self._axes[name] = LoopPods(1, self.device)
+        return self._axes[name]
+
+    def with_axes(self, *, data: Optional["Pods"] = None,
+                  model: Optional["Pods"] = None) -> "Pods":
+        """This pod axis, carrying ``data`` and ``model`` as its in-pod
+        axes (the grid of ``launch/mesh.py``)."""
+        for name, axis in (("data", data), ("model", model)):
+            if axis is not None:
+                self._axes[name] = axis
+        return self
 
     def reset_counters(self) -> None:
         self.wire_bytes = 0
@@ -72,6 +112,11 @@ class Pods:
     def index(self) -> torch.Tensor:
         raise NotImplementedError
 
+    def local_indices(self) -> list:
+        """The global index of each local pod, as Python ints (``index()``
+        without reading the device)."""
+        raise NotImplementedError
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
@@ -82,6 +127,13 @@ class Pods:
         raise NotImplementedError
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor entering per-shard work (a column-parallel
+        input) -> [p, ...], one copy a local shard (views): the identity
+        forward, and backward the sum over the axis of the shards'
+        gradients (each shard's own summed first, as on separate ranks)."""
         raise NotImplementedError
 
 
@@ -98,6 +150,9 @@ class LoopPods(Pods):
 
     def index(self) -> torch.Tensor:
         return torch.arange(self.n, device=self.device)
+
+    def local_indices(self) -> list:
+        return list(range(self.n))
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
@@ -118,6 +173,13 @@ class LoopPods(Pods):
         self._check(x)
         self._count("pmax", self._slice_bytes(x, self.n))
         return x.amax(0, keepdim=True).expand_as(x)
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        # a broadcast view: the expand's backward sums the shards' gradients
+        # over dimension 0; what the sum would move between shards is counted
+        if self.n > 1 and x.requires_grad and torch.is_grad_enabled():
+            x = _CountGrad.apply(x, self)
+        return x.unsqueeze(0).expand(self.n, *x.shape)
 
 
 class DistPods(Pods):
@@ -142,6 +204,9 @@ class DistPods(Pods):
 
     def index(self) -> torch.Tensor:
         return torch.full((1,), self.rank, dtype=torch.int64, device=self.device)
+
+    def local_indices(self) -> list:
+        return [self.rank]
 
     @staticmethod
     def _wire(x: torch.Tensor) -> torch.Tensor:
@@ -175,7 +240,59 @@ class DistPods(Pods):
         return out.to(x.dtype)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad and torch.is_grad_enabled():
+            return _PsumIdentityGrad.apply(x, self)
         return self._reduce(x, "psum", self._dist.ReduceOp.SUM)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, "pmax", self._dist.ReduceOp.MAX)
+        return self._reduce(x.detach(), "pmax", self._dist.ReduceOp.MAX)
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad and torch.is_grad_enabled():
+            x = _CopyIn.apply(x, self)
+        return x[None]
+
+
+class _PsumIdentityGrad(torch.autograd.Function):
+    """Megatron's g: the sum over the axis forward (a row-parallel output),
+    the identity backward (every shard holds the replicated output's whole
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, pods):
+        return pods._reduce(x, "psum", pods._dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's f: the identity forward (a column-parallel input), the
+    sum over the axis backward (each shard holds only its own part of the
+    replicated input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, pods):
+        ctx.pods = pods
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pods = ctx.pods
+        return pods._reduce(grad[None], "psum", pods._dist.ReduceOp.SUM)[0], None
+
+
+class _CountGrad(torch.autograd.Function):
+    """The identity both ways; backward counts the bytes that the sum of
+    the shards' gradients would move between them."""
+
+    @staticmethod
+    def forward(ctx, x, pods):
+        ctx.pods = pods
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.pods._count("psum", grad.numel() * grad.element_size())
+        return grad, None

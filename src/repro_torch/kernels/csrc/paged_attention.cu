@@ -88,6 +88,7 @@ struct Params {
     float* lse;         // [B, H] or null
     int B, H, K, G, hd, bt, MB, window, n_gc, n_splits, cps;
     float scale_log2;
+    int K_slab, kv0;    // kv heads a slab slot holds; the first one read
 };
 
 constexpr int round16(int x) { return (x + 15) / 16 * 16; }
@@ -414,8 +415,8 @@ paged_attention_kernel(const Params p) {
 
     const T* kb = static_cast<const T*>(p.k);
     const T* vb = static_cast<const T*>(p.v);
-    const int64_t slot_stride = (int64_t)p.K * p.hd;
-    const int64_t head_off = (int64_t)kh * p.hd;
+    const int64_t slot_stride = (int64_t)p.K_slab * p.hd;
+    const int64_t head_off = (int64_t)(p.kv0 + kh) * p.hd;
     T* ring = reinterpret_cast<T*>(big) + warp * STAGES * L::STAGE;
     uint32_t* wmask = smask + warp * STAGES;
 
@@ -656,7 +657,9 @@ cudaError_t dispatch(int dtype, int hd, F&& f) {
 
 }  // namespace
 
-// q [B,H,hd], k/v_slabs [N,bt,K,hd] (one layer, contiguous, all of `dtype`),
+// q [B,H,hd], k/v_slabs [N,bt,K_slab,hd] (one layer, contiguous, all of
+// `dtype`), of which kv heads [kv0, kv0 + K) are read (a model shard's heads
+// of a replicated slab; K_slab = K and kv0 = 0 read them all),
 // tables [B,MB] i32 physical frames (-1 absent), lens [B] i32, out [B,H,hd]
 // f32, lse [B,H] f32 or null.  window < 0 means none.  The split plan (n_gc
 // groups of up to 16 query heads, n_splits ranges of cps columns) comes from
@@ -671,17 +674,19 @@ extern "C" int paged_attention_launch(const void* q, const void* k_slabs,
                                       const void* v_slabs, const void* tables,
                                       const void* lens, void* out, void* part,
                                       void* counters, void* lse, int B, int H,
-                                      int K, int hd, int bt, int MB, int window,
+                                      int K, int K_slab, int kv0, int hd, int bt,
+                                      int MB, int window,
                                       int n_gc, int n_splits, int cps, int dtype,
                                       void* stream) {
     if (B == 0) return 0;
     if (n_splits < 1 || n_splits > MAX_SPLITS || cps < 1 || cps > MAX_COLS ||
-        K < 1 || n_gc * GM < H / K)
+        K < 1 || kv0 < 0 || kv0 + K > K_slab || n_gc * GM < H / K)
         return (int)cudaErrorInvalidValue;
     Params p{q, k_slabs, v_slabs, (const int*)tables, (const int*)lens,
              (float*)out, (float*)part, (int*)counters, (float*)lse, B, H, K,
              H / K, hd, bt, MB, window, n_gc, n_splits, cps,
-             1.44269504f / sqrtf((float)hd)};   // log2(e) / sqrt(hd)
+             1.44269504f / sqrtf((float)hd),    // log2(e) / sqrt(hd)
+             K_slab, kv0};
     cudaStream_t st = (cudaStream_t)stream;
     return (int)dispatch(dtype, hd, [&](auto t, auto h) {
         return launch<decltype(t), decltype(h)::value>(p, st);

@@ -10,7 +10,11 @@ The kernel splits each sequence's block-table columns across blocks
 wrapper never reads ``seq_lens`` (or any device tensor) on the host; the
 partial results are merged inside the same launch.  With ``lse`` the
 kernel also writes each row's log-sum-exp (for the sequence-parallel
-combine); serving passes none and the kernel writes nothing.
+combine); serving passes none and the kernel writes nothing.  With
+``kv_heads=(first, count)`` the kernel attends over ``count`` kv heads of a
+contiguous slab that holds K, starting at ``first`` (a model shard's heads of
+the replicated slab): it strides over the slab's K heads a slot, and nothing
+is copied.
 """
 from __future__ import annotations
 
@@ -106,7 +110,7 @@ def _scratch(index: int, stream: int, n_counters: int,
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("paged_attention").paged_attention_launch
-    fn.argtypes = [_P] * 9 + [_I] * 11 + [_P]
+    fn.argtypes = [_P] * 9 + [_I] * 13 + [_P]
     fn.restype = _I
     return fn
 
@@ -115,7 +119,8 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
                     v_slabs: torch.Tensor, block_tables: torch.Tensor,
                     seq_lens: torch.Tensor, *,
                     window: Optional[int] = None,
-                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    lse: Optional[torch.Tensor] = None,
+                    kv_heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """q: [B,H,hd]; k/v_slabs: [N,bt,K,hd] (one layer's slabs); block_tables:
     [B,MB] int32 physical frames (-1 absent); seq_lens: [B] int32, including
     the newest token (a length <= 0 leaves the row with no live slot).
@@ -130,16 +135,22 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
         raise ValueError("paged_attention: lse must be a contiguous float32 "
                          f"[B, H] tensor on q's device, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
+    K_slab = k_slabs.shape[2]
+    kv0, K = kv_heads if kv_heads is not None else (0, K_slab)
+    if kv0 < 0 or K < 1 or kv0 + K > K_slab:
+        raise ValueError(f"paged_attention: kv heads {kv_heads} of a slab "
+                         f"with {K_slab}")
     if not q.is_cuda:
         if lse is None:
             return paged_attention_ref(q, k_slabs, v_slabs, block_tables,
-                                       seq_lens, window=window)
+                                       seq_lens, window=window,
+                                       kv_heads=kv_heads)
         out, row_lse = paged_attention_ref(q, k_slabs, v_slabs, block_tables,
                                            seq_lens, window=window,
-                                           return_lse=True)
+                                           return_lse=True, kv_heads=kv_heads)
         lse.copy_(row_lse)
         return out
-    N, bt, K, hd2 = k_slabs.shape
+    N, bt, _, hd2 = k_slabs.shape
     MB = block_tables.shape[1]
     if (q.dtype not in _DTYPES or k_slabs.dtype != q.dtype
             or v_slabs.dtype != q.dtype):
@@ -174,7 +185,7 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
             q.data_ptr(), k_slabs.data_ptr(), v_slabs.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             partials, counters, None if lse is None else lse.data_ptr(),
-            B, H, K, hd, bt, MB,
+            B, H, K, K_slab, kv0, hd, bt, MB,
             -1 if window is None else int(window), n_gc, n_splits, cps, dtype,
             stream)
     _build.check_launch("paged_attention", code)

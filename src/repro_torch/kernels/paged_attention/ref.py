@@ -7,7 +7,7 @@ frame ``block_tables[b, t // bt]`` at slot ``t % bt``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,11 +18,19 @@ def paged_attention_ref(q: torch.Tensor, k_slabs: torch.Tensor,
                         v_slabs: torch.Tensor, block_tables: torch.Tensor,
                         seq_lens: torch.Tensor, *,
                         window: Optional[int] = None,
-                        scale: Optional[float] = None, return_lse: bool = False):
+                        scale: Optional[float] = None, return_lse: bool = False,
+                        kv_heads: Optional[Tuple[int, int]] = None):
     """q: [B,H,hd]; k/v_slabs: [N,bt,K,hd]; block_tables: [B,MB];
     seq_lens: [B] (valid tokens per sequence).  Returns [B,H,hd] f32; with
     ``return_lse`` also each row's ln sum exp(scale q.k) over its live slots
-    [B,H] f32 (``NEG_INF`` for a row with none)."""
+    [B,H] f32 (``NEG_INF`` for a row with none).  ``kv_heads``: (first,
+    count) to attend over kv heads [first, first + count) of slabs that
+    hold more (a model shard's heads of a replicated slab); q's H heads
+    then map onto those ``count``."""
+    if kv_heads is not None:
+        first, count = kv_heads
+        k_slabs = k_slabs[:, :, first:first + count]
+        v_slabs = v_slabs[:, :, first:first + count]
     B, H, hd = q.shape
     _, bt, K, _ = k_slabs.shape
     MB = block_tables.shape[1]

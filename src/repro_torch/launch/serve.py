@@ -21,6 +21,17 @@ of ``--mode`` (eager or numapte; ``launch/specs.py:build_serve_step`` on
         --full-width --requests 32 --batch 16 --prompt-len 1024 --gen-len 64 \
         --pools 4 --mode numapte --replicas
 
+Over the in-pod grid: ``--model 2`` splits the weights over two
+tensor-parallel shards (``LoopPods(2)`` on one card: whole heads a shard,
+one flash and one paged-attention launch a shard a layer, vocab-parallel
+embedding and head), and ``--data 2`` serves each wave's rows as two data
+shards; the dense global-attention configs only (Qwen3-14B, Yi-6B,
+Nemotron-4-15B, Chameleon-34B):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b \
+        --full-width --requests 32 --batch 16 --prompt-len 1024 --gen-len 64 \
+        --pods 1 --model 2
+
 An encoder-decoder config (whisper_base) raises here, as the reference's
 serve() cannot run it either: drive ``prefill_encdec`` + ``decode_step``.
 A mixture-of-experts config does not fit one card at its published depth;
@@ -48,12 +59,16 @@ from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..kernels.pte_gather.ops import pte_gather
 from ..kvcache import PagedKVManager
 from ..kvcache.gather import pool_of_rows
-from ..models import (ModelConfig, decode_step, greedy_sample,
-                      init_decode_state, init_params, prefill)
+from ..models import (ModelConfig, decode_step, init_decode_state,
+                      init_params, prefill)
+from ..models.transformer import gather_vocab, vocab_split
 from ..pagedpt.blocktable import (CoherenceMode, eager_sync_bytes,
                                   numapte_fetch_bytes)
 from .mesh import make_debug_mesh
-from .specs import _coherence_prologue, build_serve_step, elapsed_ms, timed
+from .specs import (_coherence_prologue, build_serve_step, decode_on_grid,
+                    grid_sampler, kv_split, make_rules, prefill_on_grid,
+                    require_model_axis, shard_params, split_leaves, timed,
+                    elapsed_ms)
 
 
 def _sync(device: torch.device) -> None:
@@ -68,7 +83,8 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
           device: DeviceLike = None, full_width: bool = False,
           n_layers: Optional[int] = None, cfg: Optional[ModelConfig] = None,
           params=None, n_pools: int = 1, replicas: bool = False,
-          check_replicas: bool = False):
+          check_replicas: bool = False, data: int = 1, model: int = 1,
+          trace_logits: int = 0):
     """Serve ``n_requests`` random prompts in waves of ``batch``.
 
     ``full_width`` runs the published config instead of the smoke config;
@@ -94,7 +110,19 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
     beside the budget model's ``eager_sync_bytes`` / ``numapte_fetch_bytes``),
     its K3 launches a step, and with ``check_replicas`` the count of replica
     entries that differed from the host's table after a step (eager: every
-    entry; numapte: where ``host.present`` holds one)."""
+    entry; numapte: where ``host.present`` holds one).
+
+    ``data`` and ``model`` build the grid's in-pod axes (``LoopPods`` on
+    this device): each wave's rows split over ``data`` shards, and the
+    weights over ``model`` tensor-parallel shards (``params`` may come whole
+    or already split by ``shard_params``); the KV slabs follow the rules
+    table (every config's own keeps them replicated over ``model``), and
+    the model axis's collective bytes a decode step come back as
+    ``model_wire_bytes_per_step``.  ``trace_logits`` = k > 0 adds the first
+    decode step's logits of the first wave (``first_logits`` [batch, V]
+    float32) and every step's k largest logits and their ids
+    (``top_values`` / ``top_ids`` [n_requests, gen_len, k]), gathered over
+    the model axis: the checks against another grid read them."""
     device = resolve_device(device)
     if n_pools > 1 and n_pools != n_pods:
         raise ValueError(f"{n_pools} pools need as many pods, not {n_pods}")
@@ -105,6 +133,9 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         cfg = get_config(arch) if full_width else get_smoke_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    grid = make_debug_mesh(n_pods if replicas else 1, data=data, model=model,
+                           device=device)
+    require_model_axis(cfg, grid)
     if cfg.family == "encdec":
         # the reference's serve() calls prefill(), which reads the decoder-only
         # embedding an encoder-decoder lacks (ROADMAP queue 3)
@@ -113,10 +144,16 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
             "is served through prefill_encdec + decode_step over a "
             "PagedKVManager's tables (ROADMAP queue 3: the reference's serve() "
             "raises KeyError 'embedding' for it)")
+    if model > 1 and n_pools > 1:
+        raise NotImplementedError("pool-partitioned KV over the model axis "
+                                  "is not ported")
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = init_params(
             cfg, gen, param_dtype=cfg.dtype if full_width else cfg.param_dtype)
+    if model > 1 and not any(split_leaves(params)):
+        params = shard_params(params, grid, cfg)
+    tp = grid.model if model > 1 else None
     bt = cfg.kv_block_tokens
     max_blocks = -(-(prompt_len + gen_len) // bt) + 1
     n_frames = batch * max_blocks * 4
@@ -125,21 +162,36 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
                         mode=CoherenceMode(mode), n_pools=n_pools,
                         replicas=replicas, device=device)
     state = init_decode_state(cfg, batch, n_frames, max_blocks,
-                              n_pools=n_pools, device=device)
+                              n_pools=n_pools, device=device,
+                              kv_split=kv_split(cfg, grid, make_rules(cfg, grid)))
     home = (pool_of_rows(batch, n_pools).tolist() if n_pools > 1
             else [i % n_pods for i in range(batch)])
-    pods = make_debug_mesh(n_pods, device=device) if replicas else None
+    pods = grid if replicas else None
     coherence = mode if replicas else "none"
     timings: list = []
     finite = torch.ones((), dtype=torch.bool, device=device)
     n_live = batch
+    greedy = grid_sampler(params, grid)
+    traced: list = []            # per step: (top values, top ids) [batch, k]
+    first_logits = None
 
     def sample(logits: torch.Tensor) -> torch.Tensor:
-        nonlocal finite
-        finite &= torch.isfinite(logits[:n_live]).all()
-        return greedy_sample(logits)
+        nonlocal finite, first_logits
+        finite &= torch.isfinite(logits[..., :n_live, :]).all()
+        if trace_logits:
+            # the trace's gather is the harness's, not the step's: its
+            # bytes leave the model axis's counters as they were
+            counted = (grid.model.wire_bytes, dict(grid.model.calls))
+            whole = (gather_vocab(logits, tp) if tp is not None
+                     and vocab_split(params) else logits).float()
+            grid.model.wire_bytes, grid.model.calls = counted
+            if first_logits is None:
+                first_logits = whole.cpu().numpy()
+            top = whole.topk(trace_logits, dim=-1)
+            traced.append((top.values, top.indices))
+        return greedy(logits)
 
-    step = build_serve_step(cfg, coherence=coherence, pods=pods,
+    step = build_serve_step(cfg, coherence=coherence, pods=grid,
                             sample=sample, prologue_timer=timings)
     k3_prologue = 0
     mismatches = 0
@@ -168,13 +220,24 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
                            device=device)
     warm_prompts = torch.zeros((batch, prompt_len), dtype=torch.int32,
                                device=device)
-    prefill(cfg, params, warm_prompts, state, warm_phys)
-    decode_step(cfg, params, state,
-                torch.zeros((batch,), dtype=torch.int32, device=device),
-                warm_phys)
+    on_grid = data > 1 or model > 1
+
+    def run_prefill(prompts, st, phys):
+        if on_grid:
+            return prefill_on_grid(cfg, params, prompts, st, phys, grid)
+        return prefill(cfg, params, prompts, st, phys)
+
+    run_prefill(warm_prompts, state, warm_phys)
+    warm_tokens = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if on_grid:
+        decode_on_grid(cfg, params, state, warm_tokens, warm_phys, grid)
+    else:
+        decode_step(cfg, params, state, warm_tokens, warm_phys)
     _sync(device)
+    grid.model.reset_counters()
 
     done_tokens = 0
+    model_step_bytes = 0
     sampled = []                  # per wave: (n_live, [gen_len] of [batch])
     prefill_s = decode_s = 0.0
     n_waves = 0
@@ -199,7 +262,7 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         # pod commits tails through its own replica (cross-pod fetches)
         t_wave = time.perf_counter()
         phys = kv.physical_tables(active)
-        _, st = prefill(cfg, params, prompts, state, phys)
+        _, st = run_prefill(prompts, state, phys)
         _sync(device)
         t_prefilled = time.perf_counter()
         tokens = torch.zeros((batch,), dtype=torch.int32, device=device)
@@ -208,6 +271,7 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
             for i, sid in enumerate(wave):
                 kv.maybe_extend(sid, prompt_len + t + 1)
             phys = kv.physical_tables(active, record=(t % 4 == 0))
+            model_before = grid.model.wire_bytes
             if pods is None:
                 tokens, st = step(params, st, tokens, phys)
             else:
@@ -215,6 +279,7 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
                 tokens, st, _ = step(params, st, tokens, phys, kv.replicas,
                                      *kv.coherence_inputs())
                 k3_prologue += pte_gather.launches - before + extra_rounds()
+            model_step_bytes += grid.model.wire_bytes - model_before
             steps.append(tokens)
             done_tokens += len(wave)
         _sync(device)
@@ -251,6 +316,25 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
     }
     if n_pools > 1 or pods is not None:
         result.update(n_pools=n_pools, replicas=replicas)
+    if data > 1 or model > 1:
+        result.update(
+            data=data, model=model,
+            model_wire_bytes_per_step=model_step_bytes / max(
+                n_waves * gen_len, 1),
+            model_wire_bytes=grid.model.wire_bytes,
+            model_calls=dict(grid.model.calls),
+            kv_layout=("split" if state.caches[0]["k_slabs"].dim() == 6
+                       else "replicated"))
+    if trace_logits:
+        vals = torch.stack([v for v, _ in traced], dim=1).cpu().numpy()
+        ids = torch.stack([i for _, i in traced], dim=1).cpu().numpy()
+        result.update(first_logits=first_logits,
+                      top_values=np.concatenate(
+                          [vals[:n, w * gen_len:(w + 1) * gen_len]
+                           for w, (n, _) in enumerate(sampled)]),
+                      top_ids=np.concatenate(
+                          [ids[:n, w * gen_len:(w + 1) * gen_len]
+                           for w, (n, _) in enumerate(sampled)]))
     if pods is not None:
         n_steps = max(n_waves * gen_len, 1)
         _sync(device)
@@ -264,7 +348,9 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
             "replica_mismatches": mismatches if check_replicas else None})
     if verbose:
         print({k: (round(v, 1) if isinstance(v, float) else v)
-               for k, v in result.items() if k != "token_ids"})
+               for k, v in result.items()
+               if k not in ("token_ids", "first_logits", "top_values",
+                            "top_ids")})
     return result
 
 
@@ -287,13 +373,18 @@ def main() -> None:
                     help="the published config instead of the smoke config")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth (widths stay as published)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data shards of the grid (each wave's rows split)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel shards of the grid's model axis")
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain versions")
     args = ap.parse_args()
     serve(args.arch, n_requests=args.requests, prompt_len=args.prompt_len,
           gen_len=args.gen_len, batch=args.batch, n_pods=args.pods,
           mode=args.mode, device=args.device, full_width=args.full_width,
-          n_layers=args.layers, n_pools=args.pools, replicas=args.replicas)
+          n_layers=args.layers, n_pools=args.pools, replicas=args.replicas,
+          data=args.data, model=args.model)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,14 @@ never a width).  Runs on the GPU unless ``--device cpu`` is given.
         --inject-crash 5 --ckpt-dir build/ckpt_cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi_6b \
         --full-width --layers 8 --batch 8 --seq 1024 --steps 6 --ckpt-every 100
+
+``--data`` / ``--model`` train over the in-pod grid on this device
+(``LoopPods``): the batch split over data shards (gradients averaged), the
+weights and moments over tensor-parallel model shards; checkpoints are
+gathered whole, so a run resumes on a grid of another size:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 8 \
+        --data 2 --model 2 --ckpt-dir build/ckpt_grid
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import tempfile
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..data import SyntheticLMDataset
 from ..runtime import FailureInjector, Trainer, TrainerConfig
+from .mesh import make_debug_mesh
 
 
 def main() -> None:
@@ -39,9 +48,16 @@ def main() -> None:
                     help="the published config instead of the smoke config")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth (widths stay as published)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data shards of the grid (the batch split)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel shards of the grid's model axis")
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain versions")
     args = ap.parse_args()
+    grid = (make_debug_mesh(1, data=args.data, model=args.model,
+                            device=args.device)
+            if args.data > 1 or args.model > 1 else None)
 
     cfg = (get_config(args.arch) if args.full_width
            else get_smoke_config(args.arch))
@@ -60,7 +76,7 @@ def main() -> None:
                       checkpoint_every=args.ckpt_every,
                       checkpoint_dir=args.ckpt_dir),
         dataset,
-        injector=FailureInjector(schedule), device=args.device)
+        injector=FailureInjector(schedule), device=args.device, grid=grid)
     out = trainer.run()
     losses = [h["loss"] for h in out["history"]]
     print(f"done: {len(losses)} steps, loss {losses[0]:.3f} -> "

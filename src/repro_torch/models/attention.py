@@ -8,10 +8,21 @@ Decode reads KV through the paged block-table substrate — the physical frame
 ids given to ``attn_decode_paged`` come from the block-table translation
 (``PagedKVManager.physical_tables``), i.e. every decode step performs the
 paper's address translation.
+
+Over the grid's ``model`` axis (``tp``, a ``Pods``; tensor parallelism, the
+reference's GSPMD layout made explicit) the projections are column-parallel
+by whole heads: ``wq`` [p, D, Hs*hd] and ``wo`` [p, Hs*hd, D] hold each
+local shard's Hs = H / t query heads, ``wk``/``wv`` [p, D, Ks*hd] its Ks =
+K / t kv heads when t divides K, and stay replicated [D, K*hd] otherwise
+(each shard then projects the one kv head its query heads share).  Every
+shard runs the flash kernel (prefill) or the paged kernel (decode) on its own
+heads, and ``wo``'s partial products are summed over the axis in
+``cfg.dtype`` (``tp.psum``).  A replicated tensor read inside a shard's work
+enters through ``tp.copy_in``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -167,6 +178,124 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.dtype)
     out = out @ p["wo"].to(cfg.dtype)
     return out, (k_slabs, v_slabs)
+
+
+# ----------------------------------------------------------------- model axis
+def heads_sharded(p: Dict[str, torch.Tensor]) -> bool:
+    """Whether this attention's heads are split over the model axis (its
+    ``wq`` carries a leading local-shard dimension)."""
+    return p["wq"].dim() == 3
+
+
+class ShardHeads:
+    """The heads of one model shard: its query heads [q0, q0 + Hs) and the
+    kv heads [kv0, kv0 + Ks) they read."""
+
+    def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                 shard: int):
+        hd = cfg.resolved_head_dim
+        self.Hs = p["wq"].shape[-1] // hd
+        self.q0 = shard * self.Hs
+        if p["wk"].dim() == 3:                  # whole kv heads a shard
+            self.Ks = p["wk"].shape[-1] // hd
+            self.kv0 = shard * self.Ks
+        else:                                   # one replicated kv head
+            self.kv0, self.Ks = self.q0 // cfg.q_per_kv, 1
+
+
+def _project_shard(cfg: ModelConfig, p: Dict[str, torch.Tensor], i: int,
+                   heads: ShardHeads, x: torch.Tensor,
+                   shared: Dict[str, torch.Tensor], rope: Optional[Rope]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q [B,S,Hs,hd], k and v [B,S,Ks,hd] of local shard ``i`` from its
+    copy x of the input (``copy_in``'s [i]); ``shared``: the replicated
+    tensors the shards read (``wk``/``wv`` when replicated, the qk-norm
+    scales), through ``copy_in`` ([p, ...])."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"][i].to(cfg.dtype)).reshape(B, S, heads.Hs, hd)
+    if "wk" in shared:
+        cols = slice(heads.kv0 * hd, (heads.kv0 + heads.Ks) * hd)
+        wk, wv = shared["wk"][i][:, cols], shared["wv"][i][:, cols]
+    else:
+        wk, wv = p["wk"][i], p["wv"][i]
+    k = (x @ wk.to(cfg.dtype)).reshape(B, S, heads.Ks, hd)
+    v = (x @ wv.to(cfg.dtype)).reshape(B, S, heads.Ks, hd)
+    if cfg.qk_norm and "q_norm" in shared:
+        q = rms_norm(q, shared["q_norm"][i])
+        k = rms_norm(k, shared["k_norm"][i])
+    if rope is not None:
+        q, k = rotate(q, rope), rotate(k, rope)
+    return q, k, v
+
+
+def _shared(p: Dict[str, torch.Tensor], tp: Pods) -> Dict[str, torch.Tensor]:
+    names = [n for n in ("q_norm", "k_norm") if n in p]
+    if p["wk"].dim() == 2:
+        names += ["wk", "wv"]
+    return {n: tp.copy_in(p[n]) for n in names}
+
+
+def attend_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+              rope: Optional[Rope], tp: Pods, *, causal: bool = True,
+              window: Optional[int] = None,
+              store: Optional[Callable] = None) -> torch.Tensor:
+    """Self-attention of a whole sequence x [B,S,D] over the model axis:
+    each local shard projects its heads, runs the flash kernel on them (one
+    launch a shard, on strided [B,Hs,S,hd] views), hands its k, v [B,S,Ks,hd]
+    to ``store(i, heads, k, v)`` when given (the prefill's cache writes),
+    and multiplies by its rows of ``wo``; the partials are summed over the
+    axis in ``cfg.dtype``.  Returns the replicated output [B,S,D]."""
+    B, S, _ = x.shape
+    xin, shared = tp.copy_in(x), _shared(p, tp)
+    parts: List[torch.Tensor] = []
+    for i, shard in enumerate(tp.local_indices()):
+        heads = ShardHeads(cfg, p, shard)
+        q, k, v = _project_shard(cfg, p, i, heads, xin[i], shared, rope)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, window=window)
+        if store is not None:
+            store(i, heads, k, v)
+        out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, -1)
+        parts.append(out @ p["wo"][i].to(cfg.dtype))
+    return tp.psum(torch.stack(parts))[0]
+
+
+def attn_decode_paged_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                         x: torch.Tensor, positions: torch.Tensor,
+                         kv: Tuple[torch.Tensor, torch.Tensor],
+                         phys_blocks: torch.Tensor, seq_lens: torch.Tensor, *,
+                         rope: Optional[Rope], tp: Pods,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """One decode step over the model axis.  kv: this layer's slabs, either
+    replicated [N, bt, K, hd] (held once; each shard writes and reads its
+    own kv heads of it, K1 taking the head range of the contiguous slab) or
+    split [p, N, bt, Ks, hd] (one contiguous K1 operand a local shard).
+    Returns the replicated attention output [B,1,D]."""
+    B = x.shape[0]
+    bt = kv[0].shape[-3]
+    split = kv[0].dim() == 5
+    xin, shared = tp.copy_in(x), _shared(p, tp)
+    parts: List[torch.Tensor] = []
+    for i, shard in enumerate(tp.local_indices()):
+        heads = ShardHeads(cfg, p, shard)
+        q, k_new, v_new = _project_shard(cfg, p, i, heads, xin[i], shared,
+                                         rope)
+        if split:                       # this shard's own slabs
+            ks, vs, kv_heads = kv[0][i], kv[1][i], None
+            ks_mine, vs_mine = ks, vs
+        else:                           # its kv heads of the shared slabs
+            ks, vs = kv
+            kv_heads = (heads.kv0, heads.Ks)
+            mine = slice(heads.kv0, heads.kv0 + heads.Ks)
+            ks_mine, vs_mine = ks[:, :, mine], vs[:, :, mine]
+        write_token_plain(ks_mine, vs_mine, k_new[:, 0], v_new[:, 0],
+                          phys_blocks, positions, bt)
+        out = paged_attention(q[:, 0].contiguous(), ks, vs, phys_blocks,
+                              seq_lens, window=window, kv_heads=kv_heads)
+        out = out.reshape(B, 1, -1).to(cfg.dtype)
+        parts.append(out @ p["wo"][i].to(cfg.dtype))
+    return tp.psum(torch.stack(parts))[0]
 
 
 def attn_decode_ring(cfg: ModelConfig, p: Dict[str, torch.Tensor],

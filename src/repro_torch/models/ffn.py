@@ -1,13 +1,17 @@
 """Dense feed-forward blocks: SwiGLU, GeGLU, GELU, squared-ReLU.
 
 The products are plain ``torch.matmul`` (cuBLAS), as the reference leaves
-them to its compiler."""
+them to its compiler.  Over the grid's ``model`` axis (``tp``) ``w_in`` and
+``w_gate`` are column-parallel ([p, D, F/t]) and ``w_out`` row-parallel
+([p, F/t, D]): each local shard computes its slice of the hidden layer, and
+the partial products are summed over the axis in ``cfg.dtype``."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from ..distributed.pods import Pods
 from .common import ModelConfig, _dense, activation, ffn_has_gate
 
 
@@ -24,8 +28,13 @@ def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype, d_ff: int = 0
     return p
 
 
-def ffn_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
-                ) -> torch.Tensor:
+def ffn_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                tp: Optional[Pods] = None) -> torch.Tensor:
+    if tp is not None and p["w_in"].dim() == 3:
+        xin = tp.copy_in(x)
+        parts = [ffn_forward(cfg, {k: w[i] for k, w in p.items()}, xin[i])
+                 for i in range(tp.local)]
+        return tp.psum(torch.stack(parts))[0]
     h = x @ p["w_in"].to(cfg.dtype)
     gate = (x @ p["w_gate"].to(cfg.dtype)) if "w_gate" in p else None
     h = activation(cfg.ffn_act, h, gate)

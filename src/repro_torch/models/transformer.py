@@ -20,6 +20,21 @@ state whole.
 
 Every arch of the reference is ported; only ``attn_logit_softcap``, which no
 config sets, raises NotImplementedError naming its ROADMAP item.
+
+Over the grid's ``model`` axis (``tp``: a ``Pods``, tensor parallelism; the
+parameters from ``launch/specs.py:shard_params``, a split leaf carrying a
+leading local-shard dimension) the dense global-attention families run
+Megatron's layout: attention and FFN as in ``attention.py`` / ``ffn.py``,
+a vocab-parallel embedding (each shard looks up the ids in its range, the
+others' rows are exact zeros, and the sum over the axis equals the
+unsharded lookup bit for bit) and head (each shard's logits ``[p, ...,
+V/t]``; ``lm_loss`` builds the log-softmax from ``pmax`` and ``psum`` of the
+local logits, and ``greedy_sample`` picks across the shards, so the whole
+``[.., V]`` is never gathered).  Decode reads the paged slabs replicated
+``[L, N, bt, K, hd]`` (each shard its kv heads) or split ``[L, t, N, bt,
+K/t, hd]`` (``init_decode_state(kv_split=t)``).  Other families raise
+NotImplementedError naming slice 16.1b.  Without ``tp``, or with an axis of
+size 1, every path is the one above.
 """
 from __future__ import annotations
 
@@ -33,8 +48,9 @@ from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves
 from ..distributed.pods import Pods
 from ..kvcache.gather import scatter_prefill_plain, scatter_prefill_pooled
-from .attention import (attend, attn_decode_paged, attn_decode_ring,
-                        cross_attention, cross_kv, init_attn,
+from .attention import (attend, attend_tp, attn_decode_paged,
+                        attn_decode_paged_tp, attn_decode_ring,
+                        cross_attention, cross_kv, heads_sharded, init_attn,
                         project_qk_rope_v, rope_for)
 from .common import (SHAPES_ONLY, LayerGroup, ModelConfig, _dense, apply_norm,
                      init_norm, require_ported)
@@ -154,12 +170,45 @@ def params_from_jax(cfg: ModelConfig, tree: PyTree, *,
 ATTN_KINDS = ("attn", "enc_attn", "dec_attn")
 
 
-def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor
-           ) -> torch.Tensor:
+def model_axis(cfg: ModelConfig, tp: Optional[Pods]) -> Optional[Pods]:
+    """``tp`` when it splits the model (size > 1), else None; raises
+    NotImplementedError for a config outside this slice of the model axis
+    (every layer global attention with a dense FFN)."""
+    if tp is None or tp.n == 1:
+        return None
+    require_tensor_parallel(cfg)
+    return tp
+
+
+def require_tensor_parallel(cfg: ModelConfig) -> None:
+    """NotImplementedError naming slice 16.1b unless every layer of ``cfg``
+    is global attention with a dense FFN."""
+    if any(g.kind != "attn" or g.window is not None or g.moe
+           for g in require_ported(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: the model axis covers the dense global-attention "
+            "families; MoE experts, SSD / RG-LRU, windowed (ring) layers and "
+            "the encoder-decoder wait for ROADMAP queue 1 slice 16.1b")
+
+
+def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
+           tp: Optional[Pods] = None) -> torch.Tensor:
     if cfg.family == "encdec":
         raise ValueError(f"{cfg.name}: an encoder-decoder config runs through "
                          "forward_encdec / prefill_encdec")
-    x = params["embedding"][tokens.long()].to(cfg.dtype)
+    emb = params["embedding"]
+    if tp is not None and emb.dim() == 3:
+        # vocab-parallel: each shard's rows, exact zeros outside its range
+        ids, Vs = tokens.long(), emb.shape[1]
+        parts = []
+        for i, shard in enumerate(tp.local_indices()):
+            local = ids - shard * Vs
+            rows = emb[i][local.clamp(0, Vs - 1)].to(cfg.dtype)
+            inside = ((local >= 0) & (local < Vs))[..., None]
+            parts.append(torch.where(inside, rows, torch.zeros_like(rows)))
+        x = tp.psum(torch.stack(parts))[0]
+    else:
+        x = emb[tokens.long()].to(cfg.dtype)
     # gemma-style scale, rounded to the working dtype as the reference does
     # (for every decoder-only family, Mamba-2's included)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
@@ -174,17 +223,37 @@ def _dec_embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     return x + params["dec_pos"][pos].to(cfg.dtype)
 
 
-def _lm_head(cfg: ModelConfig, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+def _lm_head(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
+             tp: Optional[Pods] = None) -> torch.Tensor:
+    """Logits [..., V]; over a vocab-split model axis each local shard's
+    [p, ..., V/t]."""
     x = apply_norm(cfg, x, params["final_norm"])
     if "lm_head" in params:
         head = params["lm_head"]
     else:
         head = params["dec_embedding" if cfg.family == "encdec"
-                      else "embedding"].T
+                      else "embedding"].transpose(-1, -2)
+    if tp is not None and head.dim() == 3:
+        xin = tp.copy_in(x)
+        return torch.stack([xin[i] @ head[i].to(cfg.dtype)
+                            for i in range(tp.local)])
     return x @ head.to(cfg.dtype)
 
 
-def _ffn_block(cfg: ModelConfig, lp: PyTree, x: torch.Tensor
+def vocab_split(params: PyTree) -> bool:
+    """Whether the head's logits come as vocab shards [p, ..., V/t]."""
+    return params.get("lm_head", params.get("embedding")).dim() == 3
+
+
+def gather_vocab(logits: torch.Tensor, tp: Pods) -> torch.Tensor:
+    """Vocab shards [p, ..., V/t] -> the whole logits [..., V] (an
+    all-gather over the model axis)."""
+    whole = tp.all_gather(logits)[0]                 # [n, ..., V/t]
+    return whole.movedim(0, -2).flatten(-2)
+
+
+def _ffn_block(cfg: ModelConfig, lp: PyTree, x: torch.Tensor,
+               tp: Optional[Pods] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x + the layer's FFN (dense, or the experts when the layer has
     ``moe``), and the MoE auxiliary loss (None for a dense layer)."""
@@ -192,7 +261,7 @@ def _ffn_block(cfg: ModelConfig, lp: PyTree, x: torch.Tensor
     if "moe" in lp:
         f, aux = moe_forward(cfg, lp["moe"], h)
         return x + f, aux
-    return x + ffn_forward(cfg, lp["ffn"], h), None
+    return x + ffn_forward(cfg, lp["ffn"], h, tp), None
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -229,11 +298,29 @@ def _store_kv(cfg: ModelConfig, g: LayerGroup, cache: Dict[str, torch.Tensor],
         ring[:, src % W] = t[:, src].to(ring.dtype)
 
 
+def _store_kv_shard(cfg: ModelConfig, cache: Dict[str, torch.Tensor], li: int,
+                    positions: torch.Tensor, phys_blocks: torch.Tensor):
+    """The prefill's cache write of one model shard (``attend_tp``'s
+    ``store``): its kv heads of the replicated slabs, or its own split
+    slabs."""
+    def store(i, heads, k, v):
+        ks, vs = cache["k_slabs"][li], cache["v_slabs"][li]
+        if ks.dim() == 5:                     # split [p, N, bt, Ks, hd]
+            ks, vs = ks[i], vs[i]
+        else:
+            rng = slice(heads.kv0, heads.kv0 + heads.Ks)
+            ks, vs = ks[:, :, rng], vs[:, :, rng]
+        scatter_prefill_plain(ks, vs, k, v, phys_blocks, positions,
+                              cfg.kv_block_tokens)
+    return store
+
+
 def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
                positions: torch.Tensor, *,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                phys_blocks: Optional[torch.Tensor] = None,
-               enc_out: Optional[torch.Tensor] = None
+               enc_out: Optional[torch.Tensor] = None,
+               tp: Optional[Pods] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer group over a whole sequence x [B,S,D]: (x, the summed MoE
     aux loss or None).  With ``cache`` (the group's decode state) every
@@ -255,6 +342,11 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
             x = x + out
             if g.kind == "ssd":             # an SSD layer has no FFN
                 continue
+        elif tp is not None and heads_sharded(lp["attn"]):
+            store = (None if cache is None else
+                     _store_kv_shard(cfg, cache, li, positions, phys_blocks))
+            x = x + attend_tp(cfg, lp["attn"], h, rope, tp, window=g.window,
+                              store=store)
         else:
             q, k, v = project_qk_rope_v(cfg, lp["attn"], h, rope)
             a = attend(cfg, lp["attn"], q, k, v, causal=g.kind != "enc_attn",
@@ -268,26 +360,29 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
                           else cross_kv(cfg, lp["cross"], enc_out))
                 h = apply_norm(cfg, x, lp["norm_cross"])
                 x = x + cross_attention(cfg, lp["cross"], h, ck, cv)
-        x, a = _ffn_block(cfg, lp, x)
+        x, a = _ffn_block(cfg, lp, x, tp)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
 
 
-def forward_lm(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor
+def forward_lm(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
+               tp: Optional[Pods] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decoder-only LM forward.  tokens: [B,S] int -> (logits [B,S,V], aux);
     aux is the sum of the MoE layers' auxiliary losses, zero for a dense
-    config."""
+    config.  Over a vocab-split model axis ``tp`` the logits are the local
+    shards' [p,B,S,V/t] (``gather_vocab`` joins them)."""
     groups = require_ported(cfg)
-    x = _embed(cfg, params, tokens)
+    tp = model_axis(cfg, tp)
+    x = _embed(cfg, params, tokens, tp)
     positions = _positions(*tokens.shape, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for g, gp in zip(groups, params["groups"]):
-        x, a = _run_group(cfg, g, gp, x, positions)
+        x, a = _run_group(cfg, g, gp, x, positions, tp=tp)
         if a is not None:
             aux = aux + a
-    return _lm_head(cfg, params, x), aux
+    return _lm_head(cfg, params, x, tp), aux
 
 
 # --------------------------------------------------------------------------- enc-dec
@@ -371,21 +466,44 @@ def prefill_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
     return logits, DecodeState(state.caches, seq_lens)
 
 
-def lm_loss(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor]
+def _vocab_parallel_ll(logits: torch.Tensor, targets: torch.Tensor,
+                       tp: Pods) -> torch.Tensor:
+    """log p(target) from vocab shards [p, B, S, V/t], float32: the max by
+    ``pmax``, the sum of exponentials and the target's logit by ``psum``."""
+    local = logits.float()
+    Vs = local.shape[-1]
+    m = tp.pmax(local.detach().amax(-1))                       # [p, B, S]
+    lse = m + torch.log(tp.psum(torch.exp(local - m[..., None]).sum(-1)))
+    picks = []
+    for i, shard in enumerate(tp.local_indices()):
+        ids = targets - shard * Vs
+        inside = (ids >= 0) & (ids < Vs)
+        got = local[i].gather(-1, ids.clamp(0, Vs - 1)[..., None])[..., 0]
+        picks.append(torch.where(inside, got, torch.zeros_like(got)))
+    return (tp.psum(torch.stack(picks)) - lse)[0]
+
+
+def lm_loss(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor],
+            tp: Optional[Pods] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy on a float32 log-softmax, plus 0.01 times
     the MoE aux loss.  batch: ``tokens`` [B,S+1] (and ``enc_feats`` [B,Se,D]
     for an encoder-decoder), optionally ``mask`` [B,S+1] (position 0 is
-    dropped with the inputs).  Returns (total, {loss, aux, tokens})."""
+    dropped with the inputs).  ``tp``: the model axis (the log-softmax over
+    vocab shards, never gathered).  Returns (total, {loss, aux, tokens})."""
     tokens = batch["tokens"]
     if cfg.family == "encdec":
         logits, aux = forward_encdec(cfg, params, batch["enc_feats"],
                                      tokens[:, :-1])
     else:
-        logits, aux = forward_lm(cfg, params, tokens[:, :-1])
+        tp = model_axis(cfg, tp)
+        logits, aux = forward_lm(cfg, params, tokens[:, :-1], tp)
     targets = tokens[:, 1:].long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, targets[..., None])[..., 0]
+    if cfg.family != "encdec" and tp is not None and vocab_split(params):
+        ll = _vocab_parallel_ll(logits, targets, tp)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, targets[..., None])[..., 0]
     mask = batch.get("mask")
     if mask is not None:
         mask = mask[:, 1:].to(torch.float32)
@@ -407,7 +525,8 @@ class DecodeState(NamedTuple):
 
 def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
                       max_blocks: int, *, enc_len: int = 0, n_pools: int = 1,
-                      dtype=None, device: DeviceLike = None) -> DecodeState:
+                      kv_split: int = 1, dtype=None,
+                      device: DeviceLike = None) -> DecodeState:
     """n_blocks: physical KV frames in the pool; max_blocks: per-seq table;
     enc_len: encoder frames (the cross K/V of an encoder-decoder).  Global
     attention groups get paged slabs ``[L, n_blocks, bt, K, hd]``, or with
@@ -415,9 +534,15 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
     n_pools, bt, K, hd]`` (numaPTE's partitioned KV: each row's frames in
     its own pool); windowed groups a ring of ``window`` slots per sequence,
     SSD and RG-LRU groups a float32 state ``h`` and a conv tail, the encoder
-    nothing.  All zeros: a masked slot must hold a finite value."""
+    nothing.  ``kv_split`` = t > 1 splits the slabs' kv heads over t model
+    shards, ``[L, t, n_blocks, bt, K / t, hd]`` (one contiguous paged-kernel
+    operand a shard); the default holds them once, replicated over the
+    model axis.  All zeros: a masked slot must hold a finite value."""
+    if kv_split > 1 and (n_pools > 1 or cfg.n_kv_heads % kv_split):
+        raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over "
+                         f"{kv_split} shards of one pool")
     slab_dims = ((n_pools, n_blocks // n_pools) if n_pools > 1
-                 else (n_blocks,))
+                 else (kv_split, n_blocks) if kv_split > 1 else (n_blocks,))
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
@@ -436,7 +561,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
             shapes = {"h": ((L, batch, w), torch.float32),
                       "conv": ((L, batch, W1, w), dtype)}
         elif g.kind in ("attn", "dec_attn") and g.window is None:
-            shapes = {n: ((L,) + slab_dims + (bt, K, hd), dtype)
+            shapes = {n: ((L,) + slab_dims + (bt, K // kv_split, hd), dtype)
                       for n in ("k_slabs", "v_slabs")}
             if g.kind == "dec_attn":
                 shapes.update({n: ((L, batch, enc_len, K, hd), dtype)
@@ -452,27 +577,33 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
 
 def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
                 tokens: torch.Tensor, phys_blocks: torch.Tensor, *,
-                sp: bool = False, pods: Optional[Pods] = None
+                sp: bool = False, pods: Optional[Pods] = None,
+                tp: Optional[Pods] = None
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """One token per sequence.  tokens: [B]; phys_blocks: [B, max_blocks]
     int32 physical frame ids from the block-table translation (local to a
     row's pool when the slabs are pooled).  The caches of ``state`` are
     written in place.  ``sp``: sequence-parallel decode of the global layers
     over the pools (the table's columns split over them; over ``pods`` when
-    given).  Returns (logits [B,V], new state)."""
+    given).  ``tp``: the model axis (vocab-split logits then come as the
+    local shards' [p, B, V/t]).  Returns (logits [B,V], new state)."""
     positions = state.seq_lens                       # position of new token
+    tp = None if cfg.family == "encdec" else model_axis(cfg, tp)
+    if tp is not None and sp:
+        raise NotImplementedError("sequence-parallel decode over the model "
+                                  "axis is not ported")
     if cfg.family == "encdec":
         x = _dec_embed(cfg, params, tokens[:, None], positions[:, None])
     else:
-        x = _embed(cfg, params, tokens)[:, None]
+        x = _embed(cfg, params, tokens, tp)[:, None]
     seq_lens = state.seq_lens + 1
     for g, gp, cache in zip(require_ported(cfg), params["groups"],
                             state.caches):
         if g.kind == "enc_attn":                    # no decode state
             continue
         x = _decode_group(cfg, g, gp, cache, x, positions, phys_blocks,
-                          seq_lens, sp=sp, pods=pods)
-    logits = _lm_head(cfg, params, x)[:, 0]
+                          seq_lens, sp=sp, pods=pods, tp=tp)
+    logits = _lm_head(cfg, params, x, tp)[..., 0, :]
     return logits, DecodeState(state.caches, seq_lens)
 
 
@@ -480,7 +611,8 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
                   cache: Dict[str, torch.Tensor], x: torch.Tensor,
                   positions: torch.Tensor, phys_blocks: torch.Tensor,
                   seq_lens: torch.Tensor, *, sp: bool = False,
-                  pods: Optional[Pods] = None) -> torch.Tensor:
+                  pods: Optional[Pods] = None,
+                  tp: Optional[Pods] = None) -> torch.Tensor:
     rope = (rope_for(cfg, positions[:, None], g.rope_theta)
             if g.kind in ATTN_KINDS else None)
     for li, lp in enumerate(gp):
@@ -493,6 +625,11 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
             if g.kind == "ssd":             # an SSD layer has no FFN
                 x = x + a
                 continue
+        elif tp is not None and heads_sharded(lp["attn"]):
+            a = attn_decode_paged_tp(
+                cfg, lp["attn"], h, positions,
+                (cache["k_slabs"][li], cache["v_slabs"][li]), phys_blocks,
+                seq_lens, rope=rope, tp=tp)
         elif g.window is None:
             a, _ = attn_decode_paged(
                 cfg, lp["attn"], h, positions,
@@ -507,29 +644,46 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
             h = apply_norm(cfg, x, lp["norm_cross"])
             x = x + cross_attention(cfg, lp["cross"], h, cache["cross_k"][li],
                                     cache["cross_v"][li])
-        x, _ = _ffn_block(cfg, lp, x)
+        x, _ = _ffn_block(cfg, lp, x, tp)
     return x
 
 
 def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
-            state: DecodeState, phys_blocks: torch.Tensor
-            ) -> Tuple[torch.Tensor, DecodeState]:
+            state: DecodeState, phys_blocks: torch.Tensor,
+            tp: Optional[Pods] = None) -> Tuple[torch.Tensor, DecodeState]:
     """Prefill a prompt batch [B,S]: full forward + every layer's state into
     the caches of ``state`` (in place): K/V scattered into the slabs through
     the block table, or the last ``min(S, W)`` tokens into a ring rebuilt
-    from zeros, or the SSD / RG-LRU state after the prompt.  Returns (logits
-    of the last position [B,V], new state)."""
+    from zeros, or the SSD / RG-LRU state after the prompt.  ``tp``: the
+    model axis, as for ``decode_step``.  Returns (logits of the last
+    position [B,V], new state)."""
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
+    tp = model_axis(cfg, tp)
+    x = _embed(cfg, params, tokens, tp)
     positions = _positions(B, S, tokens.device)
     for g, gp, cache in zip(require_ported(cfg), params["groups"],
                             state.caches):
         x, _ = _run_group(cfg, g, gp, x, positions, cache=cache,
-                          phys_blocks=phys_blocks)
-    logits = _lm_head(cfg, params, x[:, -1])
+                          phys_blocks=phys_blocks, tp=tp)
+    logits = _lm_head(cfg, params, x[:, -1], tp)
     seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return logits, DecodeState(state.caches, seq_lens)
 
 
-def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def greedy_sample(logits: torch.Tensor, tp: Optional[Pods] = None
+                  ) -> torch.Tensor:
+    """argmax over the vocab, int32.  ``tp``: the logits are vocab shards
+    [p, ..., V/t] of the model axis: each shard's max and its first index,
+    gathered, then the lowest global index among the equal maxima
+    (``argmax``'s tie rule)."""
+    if tp is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    Vs = logits.shape[-1]
+    best = logits.amax(-1)                                    # [p, ...]
+    offset = torch.tensor(tp.local_indices(), device=logits.device) * Vs
+    first = torch.argmax(logits, dim=-1) + offset.view(
+        (-1,) + (1,) * (logits.dim() - 2))
+    best_all, first_all = tp.all_gather(best)[0], tp.all_gather(first)[0]
+    top = best_all.amax(0)
+    none = torch.full_like(first_all, torch.iinfo(first_all.dtype).max)
+    return torch.where(best_all == top, first_all, none).amin(0).to(torch.int32)

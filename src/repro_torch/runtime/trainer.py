@@ -1,5 +1,5 @@
 """Fault-tolerant training runtime, the reference's control flow
-(``src/repro/runtime/trainer.py``) on one device.
+(``src/repro/runtime/trainer.py``), on one device or over a grid.
 
   * **checkpoint/restart** — atomic checkpoints every K steps; on an
     injected crash the trainer restores the last committed checkpoint and
@@ -7,14 +7,21 @@
     float atomics, so the replay is exact).
   * **straggler mitigation** — per-step wall times feed an EMA monitor;
     steps slower than ``factor`` x EMA are flagged.
-  * The elastic re-mesh of the reference (``shrink``) waits for ROADMAP
-    queue 1 item 16: the injector accepts the kind and the trainer ignores
-    it, as the reference's loop does.
+  * ``shrink`` (lose a node): the injector accepts the kind and the
+    trainer ignores it, as the reference's loop does (it sets ``remeshes =
+    0`` and nothing increments it).  The elastic flow — checkpoint on one
+    grid, restore onto a smaller one, continue — is driven from outside the
+    loop (``tests/test_torch_elastic.py``), as the reference's test drives
+    it; checkpoints are grid-independent, so ``Trainer(grid=...)`` resumes
+    from one taken on another grid.
 
 A step is ``lm_loss`` -> ``.backward()`` -> ``adamw_update``; its time
-``dt`` ends with ``float(loss)``, which waits for the device.  Parameters
-are drawn from ``torch.Generator(device).manual_seed(seed)`` on the card
-unless ``device="cpu"``.
+``dt`` ends with ``float(loss)``, which waits for the device.  With a
+``grid`` (``launch/mesh.py``) the step is ``launch/specs.py``'s
+``build_train_step`` over it, the parameters and moments split over its
+model axis, and checkpoints are gathered whole.  Parameters are drawn from
+``torch.Generator(device).manual_seed(seed)`` on the card unless
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from .._tree import tree_leaves
 from ..checkpoint import CheckpointManager
 from ..data import SyntheticLMDataset
 from ..models import init_params, lm_loss
-from ..models.common import ModelConfig
+from ..models.common import SHAPES_ONLY, ModelConfig
 from ..optim import adamw_init, adamw_update
 
 PyTree = Any
@@ -119,8 +126,9 @@ class Trainer:
                  dataset: SyntheticLMDataset,
                  injector: Optional[FailureInjector] = None,
                  step_fn: Optional[Callable] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, grid=None):
         self.cfg = cfg
+        self.grid = grid
         self.tcfg = tcfg
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -134,17 +142,32 @@ class Trainer:
         self._step_fn = step_fn or self._default_step()
 
     def _default_step(self) -> Callable:
+        if self.grid is not None:
+            from ..launch.specs import build_train_step
+            return build_train_step(self.cfg, pods=self.grid)
         return functools.partial(train_step, self.cfg)
 
     def _fresh(self):
         gen = torch.Generator(self.device).manual_seed(self.tcfg.seed)
-        params = trainable(init_params(self.cfg, gen))
+        params = init_params(self.cfg, gen)
+        if self.grid is None:
+            params = trainable(params)
+        else:
+            from ..launch.specs import shard_params
+            params = shard_params(params, self.grid, self.cfg)
         return params, adamw_init(params)
 
     def _restore(self, step: int, params, opt):
-        state = self.ckpt.restore(step, {"params": params, "opt": opt},
-                                  device=self.device)
-        return trainable(state["params"]), state["opt"]
+        if self.grid is None:
+            state = self.ckpt.restore(step, {"params": params, "opt": opt},
+                                      device=self.device)
+            return trainable(state["params"]), state["opt"]
+        whole = init_params(self.cfg, SHAPES_ONLY)
+        state = self.ckpt.restore(step, {"params": whole,
+                                         "opt": adamw_init(whole)},
+                                  device=self.device, grid=self.grid,
+                                  cfg=self.cfg)
+        return state["params"], state["opt"]
 
     # ------------------------------------------------------------------ run
     def run(self) -> Dict[str, Any]:
@@ -185,9 +208,9 @@ class Trainer:
             step += 1
             if step % self.tcfg.checkpoint_every == 0:
                 self.ckpt.save(step, {"params": params, "opt": opt},
-                               extra={"loss": loss})
+                               extra={"loss": loss}, grid=self.grid)
         self.ckpt.save(self.tcfg.total_steps,
-                       {"params": params, "opt": opt})
+                       {"params": params, "opt": opt}, grid=self.grid)
         return {"params": params, "opt": opt, "history": self.history,
                 "restarts": self.restarts,
                 "stragglers": self.monitor.flagged}

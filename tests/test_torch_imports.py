@@ -35,7 +35,8 @@ def test_torch_port_has_the_reference_layout():
                 "benchmarks.serving_coherence", "kernels.flash_attention.ops",
                 "optim.adamw", "data.pipeline", "checkpoint.store",
                 "runtime.trainer", "launch.train", "distributed.pods",
-                "distributed.compression", "pagedpt.coherence", "launch.mesh",
+                "distributed.compression", "distributed.sharding",
+                "pagedpt.coherence", "launch.mesh",
                 "launch.specs", "core", "core.topology", "core.costmodel",
                 "core.tlb", "core.pagetable", "core.shootdown",
                 "core.shootdown_batch", "core.config", "kernels.fifo_miss",
