@@ -184,7 +184,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch._tree import tree_leaves  # noqa: E402
+from repro_torch._tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -1200,6 +1200,14 @@ def phase_kernels():
             kv_heads=(4, 4)),
         "flash_attention/qwen3_14b_model_shard": flash_case(
             16, 20, 4, 1024, 128, True, None, bf16),
+        # Qwen3-235B-A22B at model = 2 (the model_axis phase's part D):
+        # shard 1's 32 query heads on kv heads 2-3 of the replicated slab,
+        # and K2 on its 32 heads over its own 2 kv heads
+        "paged_attention/qwen3_moe_model_shard": paged_case(
+            16, 32, 4, 128, 16, 69, 4416, None, bf16, lens=np.full(16, 1057),
+            kv_heads=(2, 2)),
+        "flash_attention/qwen3_moe_model_shard": flash_case(
+            16, 32, 2, 1024, 128, True, None, bf16),
         "pte_gather": pte_case(64, 512, 16 * 69, 3, logical=np.where(
             np.arange(16 * 69) % 69 < 67,
             (np.arange(16 * 69) // 69) * 512 + np.arange(16 * 69) % 69, -1)),
@@ -1213,10 +1221,11 @@ def phase_kernels():
     # timed sub-dicts of a row, each also checked as a case
     subs = {"paged_attention": ["long_context", "gemma3_4b", "qwen3_moe",
                                 "kimi_k2", "whisper_decoder",
-                                "qwen3_14b_model_shard"],
+                                "qwen3_14b_model_shard", "qwen3_moe_model_shard"],
             "flash_attention": ["gemma3_4b_local", "gemma3_4b_global",
                                 "qwen3_moe", "kimi_k2", "whisper_encoder",
-                                "recurrentgemma_local", "qwen3_14b_model_shard"]}
+                                "recurrentgemma_local", "qwen3_14b_model_shard",
+                                "qwen3_moe_model_shard"]}
     controls = {"paged_attention": (paged_p_bf16, [None]),
                 "flash_attention": (flash_p_bf16, [None, "gemma3_4b_global"])}
     spec = {
@@ -1343,18 +1352,21 @@ def attention_layers(cfg):
     return n_global, n_attn
 
 
-def expected_launches(cfg, waves: int, gen_len: int, warm_up: bool) -> dict:
+def expected_launches(cfg, waves: int, gen_len: int, warm_up: bool,
+                      shards: int = 1) -> dict:
     """The kernel launches ``waves`` waves of the path make, from the
     config's layer groups: K1 once a decode step in each global attention
     layer (a local layer decodes from its ring, a recurrent one from its
     state), K2 once a prefill in each attention layer, K3 once a walk (a
     wave's first walk, one a decode step, and the sync of
     ``check_device_table`` after the frees).  ``warm_up``: serve()'s warm-up
-    prefill and decode step add one launch a layer each."""
+    prefill and decode step add one launch a layer each.  ``shards``: the
+    model shards each attention layer's heads split over (K1 and K2 launch
+    once a shard; 1 where the attention runs replicated)."""
     n_global, n_attn = attention_layers(cfg)
     extra = 1 if warm_up else 0
-    return {"paged_attention": n_global * (gen_len * waves + extra),
-            "flash_attention": n_attn * (waves + extra),
+    return {"paged_attention": n_global * (gen_len * waves + extra) * shards,
+            "flash_attention": n_attn * (waves + extra) * shards,
             "flash_attention_bwd": 0,
             "pte_gather": (2 + gen_len) * waves, "fifo_miss": 0}
 
@@ -1433,7 +1445,8 @@ def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
 
 @torch.no_grad()
 def whisper_serve(cfg, params, *, batch, enc_len, prompt_len, gen_len,
-                  n_requests, n_pods=4, mode="numapte", seed=0):
+                  n_requests, n_pods=4, mode="numapte", seed=0, grid=None,
+                  keep_logits=False):
     """The encoder-decoder's serving loop, the counterpart of serve() (which
     takes decoder-only configs, as the reference's does): waves of
     ``batch`` requests, each a clip of ``enc_len`` frame embeddings drawn
@@ -1442,16 +1455,22 @@ def whisper_serve(cfg, params, *, batch, enc_len, prompt_len, gen_len,
     PagedKVManager's tables (start, walk, extend, finish, the invariants and
     the device table checked after each wave).  The first decode step takes
     the prefill's greedy token.  No warm-up: the kernels are built and the
-    GEMM library warm by the time this runs."""
+    GEMM library warm by the time this runs.  ``grid``: its model axis runs
+    the model (``params`` split over it, the caches as its rules place
+    them); ``keep_logits`` adds every step's logits (``logits``, a list on
+    the card)."""
+    tp = None if grid is None or grid.model.n == 1 else grid.model
     bt = cfg.kv_block_tokens
     max_blocks = -(-(prompt_len + gen_len) // bt) + 1
     n_frames = batch * max_blocks * 4
     kv = PagedKVManager(n_frames=n_frames, block_tokens=bt,
                         max_blocks_per_seq=max_blocks, n_pods=n_pods,
                         mode=CoherenceMode(mode), device=DEV)
-    state = init_decode_state(cfg, batch, n_frames, max_blocks,
-                              enc_len=enc_len, device=DEV)
+    state = init_decode_state(
+        cfg, batch, n_frames, max_blocks, enc_len=enc_len, device=DEV,
+        kv_split=1 if tp is None else specs.kv_split(cfg, grid))
     gen = torch.Generator(device=DEV).manual_seed(seed)
+    kept = []
     rng = np.random.default_rng(seed)
     finite = torch.ones((), dtype=torch.bool, device=DEV)
     sampled, prefill_s, decode_s, waves = [], [], [], 0
@@ -1467,7 +1486,7 @@ def whisper_serve(cfg, params, *, batch, enc_len, prompt_len, gen_len,
             0, cfg.vocab_size, (batch, prompt_len))).to(DEV)
         t_wave = time.perf_counter()
         logits, st = prefill_encdec(cfg, params, feats, prompts, state,
-                                    kv.physical_tables(active))
+                                    kv.physical_tables(active), tp=tp)
         torch.cuda.synchronize()
         t_prefilled = time.perf_counter()
         finite &= torch.isfinite(logits[:len(wave)]).all()
@@ -1477,7 +1496,9 @@ def whisper_serve(cfg, params, *, batch, enc_len, prompt_len, gen_len,
             for sid in wave:
                 kv.maybe_extend(sid, prompt_len + t + 1)
             phys = kv.physical_tables(active, record=(t % 4 == 0))
-            logits, st = decode_step(cfg, params, st, tokens, phys)
+            logits, st = decode_step(cfg, params, st, tokens, phys, tp=tp)
+            if keep_logits:
+                kept.append(logits)
             finite &= torch.isfinite(logits[:len(wave)]).all()
             tokens = greedy_sample(logits)
             steps.append(tokens)
@@ -1502,7 +1523,8 @@ def whisper_serve(cfg, params, *, batch, enc_len, prompt_len, gen_len,
             "prefill_ms_by_wave": [1e3 * x for x in prefill_s],
             "decode_step_ms": 1e3 * sum(decode_s) / (waves * gen_len),
             "decode_step_ms_by_wave": [1e3 * x / gen_len for x in decode_s],
-            "logits_finite": bool(finite), "token_ids": np.concatenate(sampled)}
+            "logits_finite": bool(finite), "token_ids": np.concatenate(sampled),
+            **({"logits": kept} if keep_logits else {})}
 
 
 def phase_whisper(n_pods: int = 4):
@@ -1562,22 +1584,24 @@ def plain_versions():
 
 
 @contextlib.contextmanager
-def routes_recorded(into: list, follow=None):
+def routes_recorded(into: list, follow=None, per_call: int = 1):
     """Append the routes (``moe.Routes``: probabilities, expert ids [N, k])
     that each MoE call of the model picks, in call order, by wrapping the
     name ``moe_forward`` looks up, as ``plain_versions`` swaps the kernels.
     With ``follow`` (the routes another run recorded) each call takes that
     run's expert ids instead of its own, its gates renormalised from its own
-    probabilities; ``into`` still gets its own picks."""
+    probabilities; ``into`` still gets its own picks.  ``per_call``: the
+    routes one MoE call picks (one a local model shard, each of them
+    following the same call of ``follow``)."""
     from repro_torch.models import moe
     real = moe.route
 
-    def recording(cfg, p, xf):
-        own = real(cfg, p, xf)
+    def recording(cfg, p, xf, logits=None):
+        own = real(cfg, p, xf, logits=logits)
         into.append(own)
         if follow is None:
             return own
-        eids = follow[len(into) - 1].eids
+        eids = follow[(len(into) - 1) // per_call].eids
         gates = own.probs.gather(1, eids)
         return moe.Routes(own.probs, eids, gates / gates.sum(-1, keepdim=True))
 
@@ -2571,10 +2595,325 @@ def model_axis_elastic() -> dict:
     return {"model_axis_elastic": (counts, want)}
 
 
+# D: the other families served at model = 2 against model = 1 on the same
+# seeded bf16 weights, at published widths and MODEL_SERVE's traffic (one
+# pod); the depth each is served at (None: all its layers): Qwen3-MoE and
+# Kimi-K2 at their serve phase's cut (the whole tree is split leaf by leaf,
+# so the card never holds it twice).  Whisper-base through whisper_serve at
+# WHISPER's traffic.
+# Mamba-2 is held in float32 (family_serve): in bf16 its random-weight
+# model amplifies a change in the order of the roundings past the bound (its
+# line reads model 1 in bf16 against itself in float32 beside model 2's).
+FAMILIES = dict(archs={"gemma3_4b": None, "mamba2_370m": None,
+                       "recurrentgemma_2b": None, "qwen3_moe_235b_a22b": 8,
+                       "kimi_k2_1t_a32b": 2},
+                model=2, top_k=8, max_flip_share=MAX_FLIP_SHARE,
+                held_in_float32=("mamba2_370m",))
+
+
+def shard_in_place(params, grid, cfg):
+    """``specs.shard_params`` of ``params`` over ``grid``'s model axis, in
+    place, leaf by leaf: each whole leaf is let go as soon as its shards are
+    stacked."""
+    shards = specs.param_shardings(params, grid, cfg)
+
+    def walk(node, shard):
+        for k in (list(node) if isinstance(node, dict) else range(len(node))):
+            if isinstance(node[k], (dict, list)):
+                walk(node[k], shard[k])
+            elif shard[k] is not None:
+                node[k] = specs.shard_leaf(node[k], shard[k], grid.model)
+
+    walk(params, shards)
+    return params
+
+
+def heads_shards(params, t: int) -> int:
+    """t when the attention layers' heads are split over the model axis
+    (K1 and K2 launched once a shard), else 1."""
+    split = [lp["attn"]["wq"].dim() == 3 for gp in params["groups"]
+             for lp in gp if "attn" in lp]
+    check(len(set(split)) <= 1, "attention split in some layers only")
+    return t if split and split[0] else 1
+
+
+def model_axis_wire(cfg, params, batch: int, t: int) -> int:
+    """The model axis's bytes of one decode step of ``batch`` rows, from the
+    shapes, counted as ``Pods`` counts them (each collective's per-shard
+    slice, received by t - 1 shards, on each of t): the vocab-parallel
+    embedding's psum [B, D]; a layer's row-parallel psums [B, D] (split
+    attention, cross-attention, FFN, experts with their split shared
+    expert, SSD, RG-LRU); the MoE's gather of the router logits [B, E];
+    the SSD's gather of B / C [B, 2n] and psum of the norm's sums of
+    squares [B] (float32); the RG-LRU's gather of xb [B, w]; greedy's
+    gathers of each shard's best logit and its index (int64)."""
+    el = torch.tensor([], dtype=cfg.dtype).element_size()
+    row = batch * cfg.d_model * el
+    split = lambda leaf: leaf.dim() == 3
+    total = row if split(params["embedding"]) else 0
+    for gp in params["groups"]:
+        for lp in gp:
+            if "ssd" in lp and lp["ssd"]["in_proj"].dim() == 3:
+                total += batch * 2 * cfg.ssm_state // t * el + batch * 4 + row
+            if "rglru" in lp and lp["rglru"]["rg_in"].dim() == 3:
+                total += batch * lp["rglru"]["rg_in"].shape[-1] * el + row
+            for name in ("attn", "cross"):
+                if name in lp and split(lp[name]["wq"]):
+                    total += row
+            if "ffn" in lp and split(lp["ffn"]["w_in"]):
+                total += row
+            if "moe" in lp:
+                m = lp["moe"]
+                if m["we_in"].dim() == 4:
+                    total += batch * cfg.n_experts // t * el + row
+                elif "shared" in m and split(m["shared"]["w_in"]):
+                    total += row
+    if split(params.get("lm_head", params["embedding"])):
+        total += batch * el + batch * 8
+    return t * (t - 1) * total
+
+
+def serve_models(arch, cfg, params, traffic, t, routes, tag=""):
+    """``serve()`` at model = 1, then ``params`` split in place over a model
+    axis of t and ``serve()`` at model = t, the same prompts, each traced
+    (``trace_logits``) and with its MoE routes appended to ``routes[model]``;
+    returns (the two results, the launch counts of each beside what the path
+    implies, the split params)."""
+    grid = make_debug_mesh(1, model=t, device=DEV)
+    runs, rows = {}, {}
+    for model in (1, t):
+        shards = 1
+        if model > 1:
+            params = shard_in_place(params, grid, cfg)
+            release()
+            shards = heads_shards(params, t)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        # MoE: model = t takes model = 1's expert ids (its own picks are
+        # recorded), so the logits compare the same routes: a route that
+        # flips at a near-tie would move a token's output by far more than
+        # the logits' bound (the parity phase does the same)
+        follow = routes[1] if model > 1 and cfg.n_experts else None
+        with lse_pointers_counted({}) as lse, routes_recorded(
+                routes[model], follow=follow, per_call=model):
+            r = serve(arch, full_width=True, cfg=cfg, params=params,
+                      verbose=False, model=model,
+                      trace_logits=FAMILIES["top_k"], **traffic)
+        counts = counts_now()
+        r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        want = expected_launches(cfg, waves=2, gen_len=traffic["gen_len"],
+                                 warm_up=True, shards=shards)
+        check(counts == want and lse["lse_writes"] == 0,
+              f"{arch}{tag} model {model}: launch counts {counts}, the path "
+              f"implies {want}; LSE writes {lse}")
+        check(r["logits_finite"] and r["tokens"] == traffic["n_requests"]
+              * traffic["gen_len"], f"{arch} model {model}: {r['tokens']} tokens")
+        runs[f"model_axis_{arch}{tag}_{model}"] = (counts, want)
+        r["launches"], r["heads_shards"] = counts, shards
+        rows[model] = r
+    return rows, runs, params
+
+
+def held_to_model_one(arch, one, two, t, gen_len) -> dict:
+    """The first decode step's logits of model = t against model = 1's, and
+    the first flip of each row whose tokens differ: each must be at a
+    near-tie, model = 1's margin between the two tokens no larger than
+    twice the first step's largest logit difference (each of the two logits
+    moves by up to it), and the flips at most ``max_flip_share`` of the
+    compared decisions."""
+    first_err = float(np.abs(two["first_logits"] - one["first_logits"]).max())
+    first_rel = first_err / float(np.abs(one["first_logits"]).max())
+    noise = 2 * first_err
+    flips = first_flips(one["token_ids"], two["token_ids"],
+                        (one["top_values"], one["top_ids"]),
+                        (two["top_values"], two["top_ids"]))
+    at_tie = [f["margin_model1"] is not None and f["margin_model1"] <= noise
+              for f in flips]
+    equal_rows = int((one["token_ids"] == two["token_ids"]).all(axis=1).sum())
+    compared = int(sum(f["step"] + 1 for f in flips) + equal_rows * gen_len)
+    check(first_rel <= 0.03, f"{arch} model {t}: first-step logits rel {first_rel}")
+    check(all(at_tie) and len(flips) <= FAMILIES["max_flip_share"] * compared,
+          f"{arch} model {t}: token flips {flips} in {compared} compared "
+          f"decisions (at most a share {FAMILIES['max_flip_share']}, each at "
+          f"a margin <= {noise})")
+    return {"first_step_logits_rel_err": first_rel,
+            "first_step_logits_max_abs_err": first_err,
+            "near_tie_margin": noise,
+            "rows_token_equal": equal_rows, "decisions_compared": compared,
+            "flips": len(flips), "flip_share": len(flips) / compared,
+            "flip_margins_model1": sorted(f["margin_model1"] for f in flips),
+            "first_flips": flips}
+
+
+def loose_to_model_one(one, two) -> dict:
+    """The same readings as ``held_to_model_one``, unchecked."""
+    first_err = float(np.abs(two["first_logits"] - one["first_logits"]).max())
+    return {"first_step_logits_rel_err":
+            first_err / float(np.abs(one["first_logits"]).max()),
+            "rows_token_equal": int((one["token_ids"] == two["token_ids"])
+                                    .all(axis=1).sum())}
+
+
+SERVE_KEEP = ("prefill_ms", "decode_step_ms", "tok_per_s", "peak_mem_gb",
+              "model_wire_bytes_per_step", "model_calls", "kv_layout",
+              "launches", "heads_shards", "fetches")
+
+
+def family_serve(arch: str, n_layers) -> dict:
+    """One arch of D: ``serve_models`` on the seeded bf16 weights, the
+    model axis's bytes a step against the count from the shapes, and the
+    first-step logits and flips held to model = 1.  An arch in
+    ``FAMILIES["held_in_float32"]`` is held in float32 instead, on the same
+    weights cast once (``serve_models`` again): its random-weight model in
+    bf16 turns any change in the order of the roundings into logits
+    further apart than the bound (its bf16 readings are emitted, not
+    held).  Returns the launch counts of each run beside what its path
+    implies."""
+    t_arch = time.perf_counter()
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    traffic = {k: MODEL_SERVE[k] for k in ("batch", "prompt_len", "gen_len",
+                                           "n_requests", "n_pods", "mode")}
+    t = FAMILIES["model"]
+    seeded = lambda dt: init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                                    param_dtype=torch.bfloat16 if dt is None else dt)
+    release()
+    routes = {1: [], t: []}
+    rows, runs, params = serve_models(arch, cfg, seeded(None), traffic, t, routes)
+    wire = model_axis_wire(cfg, params, traffic["batch"], t)
+    del params
+    one, two = rows[1], rows[t]
+    check(two["model_wire_bytes_per_step"] == wire,
+          f"{arch}: {two['model_wire_bytes_per_step']} model-axis bytes a "
+          f"step, the shapes give {wire}")
+    out = {"phase": "model_axis_family", "arch": arch, "widths": "published",
+           "layers": cfg.n_layers, "layers_published": get_config(arch).n_layers,
+           "reduced": ([] if n_layers is None else
+                       [f"depth {n_layers} of {get_config(arch).n_layers} "
+                        "layers (SERVE_DEPTH: the weights of more do not fit "
+                        "the card)"]),
+           **traffic, "grid": {"pod": 1, "data": 1, "model": t},
+           "rules": dict(cfg.rule_overrides) or "SINGLE_POD_RULES",
+           "model_wire_bytes_per_step_analytic": wire,
+           "model_1": {k: one.get(k) for k in SERVE_KEEP},
+           f"model_{t}": {k: two.get(k) for k in SERVE_KEEP}}
+    if arch in FAMILIES["held_in_float32"]:
+        out["bf16_unheld"] = loose_to_model_one(one, two)
+        bf16_one = one["first_logits"]
+        del rows, one, two
+        release()
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        f32 = tree_map(lambda p: p.float(), seeded(None))
+        rows, more, _ = serve_models(arch, cfg32, f32, traffic, t,
+                                     {1: [], t: []}, tag="_f32")
+        del f32
+        runs.update(more)
+        one, two = rows[1], rows[t]
+        out["bf16_unheld"]["model1_bf16_vs_float32_rel"] = float(
+            np.abs(bf16_one - one["first_logits"]).max()
+            / np.abs(one["first_logits"]).max())
+        out["held_in"] = "float32 (the seeded bf16 weights, cast once)"
+        out["float32"] = {"model_1": {k: one.get(k) for k in SERVE_KEEP},
+                          f"model_{t}": {k: two.get(k) for k in SERVE_KEEP}}
+    else:
+        out["held_in"] = "bfloat16"
+    out.update(held_to_model_one(arch, one, two, t, traffic["gen_len"]))
+    del rows, one, two
+    if cfg.n_experts:
+        from repro_torch.models.moe import NEAR_TIE
+        mine = routes[t]
+        check(len(mine) == t * len(routes[1]) and all(
+            torch.equal(mine[c * t].eids, mine[c * t + s].eids)
+            for c in range(len(routes[1])) for s in range(1, t)),
+            f"{arch}: the shards of a MoE call routed differently")
+        # the first MoE layer's calls of the warm-up and the first wave's
+        # prefill read inputs that no route decided: their own picks may
+        # differ from model = 1's only at near-ties
+        per_pass = sum(g.n_layers for g in layer_groups(cfg) if g.moe)
+        firsts = [0, 2 * per_pass]
+        first = route_agreement([routes[1][c] for c in firsts],
+                                [mine[c * t] for c in firsts])
+        check(first["largest_gap"] < NEAR_TIE,
+              f"{arch}: a first-MoE-layer route differs at no near-tie: {first}")
+        out.update(route_agreement(routes[1], mine[::t]),
+                   first_moe_layer_prefills=first,
+                   routes="model = t follows model = 1's expert ids; "
+                          "route_agreement is its own picks'")
+    del routes
+    out["wall_s"] = time.perf_counter() - t_arch
+    emit(out)
+    release()
+    return runs
+
+
+def family_whisper() -> dict:
+    """Whisper-base through ``whisper_serve`` at model = 1 and at model = t
+    on the same weights: its rules split nothing, so every step's logits
+    and every token must be bit-equal, and the kernels launch as often."""
+    t_arch = time.perf_counter()
+    arch, spec, t = "whisper_base", WHISPER, FAMILIES["model"]
+    cfg = get_config(arch)
+    grid = make_debug_mesh(1, model=t, device=DEV)
+    release()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         param_dtype=cfg.dtype)
+    split = specs.shard_params(params, grid, cfg)
+    check(not any(specs.split_leaves(split)), "Whisper's rules split a leaf")
+    runs, rows = {}, {}
+    for model in (1, t):
+        reset_counters()
+        grid.model.reset_counters()
+        r = whisper_serve(cfg, split if model > 1 else params, **spec,
+                          grid=grid if model > 1 else None, keep_logits=True)
+        counts = counts_now()
+        want = expected_launches(cfg, -(-spec["n_requests"] // spec["batch"]),
+                                 spec["gen_len"], warm_up=False)
+        check(counts == want, f"{arch} model {model}: launch counts {counts}, "
+              f"the path implies {want}")
+        runs[f"model_axis_{arch}_{model}"] = (counts, want)
+        r["launches"] = counts
+        rows[model] = r
+    one, two = rows[1], rows[t]
+    equal = (np.array_equal(one["token_ids"], two["token_ids"])
+             and all(torch.equal(a, b) for a, b in zip(one["logits"],
+                                                       two["logits"])))
+    check(equal and len(one["logits"]) == len(two["logits"]),
+          f"{arch}: model {t} is not bit-equal to model 1")
+    keep = ("prefill_ms", "decode_step_ms", "tok_per_s", "launches")
+    emit({"phase": "model_axis_family", "arch": arch, "widths": "published",
+          "layers": cfg.n_layers, "reduced": [], **spec,
+          "grid": {"pod": 1, "data": 1, "model": t},
+          "rules": dict(cfg.rule_overrides), "split_leaves": 0,
+          "bit_equal": {"tokens": int(one["token_ids"].size),
+                        "logit_steps": len(one["logits"])},
+          "model_wire_bytes": grid.model.wire_bytes,
+          "model_wire_bytes_per_step_analytic": 0,
+          "model_1": {k: one.get(k) for k in keep},
+          f"model_{t}": {k: two.get(k) for k in keep},
+          "wall_s": time.perf_counter() - t_arch})
+    check(grid.model.wire_bytes == 0, "Whisper's model axis moved bytes")
+    del params, split, rows, one, two
+    release()
+    return runs
+
+
+def model_axis_families() -> dict:
+    t_part = time.perf_counter()
+    runs = {}
+    for arch, depth in FAMILIES["archs"].items():
+        runs.update(family_serve(arch, depth))
+    runs.update(family_whisper())
+    emit({"phase": "model_axis_families", "archs": list(FAMILIES["archs"])
+          + ["whisper_base"], "wall_s": time.perf_counter() - t_part})
+    return runs
+
+
 def phase_model_axis() -> dict:
     runs = model_axis_serve()
     runs.update(model_axis_train())
     runs.update(model_axis_elastic())
+    runs.update(model_axis_families())
     return runs
 
 
@@ -3055,23 +3394,30 @@ def main() -> None:
         rows = phase_kernels()
     elif "kernels_bwd" in phases:         # K2's backward row alone
         rows = [phase_kernels_bwd()]
-    runs = {}
+    runs, walls = {}, {"kernels": time.perf_counter() - t0}
+
+    def timed_phase(name, fn):
+        t_start = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t_start
+        return out
+
     if "serve" in phases:
-        runs = {arch: phase_serve(arch, n) for arch, n in depth.items()}
-        runs["whisper_base"] = phase_whisper()
+        runs = timed_phase("serve", lambda: dict(
+            {arch: phase_serve(arch, n) for arch, n in depth.items()},
+            whisper_base=phase_whisper()))
     if "parity" in phases:
-        for arch in PARITY:
-            phase_parity(arch)
+        timed_phase("parity", lambda: [phase_parity(arch) for arch in PARITY])
     if "coherence" in phases:
-        phase_coherence()
+        timed_phase("coherence", phase_coherence)
     if "train" in phases:
-        runs["train_yi_6b"] = phase_train()
+        runs["train_yi_6b"] = timed_phase("train", phase_train)
     if "multipod" in phases:
-        runs.update(phase_multipod())
+        runs.update(timed_phase("multipod", phase_multipod))
     if "model_axis" in phases:
-        runs.update(phase_model_axis())
+        runs.update(timed_phase("model_axis", phase_model_axis))
     if "numa_sim" in phases:
-        fifo_row, *runs["numa_sim"] = phase_numa_sim()
+        fifo_row, *runs["numa_sim"] = timed_phase("numa_sim", phase_numa_sim)
         rows.append(fifo_row)
     # every kernel that the path's layer groups need ran, and no other
     for path, (by_name, want) in runs.items():
@@ -3091,6 +3437,8 @@ def main() -> None:
             phase_profile(arch, depth[arch], walks=i == 0)
     if "profile" in phases or "profile_train" in phases:
         phase_profile_train()
+    emit({"phase": "walls", "wall_s": walls,
+          "total_s": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

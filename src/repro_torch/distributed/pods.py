@@ -39,8 +39,11 @@ size 1 when the grid has none).  Training through the ``model`` axis needs
 collectives that differentiate, Megatron's conjugate pair: ``copy_in`` at a
 column-parallel input (identity forward, a sum of the gradients over the
 axis backward) and ``psum`` at a row-parallel output (sum forward, identity
-backward).  ``LoopPods``' views differentiate as they are (``copy_in`` is an
-expand, whose backward sums the shards' gradients in shard order, each
+backward).  An ``all_gather`` whose every shard reads the whole (the MoE
+router's logits, the SSD's B and C, the RG-LRU's gate input) differentiates
+to this shard's slice of the sum of the shards' gradients.  ``LoopPods``'
+views differentiate as they are (``copy_in`` and ``all_gather`` are
+expands, whose backward sums the shards' gradients in shard order, each
 shard's own first, as separate ranks would); ``DistPods`` runs them as
 ``torch.autograd.Function``s.
 """
@@ -214,6 +217,11 @@ class DistPods(Pods):
         return (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad and torch.is_grad_enabled():
+            return _AllGather.apply(x, self)
+        return self._gather(x)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
         self._count("all_gather", self._slice_bytes(x, 1))
         src = self._wire(x[0])
@@ -281,6 +289,24 @@ class _CopyIn(torch.autograd.Function):
     def backward(ctx, grad):
         pods = ctx.pods
         return pods._reduce(grad[None], "psum", pods._dist.ReduceOp.SUM)[0], None
+
+
+class _AllGather(torch.autograd.Function):
+    """The all-gather forward; backward, this shard's slice of the sum over
+    the axis of the gathered tensor's gradients (each shard's work read
+    every slice, so each holds a part of every slice's gradient), as
+    ``LoopPods``' broadcast view sums its shards' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, pods):
+        ctx.pods = pods
+        return pods._gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pods = ctx.pods
+        whole = pods._reduce(grad, "psum", pods._dist.ReduceOp.SUM)
+        return whole[:, pods.rank], None
 
 
 class _CountGrad(torch.autograd.Function):

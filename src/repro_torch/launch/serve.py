@@ -22,11 +22,12 @@ of ``--mode`` (eager or numapte; ``launch/specs.py:build_serve_step`` on
         --pools 4 --mode numapte --replicas
 
 Over the in-pod grid: ``--model 2`` splits the weights over two
-tensor-parallel shards (``LoopPods(2)`` on one card: whole heads a shard,
-one flash and one paged-attention launch a shard a layer, vocab-parallel
+tensor-parallel shards as the config's rules place them (``LoopPods(2)`` on
+one card: whole heads a shard, with one flash and one paged-attention
+launch a shard a layer where the heads split; the FFN by ``ff``, the MoE
+experts by expert, the SSD by head and the RG-LRU by channel; vocab-parallel
 embedding and head), and ``--data 2`` serves each wave's rows as two data
-shards; the dense global-attention configs only (Qwen3-14B, Yi-6B,
-Nemotron-4-15B, Chameleon-34B):
+shards; every decoder-only config:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b \
         --full-width --requests 32 --batch 16 --prompt-len 1024 --gen-len 64 \
@@ -67,13 +68,24 @@ from ..pagedpt.blocktable import (CoherenceMode, eager_sync_bytes,
 from .mesh import make_debug_mesh
 from .specs import (_coherence_prologue, build_serve_step, decode_on_grid,
                     grid_sampler, kv_split, make_rules, prefill_on_grid,
-                    require_model_axis, shard_params, split_leaves, timed,
-                    elapsed_ms)
+                    require_model_axis, shard_params, split_leaves,
+                    state_split, timed, elapsed_ms)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _kv_layout(state) -> str:
+    """How the model axis holds the attention caches: "split" by kv head,
+    "replicated", or "none" (no attention layer)."""
+    for cache in state.caches:
+        for name, split_dim in (("k_slabs", 6), ("ring_k", 6)):
+            if name in cache:
+                return ("split" if cache[name].dim() == split_dim
+                        else "replicated")
+    return "none"
 
 
 @torch.no_grad()
@@ -115,8 +127,9 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
     ``data`` and ``model`` build the grid's in-pod axes (``LoopPods`` on
     this device): each wave's rows split over ``data`` shards, and the
     weights over ``model`` tensor-parallel shards (``params`` may come whole
-    or already split by ``shard_params``); the KV slabs follow the rules
-    table (every config's own keeps them replicated over ``model``), and
+    or already split by ``shard_params``); the KV slabs and rings follow the
+    rules table (every config's own keeps them replicated over ``model``),
+    the recurrent states the split of their layers, and
     the model axis's collective bytes a decode step come back as
     ``model_wire_bytes_per_step``.  ``trace_logits`` = k > 0 adds the first
     decode step's logits of the first wave (``first_logits`` [batch, V]
@@ -135,7 +148,7 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     grid = make_debug_mesh(n_pods if replicas else 1, data=data, model=model,
                            device=device)
-    require_model_axis(cfg, grid)
+    require_model_axis(grid, pooled=n_pools > 1)
     if cfg.family == "encdec":
         # the reference's serve() calls prefill(), which reads the decoder-only
         # embedding an encoder-decoder lacks (ROADMAP queue 3)
@@ -144,9 +157,6 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
             "is served through prefill_encdec + decode_step over a "
             "PagedKVManager's tables (ROADMAP queue 3: the reference's serve() "
             "raises KeyError 'embedding' for it)")
-    if model > 1 and n_pools > 1:
-        raise NotImplementedError("pool-partitioned KV over the model axis "
-                                  "is not ported")
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = init_params(
@@ -163,7 +173,8 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
                         replicas=replicas, device=device)
     state = init_decode_state(cfg, batch, n_frames, max_blocks,
                               n_pools=n_pools, device=device,
-                              kv_split=kv_split(cfg, grid, make_rules(cfg, grid)))
+                              kv_split=kv_split(cfg, grid, make_rules(cfg, grid)),
+                              state_split=state_split(params, grid))
     home = (pool_of_rows(batch, n_pools).tolist() if n_pools > 1
             else [i % n_pods for i in range(batch)])
     pods = grid if replicas else None
@@ -323,8 +334,7 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
                 n_waves * gen_len, 1),
             model_wire_bytes=grid.model.wire_bytes,
             model_calls=dict(grid.model.calls),
-            kv_layout=("split" if state.caches[0]["k_slabs"].dim() == 6
-                       else "replicated"))
+            kv_layout=_kv_layout(state))
     if trace_logits:
         vals = torch.stack([v for v, _ in traced], dim=1).cpu().numpy()
         ids = torch.stack([i for _, i in traced], dim=1).cpu().numpy()

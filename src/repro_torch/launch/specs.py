@@ -6,12 +6,18 @@ The grid (``launch/mesh.py``) is a pod axis carrying ``.data`` and
 ``.model``, each a ``repro_torch.distributed.Pods``: ``LoopPods`` on one
 device, ``DistPods`` over ``torch.distributed``.  ``make_rules`` /
 ``_divisible`` / ``param_shardings`` are the reference's (a spec is a tuple
-in place of a ``PartitionSpec``), with one layout difference: explicit
-tensor parallelism splits attention by whole heads (``_whole_heads``), where
-GSPMD may split ``wq``/``wk``/``wv`` by columns through a head.
-``shard_params`` splits each sharded leaf over the model axis into a
-leading local-shard dimension ``[p, ...]``, as the pod axis does;
-``gather_params`` is its inverse.
+in place of a ``PartitionSpec``), with two layout differences of explicit
+tensor parallelism: attention splits by whole heads (``_whole_heads``),
+where GSPMD may split ``wq``/``wk``/``wv`` by columns through a head; and
+the SSD's fused leaves split by section (``_ssd_split``: shard i takes
+chunk i of each of ``in_proj``'s ``[z | x | B | C | dt]`` and of the conv's
+``[x | B | C]``), where GSPMD splits their columns contiguously, across the
+sections.  ``shard_params`` splits each sharded leaf over the model axis
+into a leading local-shard dimension ``[p, ...]``, as the pod axis does;
+``gather_params`` is its inverse.  Pool-partitioned KV, sequence-parallel
+decode and the int8 pod leg of a model axis split across processes raise
+NotImplementedError naming ROADMAP queue 1 slice 16.1c
+(``require_model_axis``).
 
 The reference also builds ShapeDtypeStruct cells for an XLA dry run on a
 512-device mesh (``build_cell``, ``_state_shardings``, ``PerfOptions``, the
@@ -36,8 +42,7 @@ from ..distributed.sharding import (MULTI_POD_RULES, SINGLE_POD_RULES,
                                     use_rules)
 from ..models import greedy_sample, lm_loss
 from ..models.common import ModelConfig
-from ..models.transformer import (DecodeState, decode_step, prefill,
-                                  require_tensor_parallel, vocab_split)
+from ..models.transformer import DecodeState, decode_step, prefill, vocab_split
 from ..optim import adamw_update
 from ..pagedpt.coherence import eager_sync, numapte_prologue
 
@@ -76,9 +81,13 @@ def _divisible(shape: Tuple[int, ...], spec: Spec, grid: Pods) -> Spec:
 
 
 class Shard(NamedTuple):
-    """A leaf's split: the dimension of the unsharded leaf, over ``axis``."""
+    """A leaf's split: the dimension of the unsharded leaf, over ``axis``;
+    ``sections``: the widths of the sections along it that split one by one
+    (shard i holds chunk i of each, in order), or () for one contiguous
+    split."""
     dim: int
     axis: str
+    sections: Tuple[int, ...] = ()
 
 
 def _whole_heads(name: str, spec: Spec, cfg: ModelConfig, t: int) -> Spec:
@@ -98,6 +107,38 @@ def _whole_heads(name: str, spec: Spec, cfg: ModelConfig, t: int) -> Spec:
     return spec
 
 
+#: the SSD's leaves split over the model axis (the reference's ``ff``), and
+#: the fused ones among them, by their sections
+SSD_SPLIT = ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip",
+             "out_proj")
+SSD_FUSED = ("in_proj", "conv_w", "conv_b")
+
+
+def _ssd_sections(name: str, d_inner: int, n: int, H: int) -> Tuple[int, ...]:
+    """The section widths of a fused SSD leaf along its split dimension:
+    ``in_proj``'s columns ``[z | x | B | C | dt]``, the conv's channels
+    ``[x | B | C]``."""
+    return ((d_inner, d_inner, n, n, H) if name == "in_proj"
+            else (d_inner, n, n))
+
+
+def _ssd_split(name: str, spec: Spec, cfg: ModelConfig, t: int
+               ) -> Optional[Shard]:
+    """The split of an SSD layer's ``SSD_SPLIT`` leaf: a layer splits whole
+    or not at all, each leaf over the model axis when the rules put ``ff``
+    there and t divides its heads H and its state width n (every section
+    then splits evenly), the fused ones section by section.  GSPMD splits
+    each leaf that t divides on its own, and ``in_proj``'s 2 d_inner + 2 n
+    + H columns across its sections; the arithmetic is the same."""
+    shard = _shard_of(spec)
+    if shard is None or cfg.ssm_n_heads % t or cfg.ssm_state % t:
+        return None
+    if name not in SSD_FUSED:
+        return shard
+    return shard._replace(sections=_ssd_sections(
+        name, cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads))
+
+
 def _shard_of(spec: Spec) -> Optional[Shard]:
     for dim, axis in enumerate(spec):
         if axis is None:
@@ -110,11 +151,23 @@ def _shard_of(spec: Spec) -> Optional[Shard]:
     return None
 
 
-def require_model_axis(cfg: ModelConfig, grid: Pods) -> None:
-    """NotImplementedError naming slice 16.1b for a config outside this
-    slice of the model axis, when the grid's model axis is larger than 1."""
-    if grid.model.n > 1:
-        require_tensor_parallel(cfg)
+def require_model_axis(grid: Optional[Pods], *, pooled: bool = False,
+                       sp: bool = False, int8_leg: bool = False) -> None:
+    """NotImplementedError naming ROADMAP queue 1 slice 16.1c for what the
+    model axis does not run yet: pool-partitioned KV (``pooled``),
+    sequence-parallel decode (``sp``), and the int8 pod leg with the model
+    axis split across processes (``int8_leg``).  Every family runs over
+    the model axis otherwise."""
+    if grid is None or grid.model.n == 1:
+        return
+    model = grid.model
+    what = ("pool-partitioned KV" if pooled else
+            "sequence-parallel decode" if sp else
+            "the int8 pod leg with the model axis split across processes"
+            if int8_leg and model.local != model.n else None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} over the model axis waits for ROADMAP queue 1 slice 16.1c")
 
 
 def param_shardings(params: PyTree, grid: Pods, cfg: ModelConfig,
@@ -123,14 +176,19 @@ def param_shardings(params: PyTree, grid: Pods, cfg: ModelConfig,
     whose leaves are named like it: AdamW's moments) -> its ``Shard`` (the
     split dimension and axis) or None (replicated): ``param_pspec`` under
     ``rules`` (default ``make_rules(cfg, grid)``), ``_divisible`` on the
-    grid, then ``_whole_heads``.  Leaves need only ``.shape``."""
-    require_model_axis(cfg, grid)
+    grid, then ``_whole_heads``; an SSD layer's leaves instead by
+    ``_ssd_split`` (before ``_divisible``: its rule looks at the sections,
+    not at ``in_proj``'s whole width), its fused ones carrying their
+    sections.  Leaves need only ``.shape``."""
     rules = rules or make_rules(cfg, grid)
     t = grid.model.n
 
     def one(path, leaf):
         shape = tuple(leaf.shape)
-        spec = _divisible(shape, param_pspec(path, shape), grid)
+        spec = param_pspec(path, shape)
+        if len(path) > 1 and path[-2] == "ssd" and path[-1] in SSD_SPLIT:
+            return _ssd_split(path[-1], spec, cfg, t)
+        spec = _divisible(shape, spec, grid)
         return _shard_of(_whole_heads(path[-1], spec, cfg, t))
 
     with use_rules(rules):
@@ -145,12 +203,22 @@ def kv_split(cfg: ModelConfig, grid: Pods,
     which every config's own rules ask for)."""
     rules = rules or make_rules(cfg, grid)
     t = grid.model.n
-    ax = rules.lookup("kv_heads")
-    axes = ax if isinstance(ax, tuple) else (ax,)
-    if t == 1 or axes != ("model",):
+    on_model = lambda ax: (ax if isinstance(ax, tuple) else (ax,)) == ("model",)
+    if t == 1 or not (on_model(rules.lookup("kv_heads"))
+                      and on_model(rules.lookup("heads"))):
         return 1
     wk = _whole_heads("wk", (None, "model"), cfg, t)
     return t if wk[1] is not None else 1
+
+
+def state_split(params: PyTree, grid: Pods) -> int:
+    """How many model shards split the recurrent layers' decode states (the
+    SSD's and the RG-LRU's ``h`` and conv tail): the model axis's size when
+    ``params`` split those layers' channels over it, else 1."""
+    for path, leaf in tree_leaves_with_path(params):
+        if path[-1] in ("in_proj", "rg_in") and _split_dim(path, leaf) is not None:
+            return grid.model.n
+    return 1
 
 
 #: every logical axis on 'model': the name table's split dimension of a leaf
@@ -187,28 +255,60 @@ def shard_params(params: PyTree, grid: Pods, cfg: ModelConfig,
     if model.n == 1:
         return params
     shards = param_shardings(params, grid, cfg, rules)
-    mine = model.local_indices()
+    return tree_map(lambda leaf, shard: shard_leaf(leaf, shard, model),
+                    params, shards)
 
-    def one(leaf, shard):
-        if shard is None:
-            return leaf
-        pieces = leaf.detach().chunk(model.n, dim=shard.dim)
-        return torch.stack([pieces[i] for i in mine]).contiguous()
 
-    return tree_map(one, params, shards)
+def shard_leaf(leaf: torch.Tensor, shard: Optional[Shard], model: Pods
+               ) -> torch.Tensor:
+    """One leaf of ``shard_params``: its local shards' slices stacked
+    [p, ...] (new contiguous tensors), or the leaf itself when ``shard`` is
+    None."""
+    if shard is None:
+        return leaf
+    parts = (leaf.detach().split(list(shard.sections), dim=shard.dim)
+             if shard.sections else (leaf.detach(),))
+    chunks = [part.chunk(model.n, dim=shard.dim) for part in parts]
+    return torch.stack([torch.cat([c[i] for c in chunks], dim=shard.dim)
+                        for i in model.local_indices()]).contiguous()
+
+
+def _sections_in(tree: PyTree, t: int) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+    """The sections of every split fused SSD leaf of ``tree`` (by path),
+    from its layer's leaves: d_inner from the replicated ``norm_scale``, H
+    and n from the split ``a_log`` and ``conv_b``."""
+    leaves = dict(tree_leaves_with_path(tree))
+    out = {}
+    for path, leaf in leaves.items():
+        if path[-1] != "in_proj" or _split_dim(path, leaf) is None:
+            continue
+        layer = path[:-1]
+        d_inner = leaves[layer + ("norm_scale",)].shape[-1]
+        H = t * leaves[layer + ("a_log",)].shape[-1]
+        n = (t * leaves[layer + ("conv_b",)].shape[-1] - d_inner) // 2
+        for name in SSD_FUSED:
+            out[layer + (name,)] = _ssd_sections(name, d_inner, n, H)
+    return out
 
 
 def gather_params(tree: PyTree, grid: Pods) -> PyTree:
     """``shard_params``' inverse: every split leaf gathered over the model
-    axis into the whole leaf (detached); other leaves as they are."""
+    axis into the whole leaf (detached; a fused SSD leaf section by
+    section); other leaves as they are."""
     model = grid.model
+    sections = _sections_in(tree, model.n)
 
     def one(path, leaf):
         dim = _split_dim(path, leaf)
         if dim is None:
             return leaf
         whole = model.all_gather(leaf.detach())[0]       # [n, ...]
-        return torch.cat(list(whole.unbind(0)), dim=dim)
+        if path not in sections:
+            return torch.cat(list(whole.unbind(0)), dim=dim)
+        widths = [w // model.n for w in sections[path]]
+        pieces = [s.split(widths, dim=dim) for s in whole.unbind(0)]
+        return torch.cat([p[j] for j in range(len(widths)) for p in pieces],
+                         dim=dim)
 
     return tree_map_with_path(one, tree)
 
@@ -287,9 +387,7 @@ def pod_gradients(cfg: ModelConfig, params: PyTree,
     mean, ``tokens`` their sum; the new error buffers, ``ef`` itself for the
     float32 leg)."""
     p, n = pods.local, pods.n
-    if compress_pod_grads and pods.model.local != pods.model.n:
-        raise NotImplementedError("the int8 pod leg over a model axis split "
-                                  "across processes is not ported")
+    require_model_axis(pods, int8_leg=compress_pod_grads)
     stacked, pod_metrics = None, []
     for i, share in enumerate(_split_rows(batch, p)):
         g, m = data_gradients(cfg, params, share, pods)
@@ -322,8 +420,7 @@ def build_train_step(cfg: ModelConfig, compress_pod_grads: bool = False,
     decay is decided on each leaf's unsharded rank.  Returns (params,
     opt_state, metrics), and the new error buffers as a fourth item when the
     leg is compressed or ``ef`` is given."""
-    if pods is not None:
-        require_model_axis(cfg, pods)
+    require_model_axis(pods, int8_leg=compress_pod_grads)
 
     def train_step(params, opt_state, batch, ef=None):
         tp, split = None, None
@@ -370,8 +467,15 @@ def elapsed_ms(pair) -> float:
     return start.elapsed_time(end)
 
 
-def _row_shares(data: Pods, B: int) -> List[slice]:
-    """The rows of a batch of B that each local data shard serves."""
+def _row_shares(data: Pods, B: int, state: DecodeState) -> List[slice]:
+    """The rows of a batch of B that each local data shard serves.  The
+    paged slabs are shared (each row's frames its own); a cache held a row
+    (a ring, a recurrent state, cross K/V) is not split over the data axis
+    yet (ROADMAP queue 1 slice 16.1c)."""
+    if any(name in cache for cache in state.caches
+           for name in ("ring_k", "h", "cross_k")):
+        raise NotImplementedError("per-row caches over the data axis wait "
+                                  "for ROADMAP queue 1 slice 16.1c")
     if B % data.local:
         raise ValueError(f"{B} rows do not split over {data.local} data shards")
     n = B // data.local
@@ -393,7 +497,7 @@ def decode_on_grid(cfg: ModelConfig, params: PyTree, state: DecodeState,
         return decode_step(cfg, params, state, tokens, phys_blocks, sp=sp,
                            pods=grid, tp=tp)
     logits, lens = [], []
-    for rows in _row_shares(data, tokens.shape[0]):
+    for rows in _row_shares(data, tokens.shape[0], state):
         lg, st = decode_step(cfg, params,
                              DecodeState(state.caches, state.seq_lens[rows]),
                              tokens[rows], phys_blocks[rows], sp=sp,
@@ -412,7 +516,7 @@ def prefill_on_grid(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     if data is None or data.local == 1:
         return prefill(cfg, params, tokens, state, phys_blocks, tp=tp)
     logits, lens = [], []
-    for rows in _row_shares(data, tokens.shape[0]):
+    for rows in _row_shares(data, tokens.shape[0], state):
         lg, st = prefill(cfg, params, tokens[rows], state, phys_blocks[rows],
                          tp=tp)
         logits.append(lg)
@@ -446,8 +550,7 @@ def build_serve_step(cfg: ModelConfig, sp: bool = False,
     prologue."""
     if coherence not in ("none", "eager", "numapte"):
         raise ValueError(f"coherence {coherence!r}")
-    if pods is not None:
-        require_model_axis(cfg, pods)
+    require_model_axis(pods, sp=sp)
 
     def step(params, state, tokens, phys_blocks, *coh_args):
         coh_out = None

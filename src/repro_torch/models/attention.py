@@ -18,7 +18,11 @@ K / t kv heads when t divides K, and stay replicated [D, K*hd] otherwise
 shard runs the flash kernel (prefill) or the paged kernel (decode) on its own
 heads, and ``wo``'s partial products are summed over the axis in
 ``cfg.dtype`` (``tp.psum``).  A replicated tensor read inside a shard's work
-enters through ``tp.copy_in``.
+enters through ``tp.copy_in``.  A windowed layer's ring, and a decoder
+layer's cross K/V, follow the paged slabs: split by kv head ``[p, B, ...,
+Ks, hd]`` (one a local shard) or held once ``[B, ..., K, hd]``, each shard
+reading and writing its kv heads of it; the ring decode and the
+cross-attention then run per shard on its heads.
 """
 from __future__ import annotations
 
@@ -114,6 +118,19 @@ def cross_kv(cfg: ModelConfig, p: Dict[str, torch.Tensor], kv_x: torch.Tensor
             v.reshape(B, Se, cfg.n_kv_heads, hd))
 
 
+def _cross(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor,
+           cv: torch.Tensor) -> torch.Tensor:
+    """Unmasked attention of q [B,Sq,H,hd] on ck/cv [B,Se,K,hd] (H a
+    multiple of K), float32 -> [B,Sq,H*hd] in ``cfg.dtype``."""
+    B, Sq, H, hd = q.shape
+    K = ck.shape[2]
+    q = q.reshape(B, Sq, K, H // K, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), ck.float()) * hd ** -0.5
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, cv.float())
+    return out.reshape(B, Sq, H * hd).to(cfg.dtype)
+
+
 def cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                     x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
                     ) -> torch.Tensor:
@@ -123,13 +140,8 @@ def cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     kernels do), then ``wo`` in ``cfg.dtype``.  Plain PyTorch on both
     devices: the flash kernel takes one length for queries and keys."""
     B, Sq, _ = x.shape
-    K, G, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.resolved_head_dim
-    q = (x @ p["wq"].to(cfg.dtype)).reshape(B, Sq, K, G, hd)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), ck.float()) * hd ** -0.5
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, cv.float())
-    out = out.reshape(B, Sq, K * G * hd).to(cfg.dtype)
-    return out @ p["wo"].to(cfg.dtype)
+    q = (x @ p["wq"].to(cfg.dtype)).reshape(B, Sq, cfg.n_heads, -1)
+    return _cross(cfg, q, ck, cv) @ p["wo"].to(cfg.dtype)
 
 
 def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -229,6 +241,15 @@ def _project_shard(cfg: ModelConfig, p: Dict[str, torch.Tensor], i: int,
     return q, k, v
 
 
+def _kv_of(kv: torch.Tensor, i: int, heads: ShardHeads) -> torch.Tensor:
+    """A local shard's part of a layer's ring or cross K/V: its own when
+    split ``[p, B, ..., Ks, hd]``, its kv heads of the one held replicated
+    ``[B, ..., K, hd]`` (a view)."""
+    if kv.dim() == 5:
+        return kv[i]
+    return kv[..., heads.kv0:heads.kv0 + heads.Ks, :]
+
+
 def _shared(p: Dict[str, torch.Tensor], tp: Pods) -> Dict[str, torch.Tensor]:
     names = [n for n in ("q_norm", "k_norm") if n in p]
     if p["wk"].dim() == 2:
@@ -298,6 +319,73 @@ def attn_decode_paged_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     return tp.psum(torch.stack(parts))[0]
 
 
+def cross_kv_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                kv_x: torch.Tensor, tp: Pods
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cross_kv`` of each local shard's kv heads: k, v [p, B, Se, Ks, hd]
+    (a replicated kv projection read through ``tp.copy_in``)."""
+    B, Se, _ = kv_x.shape
+    hd = cfg.resolved_head_dim
+    xin, shared = tp.copy_in(kv_x), _shared(p, tp)
+    ks, vs = [], []
+    for i, shard in enumerate(tp.local_indices()):
+        heads = ShardHeads(cfg, p, shard)
+        if "wk" in shared:
+            cols = slice(heads.kv0 * hd, (heads.kv0 + heads.Ks) * hd)
+            wk, wv = shared["wk"][i][:, cols], shared["wv"][i][:, cols]
+        else:
+            wk, wv = p["wk"][i], p["wv"][i]
+        ks.append((xin[i] @ wk.to(cfg.dtype).to(kv_x.dtype))
+                  .reshape(B, Se, heads.Ks, hd))
+        vs.append((xin[i] @ wv.to(cfg.dtype).to(kv_x.dtype))
+                  .reshape(B, Se, heads.Ks, hd))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def cross_attention_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                       x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                       tp: Pods) -> torch.Tensor:
+    """``cross_attention`` over the model axis: each local shard's query
+    heads on its kv heads of ck / cv (``_kv_of``: split [p, B, Se, Ks, hd]
+    or replicated [B, Se, K, hd]), then its rows of ``wo``, summed over the
+    axis."""
+    B, Sq, _ = x.shape
+    xin = tp.copy_in(x)
+    parts = []
+    for i, shard in enumerate(tp.local_indices()):
+        heads = ShardHeads(cfg, p, shard)
+        q = (xin[i] @ p["wq"][i].to(cfg.dtype)).reshape(B, Sq, heads.Hs, -1)
+        out = _cross(cfg, q, _kv_of(ck, i, heads), _kv_of(cv, i, heads))
+        parts.append(out @ p["wo"][i].to(cfg.dtype))
+    return tp.psum(torch.stack(parts))[0]
+
+
+def _ring_step(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+               ring_k: torch.Tensor, ring_v: torch.Tensor,
+               positions: torch.Tensor, window: int) -> torch.Tensor:
+    """The ring decode of one step: q [B,H,hd] on rings [B,window,K,hd]
+    (written in place: the new k, v [B,K,hd] go to slot positions %
+    window) -> [B, H*hd] float32."""
+    B, H, hd = q.shape
+    K = ring_k.shape[2]
+    pos = positions.long()
+    rows = torch.arange(B, device=q.device)
+    ring_k[rows, pos % window] = k_new.to(ring_k.dtype)
+    ring_v[rows, pos % window] = v_new.to(ring_v.dtype)
+    scores = torch.einsum("bkgd,bskd->bkgs",
+                          q.reshape(B, K, H // K, hd).float(),
+                          ring_k.float()) * hd ** -0.5
+    idx = torch.arange(window, device=q.device)[None, :]
+    pos = pos[:, None]
+    pos_in_slot = pos - (pos - idx) % window
+    valid = ((pos_in_slot >= 0) & (pos_in_slot >= pos - window + 1)
+             & (pos_in_slot <= pos))
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, ring_v.float())
+    return out.reshape(B, H * hd)
+
+
 def attn_decode_ring(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                      x: torch.Tensor, positions: torch.Tensor,
                      ring_k: torch.Tensor, ring_v: torch.Tensor, *,
@@ -313,22 +401,33 @@ def attn_decode_ring(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     and the product with V are float32.  Returns (attn_out [B,1,D], ring_k,
     ring_v)."""
     B = x.shape[0]
-    K, G, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.resolved_head_dim
     q, k_new, v_new = project_qk_rope_v(cfg, p, x, rope)
-    pos = positions.long()
-    rows = torch.arange(B, device=x.device)
-    ring_k[rows, pos % window] = k_new[:, 0].to(ring_k.dtype)
-    ring_v[rows, pos % window] = v_new[:, 0].to(ring_v.dtype)
-    scores = torch.einsum("bkgd,bskd->bkgs",
-                          q[:, 0].reshape(B, K, G, hd).float(),
-                          ring_k.float()) * hd ** -0.5
-    idx = torch.arange(window, device=x.device)[None, :]
-    pos = pos[:, None]
-    pos_in_slot = pos - (pos - idx) % window
-    valid = ((pos_in_slot >= 0) & (pos_in_slot >= pos - window + 1)
-             & (pos_in_slot <= pos))
-    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", probs, ring_v.float())
-    out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.dtype)
+    out = _ring_step(q[:, 0], k_new[:, 0], v_new[:, 0], ring_k, ring_v,
+                     positions, window)
+    out = out.reshape(B, 1, -1).to(cfg.dtype)
     return out @ p["wo"].to(cfg.dtype), ring_k, ring_v
+
+
+def attn_decode_ring_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                        x: torch.Tensor, positions: torch.Tensor,
+                        rings: Tuple[torch.Tensor, torch.Tensor], *,
+                        rope: Optional[Rope], tp: Pods, window: int
+                        ) -> torch.Tensor:
+    """``attn_decode_ring`` over the model axis: each local shard projects
+    its heads and decodes them from its kv heads of this layer's rings
+    (split [p, B, W, Ks, hd] or replicated [B, W, K, hd], ``_kv_of``; written
+    in place), then its rows of ``wo``, summed over the axis.  Returns the
+    replicated attention output [B,1,D]."""
+    B = x.shape[0]
+    xin, shared = tp.copy_in(x), _shared(p, tp)
+    parts: List[torch.Tensor] = []
+    for i, shard in enumerate(tp.local_indices()):
+        heads = ShardHeads(cfg, p, shard)
+        q, k_new, v_new = _project_shard(cfg, p, i, heads, xin[i], shared,
+                                         rope)
+        out = _ring_step(q[:, 0], k_new[:, 0], v_new[:, 0],
+                         _kv_of(rings[0], i, heads), _kv_of(rings[1], i, heads),
+                         positions, window)
+        parts.append(out.reshape(B, 1, -1).to(cfg.dtype)
+                     @ p["wo"][i].to(cfg.dtype))
+    return tp.psum(torch.stack(parts))[0]

@@ -16,13 +16,27 @@ device:
     expert order in ``cfg.dtype``, the order in which the reference's
     scatter-add rounds them; an ``index_add_`` would add in a different
     order on each CUDA run.
+
+Over the grid's ``model`` axis (``tp``; the reference's ``experts`` rule)
+the layer is expert-parallel: ``we_in``/``we_gate``/``we_out`` hold each
+local shard's E/t experts ``[p, E/t, ...]`` and ``router`` its E/t columns.
+Each shard computes its columns of the router logits; one all-gather gives
+every shard the whole ``[N, E]``, so every shard takes the same top-k,
+capacity and dispatch.  Each shard runs its experts' slots and gathers its
+partial combine (its experts' results, in ascending expert order, zeros for
+the others'), a ``shared`` expert split by ``ff`` adds its partial, and one
+``tp.psum`` sums the partials in ``cfg.dtype``: the reference's one
+scatter-add becomes a sum of per-shard sums (only the order of the
+``cfg.dtype`` additions differs).  The aux loss comes from the gathered
+probabilities, replicated, and is not summed over the axis.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..distributed.pods import Pods
 from .common import ModelConfig, _dense, activation, ffn_has_gate
 from .ffn import ffn_forward, init_ffn
 
@@ -61,12 +75,14 @@ class Routes(NamedTuple):
     gates: torch.Tensor     # [N,k] float32, renormalised over the k
 
 
-def route(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor
-          ) -> Routes:
-    """Router product in ``cfg.dtype``, softmax in float32, top-k as the
-    first k of a stable descending sort (ties go to the lower expert id)."""
-    logits = (xf @ p["router"].to(cfg.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)
+def route(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
+          logits: Optional[torch.Tensor] = None) -> Routes:
+    """Router product in ``cfg.dtype`` (or its given ``logits`` [N,E]),
+    softmax in float32, top-k as the first k of a stable descending sort
+    (ties go to the lower expert id)."""
+    if logits is None:
+        logits = xf @ p["router"].to(cfg.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token
     gates = vals[:, :k]
@@ -133,31 +149,31 @@ def dispatch(routes: Routes, n_experts: int, capacity: int) -> Dispatch:
                     slot.reshape(N, K))
 
 
-def moe_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B,S,D] -> (out [B,S,D], aux: the Switch load-balance loss, a
-    float32 scalar).  Capacity comes from the N = B*S tokens of this call."""
-    B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.experts_per_token
-    N = B * S
-    xf = x.reshape(N, D)
-    routes = route(cfg, p, xf)
-
-    # load-balance auxiliary loss (Switch); counts by a scatter, which unlike
-    # bincount does not wait for the card
+def _aux_loss(routes: Routes, E: int) -> torch.Tensor:
+    """The Switch load-balance loss of one call's routes (counts by a
+    scatter, which unlike bincount does not wait for the card)."""
+    N = routes.eids.shape[0]
     flat = routes.eids.reshape(-1)
-    counts = torch.zeros((E,), dtype=torch.float32, device=x.device).scatter_add_(
+    counts = torch.zeros((E,), dtype=torch.float32,
+                         device=flat.device).scatter_add_(
         0, flat, torch.ones_like(flat, dtype=torch.float32))
-    aux = E * torch.sum(routes.probs.mean(dim=0) * (counts / N))
+    return E * torch.sum(routes.probs.mean(dim=0) * (counts / N))
 
-    C = expert_capacity(N, E, K, cfg.moe_capacity_factor)
-    disp = dispatch(routes, E, C)
 
-    # the experts: three batched products over every expert's C slots; each
-    # activation is freed once the next product has it (at full-width prefill
-    # xe alone is 1.3-2.4 GB)
+def _experts(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
+             disp: Dispatch, routes: Routes, first: int = 0) -> torch.Tensor:
+    """The experts ``first``, ``first`` + 1, ... held in ``p`` (all E, or
+    a shard's E/t) over their rows of the dispatch, and the combine of
+    their results [N, D]: each token's kept results among these experts,
+    added in ascending expert order in ``cfg.dtype`` (as the reference's
+    scatter-add adds them); a dropped assignment, or one to an expert held
+    elsewhere, adds the zero row.  Three batched products over the
+    experts' C slots; each activation is freed once the next product has it
+    (at full-width prefill xe alone is 1.3-2.4 GB)."""
+    N, D = xf.shape
+    Eh, C = p["we_in"].shape[0], disp.tok.shape[1]
     x_pad = torch.cat([xf, xf.new_zeros((1, D))])
-    xe = x_pad[disp.tok]                                     # [E,C,D]
+    xe = x_pad[disp.tok[first:first + Eh]]                   # [Eh,C,D]
     h = torch.bmm(xe, p["we_in"].to(cfg.dtype))
     gate = torch.bmm(xe, p["we_gate"].to(cfg.dtype)) if "we_gate" in p else None
     del xe
@@ -165,17 +181,71 @@ def moe_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
     del gate
     ye = torch.bmm(h, p["we_out"].to(cfg.dtype))
     del h
-    ye = (ye * disp.w[..., None].to(cfg.dtype)).reshape(E * C, D)
-    ye = torch.cat([ye, ye.new_zeros((1, D))])     # the sentinel slot E*C
-
-    # the combine: each token's kept results, added in ascending expert order
-    # in cfg.dtype, as the reference's scatter-add adds them; a dropped
-    # assignment adds the zero row
+    w = disp.w[first:first + Eh, :, None].to(cfg.dtype)
+    ye = (ye * w).reshape(Eh * C, D)
+    ye = torch.cat([ye, ye.new_zeros((1, D))])     # the sentinel slot Eh*C
     by_expert = torch.argsort(routes.eids, dim=-1)
-    slots = torch.gather(disp.slot, 1, by_expert)            # [N,k]
+    slots = torch.gather(disp.slot, 1, by_expert) - first * C       # [N,k]
+    slots = torch.where((slots >= 0) & (slots < Eh * C), slots,
+                        torch.full_like(slots, Eh * C))
     out = ye[slots[:, 0]]
-    for j in range(1, K):
+    for j in range(1, slots.shape[1]):
         out = out + ye[slots[:, j]]
+    return out
+
+
+def moe_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                tp: Optional[Pods] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,D] -> (out [B,S,D], aux: the Switch load-balance loss, a
+    float32 scalar).  Capacity comes from the N = B*S tokens of this call.
+    ``tp``: the model axis (expert-parallel when the experts are split over
+    it: module doc)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    N = B * S
+    xf = x.reshape(N, D)
+    C = expert_capacity(N, E, K, cfg.moe_capacity_factor)
+    if tp is not None and p["we_in"].dim() == 4:
+        out, aux = _moe_tp(cfg, p, xf, C, tp)
+        return out.reshape(B, S, D), aux
+    routes = route(cfg, p, xf)
+    aux = _aux_loss(routes, E)
+    out = _experts(cfg, p, xf, dispatch(routes, E, C), routes)
     if cfg.n_shared_experts:
-        out = out + ffn_forward(cfg, p["shared"], xf[None])[0]
+        out = out + ffn_forward(cfg, p["shared"], xf[None], tp)[0]
     return out.reshape(B, S, D), aux
+
+
+def _moe_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
+            C: int, tp: Pods) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel layer over ``tp`` (module doc): the combined
+    output [N, D], replicated, and the aux loss.  The aux loss is taken
+    once, on shard 0's routes: on a rank without shard 0 it is that rank's
+    equal value, detached, so that the all-gather's backward (a sum over
+    the shards) counts its gradient once."""
+    E = cfg.n_experts
+    xin = tp.copy_in(xf)
+    local = torch.stack([xin[i] @ p["router"][i].to(cfg.dtype)
+                         for i in range(tp.local)])          # [p, N, E/t]
+    gathered = tp.all_gather(local)                           # [p, t, N, E/t]
+    shared = p.get("shared")
+    split_shared = shared is not None and shared["w_in"].dim() == 3
+    aux, parts = None, []
+    for i, shard in enumerate(tp.local_indices()):
+        logits = gathered[i].movedim(0, -2).flatten(-2)        # [N, E]
+        routes = route(cfg, p, xin[i], logits=logits)
+        if i == 0:
+            aux = _aux_loss(routes, E)
+            if shard != 0:
+                aux = aux.detach()
+        mine = {k: p[k][i] for k in ("we_in", "we_gate", "we_out") if k in p}
+        part = _experts(cfg, mine, xin[i], dispatch(routes, E, C), routes,
+                        first=shard * p["we_in"].shape[1])
+        if split_shared:
+            part = part + ffn_forward(cfg, {k: w[i] for k, w in shared.items()},
+                                      xin[i][None])[0]
+        parts.append(part)
+    out = tp.psum(torch.stack(parts))[0]
+    if shared is not None and not split_shared:
+        out = out + ffn_forward(cfg, shared, xf[None])[0]
+    return out, aux

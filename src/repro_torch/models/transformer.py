@@ -23,17 +23,24 @@ config sets, raises NotImplementedError naming its ROADMAP item.
 
 Over the grid's ``model`` axis (``tp``: a ``Pods``, tensor parallelism; the
 parameters from ``launch/specs.py:shard_params``, a split leaf carrying a
-leading local-shard dimension) the dense global-attention families run
-Megatron's layout: attention and FFN as in ``attention.py`` / ``ffn.py``,
-a vocab-parallel embedding (each shard looks up the ids in its range, the
-others' rows are exact zeros, and the sum over the axis equals the
-unsharded lookup bit for bit) and head (each shard's logits ``[p, ...,
-V/t]``; ``lm_loss`` builds the log-softmax from ``pmax`` and ``psum`` of the
-local logits, and ``greedy_sample`` picks across the shards, so the whole
-``[.., V]`` is never gathered).  Decode reads the paged slabs replicated
-``[L, N, bt, K, hd]`` (each shard its kv heads) or split ``[L, t, N, bt,
-K/t, hd]`` (``init_decode_state(kv_split=t)``).  Other families raise
-NotImplementedError naming slice 16.1b.  Without ``tp``, or with an axis of
+leading local-shard dimension) every family runs as the reference's rules
+place it, each layer by what its leaves say is split: attention by heads
+(global, windowed, the encoder's, the decoder's self- and
+cross-attention), the dense FFN by ``ff`` (``attention.py`` / ``ffn.py``),
+the MoE experts by expert (``moe.py``), the SSD by head and the RG-LRU by
+channel (``ssm.py`` / ``rglru.py``); a layer whose leaves are whole runs
+replicated, once.  The embedding is vocab-parallel (each shard looks up the
+ids in its range, the others' rows are exact zeros, and the sum over the
+axis equals the unsharded lookup bit for bit) and so is the head (each
+shard's logits ``[p, ..., V/t]``; ``lm_loss`` builds the log-softmax from
+``pmax`` and ``psum`` of the local logits, and ``greedy_sample`` picks
+across the shards, so the whole ``[.., V]`` is never gathered); the
+encoder-decoder's ``dec_embedding`` stays whole.  Decode reads the paged
+slabs, the rings and the cross K/V replicated (each shard its kv heads) or
+split ``[L, t, ..., K/t, hd]`` (``init_decode_state(kv_split=t)``), and the
+recurrent states per shard (``state_split=t``).  Pool-partitioned KV and
+sequence-parallel decode over the model axis raise NotImplementedError
+naming ROADMAP queue 1 slice 16.1c.  Without ``tp``, or with an axis of
 size 1, every path is the one above.
 """
 from __future__ import annotations
@@ -48,10 +55,11 @@ from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves
 from ..distributed.pods import Pods
 from ..kvcache.gather import scatter_prefill_plain, scatter_prefill_pooled
-from .attention import (attend, attend_tp, attn_decode_paged,
-                        attn_decode_paged_tp, attn_decode_ring,
-                        cross_attention, cross_kv, heads_sharded, init_attn,
-                        project_qk_rope_v, rope_for)
+from .attention import (ShardHeads, _kv_of, attend, attend_tp,
+                        attn_decode_paged, attn_decode_paged_tp,
+                        attn_decode_ring, attn_decode_ring_tp, cross_attention,
+                        cross_attention_tp, cross_kv, cross_kv_tp,
+                        heads_sharded, init_attn, project_qk_rope_v, rope_for)
 from .common import (SHAPES_ONLY, LayerGroup, ModelConfig, _dense, apply_norm,
                      init_norm, require_ported)
 from .ffn import ffn_forward, init_ffn
@@ -170,25 +178,9 @@ def params_from_jax(cfg: ModelConfig, tree: PyTree, *,
 ATTN_KINDS = ("attn", "enc_attn", "dec_attn")
 
 
-def model_axis(cfg: ModelConfig, tp: Optional[Pods]) -> Optional[Pods]:
-    """``tp`` when it splits the model (size > 1), else None; raises
-    NotImplementedError for a config outside this slice of the model axis
-    (every layer global attention with a dense FFN)."""
-    if tp is None or tp.n == 1:
-        return None
-    require_tensor_parallel(cfg)
-    return tp
-
-
-def require_tensor_parallel(cfg: ModelConfig) -> None:
-    """NotImplementedError naming slice 16.1b unless every layer of ``cfg``
-    is global attention with a dense FFN."""
-    if any(g.kind != "attn" or g.window is not None or g.moe
-           for g in require_ported(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: the model axis covers the dense global-attention "
-            "families; MoE experts, SSD / RG-LRU, windowed (ring) layers and "
-            "the encoder-decoder wait for ROADMAP queue 1 slice 16.1b")
+def model_axis(tp: Optional[Pods]) -> Optional[Pods]:
+    """``tp`` when it splits the model (size > 1), else None."""
+    return None if tp is None or tp.n == 1 else tp
 
 
 def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
@@ -241,8 +233,10 @@ def _lm_head(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
 
 
 def vocab_split(params: PyTree) -> bool:
-    """Whether the head's logits come as vocab shards [p, ..., V/t]."""
-    return params.get("lm_head", params.get("embedding")).dim() == 3
+    """Whether the head's logits come as vocab shards [p, ..., V/t] (never
+    for an encoder-decoder: ``dec_embedding`` has no split in the rules)."""
+    head = params.get("lm_head", params.get("embedding"))
+    return head is not None and head.dim() == 3
 
 
 def gather_vocab(logits: torch.Tensor, tp: Pods) -> torch.Tensor:
@@ -259,7 +253,7 @@ def _ffn_block(cfg: ModelConfig, lp: PyTree, x: torch.Tensor,
     ``moe``), and the MoE auxiliary loss (None for a dense layer)."""
     h = apply_norm(cfg, x, lp["norm2"])
     if "moe" in lp:
-        f, aux = moe_forward(cfg, lp["moe"], h)
+        f, aux = moe_forward(cfg, lp["moe"], h, tp)
         return x + f, aux
     return x + ffn_forward(cfg, lp["ffn"], h, tp), None
 
@@ -290,20 +284,31 @@ def _store_kv(cfg: ModelConfig, g: LayerGroup, cache: Dict[str, torch.Tensor],
         scatter(cache["k_slabs"][li], cache["v_slabs"][li], k, v, phys_blocks,
                 positions, cfg.kv_block_tokens)
         return
-    W, S = g.window, k.shape[1]
+    _store_ring((cache["ring_k"][li], cache["ring_v"][li]), k, v, g.window)
+
+
+def _store_ring(rings: Tuple[torch.Tensor, torch.Tensor], k: torch.Tensor,
+                v: torch.Tensor, W: int) -> None:
+    """The last ``min(S, W)`` tokens of k, v [B,S,K,hd] into rings [B,W,K,hd]
+    (views allowed) rebuilt from zeros."""
+    S = k.shape[1]
     src = torch.arange(max(S - W, 0), S, device=k.device)
-    for name, t in (("ring_k", k), ("ring_v", v)):
-        ring = cache[name][li]
+    for ring, t in zip(rings, (k, v)):
         ring.zero_()
         ring[:, src % W] = t[:, src].to(ring.dtype)
 
 
-def _store_kv_shard(cfg: ModelConfig, cache: Dict[str, torch.Tensor], li: int,
+def _store_kv_shard(cfg: ModelConfig, g: LayerGroup,
+                    cache: Dict[str, torch.Tensor], li: int,
                     positions: torch.Tensor, phys_blocks: torch.Tensor):
     """The prefill's cache write of one model shard (``attend_tp``'s
-    ``store``): its kv heads of the replicated slabs, or its own split
-    slabs."""
+    ``store``): its kv heads of the replicated slabs or ring, or its own
+    split slabs or ring."""
     def store(i, heads, k, v):
+        if "ring_k" in cache:
+            _store_ring((_kv_of(cache["ring_k"][li], i, heads),
+                         _kv_of(cache["ring_v"][li], i, heads)), k, v, g.window)
+            return
         ks, vs = cache["k_slabs"][li], cache["v_slabs"][li]
         if ks.dim() == 5:                     # split [p, N, bt, Ks, hd]
             ks, vs = ks[i], vs[i]
@@ -330,40 +335,58 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
     rope = (rope_for(cfg, positions, g.rope_theta) if g.kind in ATTN_KINDS
             else None)
     aux: Optional[torch.Tensor] = None
+    causal = g.kind != "enc_attn"
     for li, lp in enumerate(gp):
         h = apply_norm(cfg, x, lp["norm1"])
         if g.kind in ("ssd", "rglru"):
             fwd = ssd_forward if g.kind == "ssd" else rglru_forward
             if cache is None:
-                out = fwd(cfg, lp[g.kind], h)
+                out = fwd(cfg, lp[g.kind], h, tp=tp)
             else:
-                out, state = fwd(cfg, lp[g.kind], h, return_state=True)
+                out, state = fwd(cfg, lp[g.kind], h, return_state=True, tp=tp)
                 _store_state(cache, li, state)
             x = x + out
             if g.kind == "ssd":             # an SSD layer has no FFN
                 continue
         elif tp is not None and heads_sharded(lp["attn"]):
             store = (None if cache is None else
-                     _store_kv_shard(cfg, cache, li, positions, phys_blocks))
-            x = x + attend_tp(cfg, lp["attn"], h, rope, tp, window=g.window,
-                              store=store)
+                     _store_kv_shard(cfg, g, cache, li, positions, phys_blocks))
+            x = x + attend_tp(cfg, lp["attn"], h, rope, tp, causal=causal,
+                              window=g.window, store=store)
         else:
             q, k, v = project_qk_rope_v(cfg, lp["attn"], h, rope)
-            a = attend(cfg, lp["attn"], q, k, v, causal=g.kind != "enc_attn",
+            a = attend(cfg, lp["attn"], q, k, v, causal=causal,
                        window=g.window)
             if cache is not None:
                 _store_kv(cfg, g, cache, li, k, v, positions, phys_blocks)
             x = x + a
-            if g.kind == "dec_attn":
-                ck, cv = ((cache["cross_k"][li], cache["cross_v"][li])
-                          if cache is not None
-                          else cross_kv(cfg, lp["cross"], enc_out))
-                h = apply_norm(cfg, x, lp["norm_cross"])
-                x = x + cross_attention(cfg, lp["cross"], h, ck, cv)
+        if g.kind == "dec_attn":
+            ck, cv = ((cache["cross_k"][li], cache["cross_v"][li])
+                      if cache is not None
+                      else _cross_kv(cfg, lp["cross"], enc_out, tp))
+            h = apply_norm(cfg, x, lp["norm_cross"])
+            x = x + _cross_attend(cfg, lp["cross"], h, ck, cv, tp)
         x, a = _ffn_block(cfg, lp, x, tp)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
+
+
+def _cross_kv(cfg: ModelConfig, p: PyTree, enc_out: torch.Tensor,
+              tp: Optional[Pods]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross K/V of ``enc_out``: [B, Se, K, hd], or each
+    local shard's [p, B, Se, Ks, hd] when its heads split over ``tp``."""
+    if tp is not None and heads_sharded(p):
+        return cross_kv_tp(cfg, p, enc_out, tp)
+    return cross_kv(cfg, p, enc_out)
+
+
+def _cross_attend(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
+                  ck: torch.Tensor, cv: torch.Tensor,
+                  tp: Optional[Pods]) -> torch.Tensor:
+    if tp is not None and heads_sharded(p):
+        return cross_attention_tp(cfg, p, x, ck, cv, tp)
+    return cross_attention(cfg, p, x, ck, cv)
 
 
 def forward_lm(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
@@ -374,7 +397,7 @@ def forward_lm(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     config.  Over a vocab-split model axis ``tp`` the logits are the local
     shards' [p,B,S,V/t] (``gather_vocab`` joins them)."""
     groups = require_ported(cfg)
-    tp = model_axis(cfg, tp)
+    tp = model_axis(tp)
     x = _embed(cfg, params, tokens, tp)
     positions = _positions(*tokens.shape, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -405,8 +428,8 @@ def _round_weights(tree: PyTree, dtype) -> PyTree:
     return tree.to(dtype).float() if tree.dim() >= 2 else tree
 
 
-def _encode(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor
-            ) -> torch.Tensor:
+def _encode(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
+            tp: Optional[Pods] = None) -> torch.Tensor:
     """The encoder over frame embeddings enc_feats [B,Se,D] (the audio
     frontend is a stub, as in the reference) -> enc_out [B,Se,D] float32.
 
@@ -414,53 +437,62 @@ def _encode(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor
     its type promotion then carries the whole encoder in float32, each
     product on weights rounded to ``cfg.dtype``.  The port computes the
     same: the encoder's layers under a float32 config, on its matrices
-    rounded once."""
+    rounded once.  ``tp``: the model axis."""
     B, Se, _ = enc_feats.shape
     g = require_ported(cfg)[0]
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     x = (enc_feats.to(cfg.dtype).float()
          + _sinusoids(Se, cfg.d_model, enc_feats.device)[None])
     x, _ = _run_group(cfg32, g, _round_weights(params["groups"][0], cfg.dtype),
-                      x, _positions(B, Se, x.device))
+                      x, _positions(B, Se, x.device), tp=tp)
     return apply_norm(cfg32, x, params["enc_norm"])
 
 
 def forward_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
-                   dec_tokens: torch.Tensor
+                   dec_tokens: torch.Tensor, tp: Optional[Pods] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whisper-style: enc_feats [B,Se,D] (frontend stub), dec_tokens [B,Sd]
-    -> (logits [B,Sd,V], aux (zero: no MoE))."""
+    -> (logits [B,Sd,V], aux (zero: no MoE)).  ``tp``: the model axis."""
     dec_g = require_ported(cfg)[1]
-    enc_out = _encode(cfg, params, enc_feats)
+    tp = model_axis(tp)
+    enc_out = _encode(cfg, params, enc_feats, tp)
     positions = _positions(*dec_tokens.shape, dec_tokens.device)
     y = _dec_embed(cfg, params, dec_tokens, positions)
     y, _ = _run_group(cfg, dec_g, params["groups"][1], y, positions,
-                      enc_out=enc_out)
+                      enc_out=enc_out, tp=tp)
     return (_lm_head(cfg, params, y),
             torch.zeros((), dtype=torch.float32, device=y.device))
 
 
 def prefill_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
                    dec_tokens: torch.Tensor, state: "DecodeState",
-                   phys_blocks: torch.Tensor
+                   phys_blocks: torch.Tensor, tp: Optional[Pods] = None
                    ) -> Tuple[torch.Tensor, "DecodeState"]:
     """Whisper-style prefill: run the encoder, fill each decoder layer's
     cross K/V from its output, then prefill the decoder prompt [B,Sd] (its
     self-attention K/V scattered into the paged slabs through the block
     table).  The caches of ``state`` (made with ``enc_len`` = Se) are
-    written in place.  Returns (logits of the last position [B,V], state)."""
+    written in place.  ``tp``: the model axis (each shard's cross K/V into
+    its split cache, or into its kv heads of the replicated one).  Returns
+    (logits of the last position [B,V], state)."""
     dec_g = require_ported(cfg)[1]
+    tp = model_axis(tp)
     dec_cache, dp = state.caches[1], params["groups"][1]
-    enc_out = _encode(cfg, params, enc_feats)
+    enc_out = _encode(cfg, params, enc_feats, tp)
     for li, lp in enumerate(dp):
-        ck, cv = cross_kv(cfg, lp["cross"], enc_out)
-        dec_cache["cross_k"][li].copy_(ck)
-        dec_cache["cross_v"][li].copy_(cv)
+        ck, cv = _cross_kv(cfg, lp["cross"], enc_out, tp)
+        for name, kv in (("cross_k", ck), ("cross_v", cv)):
+            cache = dec_cache[name][li]
+            if ck.dim() == 4 or cache.dim() == 5:      # whole, or split alike
+                cache.copy_(kv)
+                continue
+            for i, shard in enumerate(tp.local_indices()):
+                _kv_of(cache, i, ShardHeads(cfg, lp["cross"], shard)).copy_(kv[i])
     B, Sd = dec_tokens.shape
     positions = _positions(B, Sd, dec_tokens.device)
     y = _dec_embed(cfg, params, dec_tokens, positions)
     y, _ = _run_group(cfg, dec_g, dp, y, positions, cache=dec_cache,
-                      phys_blocks=phys_blocks)
+                      phys_blocks=phys_blocks, tp=tp)
     logits = _lm_head(cfg, params, y[:, -1])
     seq_lens = torch.full((B,), Sd, dtype=torch.int32, device=y.device)
     return logits, DecodeState(state.caches, seq_lens)
@@ -492,14 +524,14 @@ def lm_loss(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor],
     dropped with the inputs).  ``tp``: the model axis (the log-softmax over
     vocab shards, never gathered).  Returns (total, {loss, aux, tokens})."""
     tokens = batch["tokens"]
+    tp = model_axis(tp)
     if cfg.family == "encdec":
         logits, aux = forward_encdec(cfg, params, batch["enc_feats"],
-                                     tokens[:, :-1])
+                                     tokens[:, :-1], tp)
     else:
-        tp = model_axis(cfg, tp)
         logits, aux = forward_lm(cfg, params, tokens[:, :-1], tp)
     targets = tokens[:, 1:].long()
-    if cfg.family != "encdec" and tp is not None and vocab_split(params):
+    if tp is not None and vocab_split(params):
         ll = _vocab_parallel_ll(logits, targets, tp)
     else:
         logp = torch.log_softmax(logits.float(), dim=-1)
@@ -525,7 +557,7 @@ class DecodeState(NamedTuple):
 
 def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
                       max_blocks: int, *, enc_len: int = 0, n_pools: int = 1,
-                      kv_split: int = 1, dtype=None,
+                      kv_split: int = 1, state_split: int = 1, dtype=None,
                       device: DeviceLike = None) -> DecodeState:
     """n_blocks: physical KV frames in the pool; max_blocks: per-seq table;
     enc_len: encoder frames (the cross K/V of an encoder-decoder).  Global
@@ -534,10 +566,13 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
     n_pools, bt, K, hd]`` (numaPTE's partitioned KV: each row's frames in
     its own pool); windowed groups a ring of ``window`` slots per sequence,
     SSD and RG-LRU groups a float32 state ``h`` and a conv tail, the encoder
-    nothing.  ``kv_split`` = t > 1 splits the slabs' kv heads over t model
-    shards, ``[L, t, n_blocks, bt, K / t, hd]`` (one contiguous paged-kernel
-    operand a shard); the default holds them once, replicated over the
-    model axis.  All zeros: a masked slot must hold a finite value."""
+    nothing.  ``kv_split`` = t > 1 splits the slabs', the rings' and the
+    cross K/V's kv heads over t model shards, ``[L, t, ..., K / t, hd]``
+    (one contiguous paged-kernel operand a shard); the default holds them
+    once, replicated over the model axis.  ``state_split`` = t > 1 holds
+    each model shard's recurrent state, ``[L, t, ...]`` of its heads or
+    channels (``launch/specs.py:state_split``).  All zeros: a masked slot
+    must hold a finite value."""
     if kv_split > 1 and (n_pools > 1 or cfg.n_kv_heads % kv_split):
         raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over "
                          f"{kv_split} shards of one pool")
@@ -547,27 +582,32 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
     dtype = dtype or cfg.dtype
     hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
     bt, W1 = cfg.kv_block_tokens, cfg.conv_width - 1
+    kv = ((kv_split,) if kv_split > 1 else (), K // kv_split)
+    ts = state_split
+    rec = (ts,) if ts > 1 else ()
     caches: List[Dict[str, torch.Tensor]] = []
     for g in require_ported(cfg):
         L = g.n_layers
         shapes: Dict[str, Tuple[Tuple[int, ...], Any]] = {}
         if g.kind == "ssd":
-            shapes = {"h": ((L, batch, cfg.ssm_n_heads, cfg.ssm_state,
-                             cfg.ssm_head_dim), torch.float32),
-                      "conv": ((L, batch, W1, cfg.d_inner + 2 * cfg.ssm_state),
+            shapes = {"h": ((L,) + rec + (batch, cfg.ssm_n_heads // ts,
+                                           cfg.ssm_state, cfg.ssm_head_dim),
+                            torch.float32),
+                      "conv": ((L,) + rec + (batch, W1, (cfg.d_inner + 2 *
+                                                         cfg.ssm_state) // ts),
                                dtype)}
         elif g.kind == "rglru":
-            w = cfg.lru_width or cfg.d_model
-            shapes = {"h": ((L, batch, w), torch.float32),
-                      "conv": ((L, batch, W1, w), dtype)}
+            w = (cfg.lru_width or cfg.d_model) // ts
+            shapes = {"h": ((L,) + rec + (batch, w), torch.float32),
+                      "conv": ((L,) + rec + (batch, W1, w), dtype)}
         elif g.kind in ("attn", "dec_attn") and g.window is None:
-            shapes = {n: ((L,) + slab_dims + (bt, K // kv_split, hd), dtype)
+            shapes = {n: ((L,) + slab_dims + (bt, kv[1], hd), dtype)
                       for n in ("k_slabs", "v_slabs")}
             if g.kind == "dec_attn":
-                shapes.update({n: ((L, batch, enc_len, K, hd), dtype)
-                               for n in ("cross_k", "cross_v")})
+                shapes.update({n: ((L,) + kv[0] + (batch, enc_len, kv[1], hd),
+                                   dtype) for n in ("cross_k", "cross_v")})
         elif g.kind == "attn":
-            shapes = {n: ((L, batch, g.window, K, hd), dtype)
+            shapes = {n: ((L,) + kv[0] + (batch, g.window, kv[1], hd), dtype)
                       for n in ("ring_k", "ring_v")}
         caches.append({n: torch.zeros(shape, dtype=dt, device=device)
                        for n, (shape, dt) in shapes.items()})
@@ -587,11 +627,11 @@ def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
     over the pools (the table's columns split over them; over ``pods`` when
     given).  ``tp``: the model axis (vocab-split logits then come as the
     local shards' [p, B, V/t]).  Returns (logits [B,V], new state)."""
-    positions = state.seq_lens                       # position of new token
-    tp = None if cfg.family == "encdec" else model_axis(cfg, tp)
+    tp = model_axis(tp)
     if tp is not None and sp:
         raise NotImplementedError("sequence-parallel decode over the model "
-                                  "axis is not ported")
+                                  "axis waits for ROADMAP queue 1 slice 16.1c")
+    positions = state.seq_lens                       # position of new token
     if cfg.family == "encdec":
         x = _dec_embed(cfg, params, tokens[:, None], positions[:, None])
     else:
@@ -620,11 +660,16 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
         if g.kind in ("ssd", "rglru"):
             step = ssd_decode if g.kind == "ssd" else rglru_decode
             a, hs, conv = step(cfg, lp[g.kind], h, cache["h"][li],
-                               cache["conv"][li])
+                               cache["conv"][li], tp=tp)
             _store_state(cache, li, {"h": hs, "conv": conv})
             if g.kind == "ssd":             # an SSD layer has no FFN
                 x = x + a
                 continue
+        elif tp is not None and heads_sharded(lp["attn"]) and g.window:
+            a = attn_decode_ring_tp(
+                cfg, lp["attn"], h, positions,
+                (cache["ring_k"][li], cache["ring_v"][li]), rope=rope, tp=tp,
+                window=g.window)
         elif tp is not None and heads_sharded(lp["attn"]):
             a = attn_decode_paged_tp(
                 cfg, lp["attn"], h, positions,
@@ -642,8 +687,8 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
         x = x + a
         if g.kind == "dec_attn":
             h = apply_norm(cfg, x, lp["norm_cross"])
-            x = x + cross_attention(cfg, lp["cross"], h, cache["cross_k"][li],
-                                    cache["cross_v"][li])
+            x = x + _cross_attend(cfg, lp["cross"], h, cache["cross_k"][li],
+                                  cache["cross_v"][li], tp)
         x, _ = _ffn_block(cfg, lp, x, tp)
     return x
 
@@ -658,7 +703,7 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     model axis, as for ``decode_step``.  Returns (logits of the last
     position [B,V], new state)."""
     B, S = tokens.shape
-    tp = model_axis(cfg, tp)
+    tp = model_axis(tp)
     x = _embed(cfg, params, tokens, tp)
     positions = _positions(B, S, tokens.device)
     for g, gp, cache in zip(require_ported(cfg), params["groups"],

@@ -10,8 +10,8 @@ unsharded trajectory from the same weights and batches
 (``repro.launch.specs.build_train_step`` without a mesh).  A checkpoint
 taken at model = 4 holds the leaf names, shapes and dtypes of one taken at
 model = 1, and the bytes of the gathered live shards.  The trainer runs on a
-grid too (crash replay exact), and a family outside this slice of the model
-axis raises the slice-16.1b error.
+grid too (crash replay exact).  The other families' restore (Qwen3-MoE) is
+in ``tests/test_torch_model_axis_families.py``.
 """
 from __future__ import annotations
 
@@ -33,7 +33,6 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.launch import specs  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
-from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.common import SHAPES_ONLY  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
@@ -155,19 +154,3 @@ def test_torch_trainer_on_a_grid_replays_a_crash_and_resumes_elsewhere(tmp_path)
     more = run("clean", 7, {}, _grid(1, 4))
     assert [h["step"] for h in more["history"]] == [5, 6]
     assert more["params"]["embedding"].shape == (4, 128, 64)
-
-
-@pytest.mark.parametrize("arch", ["gemma3_4b", "qwen3_moe_235b_a22b",
-                                  "mamba2_370m", "whisper_base"])
-def test_torch_model_axis_refuses_other_families(arch):
-    cfg = tconfigs.get_smoke_config(arch)
-    grid = _grid(1, 2)
-    for call in (lambda: specs.build_train_step(cfg, pods=grid),
-                 lambda: specs.shard_params(init_params(cfg, SHAPES_ONLY),
-                                            grid, cfg),
-                 lambda: serve(arch, model=2, device="cpu", verbose=False)):
-        with pytest.raises(NotImplementedError, match="16.1b"):
-            call()
-    # a model axis of one is the unsharded path
-    assert not any(specs.split_leaves(specs.shard_params(
-        init_params(cfg, SHAPES_ONLY), _grid(1, 1), cfg)))

@@ -7,13 +7,16 @@ against the reference's (``repro.distributed.sharding``,
 The mesh the reference's functions read is a stand-in with ``.axis_names``
 and ``.shape``; the port's grid is ``make_debug_mesh`` on the CPU.  The
 reference's tree stacks a group's layers on a leading axis, so its spec of
-a group leaf is the port's with a leading None.  The one allowed difference
-is the whole-head rule of explicit tensor parallelism
-(``launch/specs.py:_whole_heads``), asserted leaf by leaf against the
-predicate written out here: the port splits ``wq``/``wo`` only when t
+a group leaf is the port's with a leading None.  The two allowed
+differences are rules of explicit tensor parallelism, asserted leaf by leaf
+against predicates written out here: the whole-head rule
+(``launch/specs.py:_whole_heads``: the port splits ``wq``/``wo`` only when t
 divides H (and each shard's query heads share a kv head when t does not
 divide K), and ``wk``/``wv`` only when t also divides K; GSPMD splits their
-columns wherever t divides them.
+columns wherever t divides them), and the SSD's sectioned split
+(``_ssd_split``: an SSD layer's ``ff`` leaves split together when t divides
+its heads and its state width, ``in_proj`` and the conv by section; GSPMD
+splits each leaf whose width t divides, contiguously).
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ from repro_torch.models.common import SHAPES_ONLY  # noqa: E402
 ARCHS = tconfigs.ARCH_IDS
 DENSE = ["qwen3_14b", "yi_6b", "nemotron_4_15b", "chameleon_34b"]
 TP = [2, 4, 16]
+SSD_LEAVES = ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip",
+              "out_proj")
 
 
 def _mesh(multi_pod: bool, model: int = 16):
@@ -156,37 +161,64 @@ def test_torch_param_specs_equal_the_references(arch, t):
     assert seen == set(want)
 
 
+def _ssd_spec(path, leaf, cfg, t):
+    """The port's SSD rule, written out independently of launch/specs.py:
+    the layer's ff leaves on the model axis when t divides H and n, their
+    spec then ff's split dimension; None where the leaf is no SSD leaf."""
+    if len(path) < 2 or path[-2] != "ssd" or path[-1] not in SSD_LEAVES:
+        return None
+    ff_dim = {"in_proj": 1, "conv_w": 1, "out_proj": 0}.get(path[-1], 0)
+    spec = [None] * len(leaf.shape)
+    if cfg.ssm_n_heads % t == 0 and cfg.ssm_state % t == 0:
+        spec[ff_dim] = "model"
+    return tuple(spec)
+
+
 @pytest.mark.parametrize("t", TP)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_torch_param_shardings_split_whole_heads(arch, t):
-    """param_shardings = the reference's spec, except the whole-head rule;
-    the leaves where the two differ are the ones that rule names (Yi-6B's
-    4 kv heads at t = 16, Qwen3-14B's 40 heads at t = 16, ...)."""
+    """param_shardings = the reference's spec, except the whole-head rule
+    and the SSD's sectioned split; the leaves where the port's spec differs
+    are the ones the whole-head rule names (Yi-6B's 4 kv heads at t = 16,
+    Qwen3-14B's 40 heads at t = 16, the MoE configs' 4 and 8 kv heads at
+    t = 16, ...; none where the config's rules replicate the heads), and
+    the leaves split by section are Mamba-2's in_proj, conv_w and conv_b
+    (whose widths, published, t divides: their spec is the reference's)."""
     want = _reference_specs(arch, t)
     cfg, leaves = _port_leaves(arch)
     grid = make_debug_mesh(1, data=16, model=t, device="cpu")
     tree = specs.param_shardings(tm.init_params(cfg, SHAPES_ONLY), grid, cfg)
     got = dict(_shard_leaves(tree))
-    differ = set()
+    differ, sectioned = set(), set()
     for path, leaf in leaves:
         ref = want[_stacked(path)][0]
         ref = ref[1:] if path[0] == "groups" else ref
-        expect = _whole_head_spec(path[-1], ref, cfg, t)
+        expect = _ssd_spec(path, leaf, cfg, t) or _whole_head_spec(
+            path[-1], ref, cfg, t)
         if expect != ref:
             differ.add(path[-1])
         dims = [d for d, a in enumerate(expect) if a is not None]
         shard = got[path]
+        if shard is not None and shard.sections:
+            sectioned.add(path[-1])
+            assert sum(shard.sections) == leaf.shape[shard.dim], path
         if not dims:
             assert shard is None, path
         else:
-            assert shard == specs.Shard(dims[0], "model"), (path, shard)
+            assert shard[:2] == (dims[0], "model"), (path, shard)
     H, K = cfg.n_heads, cfg.n_kv_heads
-    if H % t:                        # e.g. Qwen3-14B's 40 heads at t = 16
+    heads_on_model = jspecs.make_rules(
+        jconfigs.get_config(arch), _mesh(False, t)).lookup("heads") is not None
+    if not heads_on_model or cfg.family == "ssm":
+        assert not differ            # Gemma-3, RecurrentGemma, Whisper
+    elif H % t:                      # e.g. Qwen3-14B's 40 heads at t = 16
         assert differ == {"wq", "wk", "wv", "wo"}
     elif K % t:                      # e.g. Yi-6B's 4 kv heads at t = 16
         assert differ == {"wk", "wv"}
     else:
         assert not differ
+    assert sectioned == ({"in_proj", "conv_w", "conv_b"}
+                         if cfg.family == "ssm" else set())
 
 
 def _shard_leaves(tree, path=()):
@@ -198,20 +230,6 @@ def _shard_leaves(tree, path=()):
             yield from _shard_leaves(v, path + (str(i),))
     else:
         yield path, tree
-
-
-@pytest.mark.parametrize("arch", ["gemma3_4b", "qwen3_moe_235b_a22b",
-                                  "kimi_k2_1t_a32b", "mamba2_370m",
-                                  "recurrentgemma_2b", "whisper_base"])
-def test_torch_model_axis_outside_the_slice_names_16_1b(arch):
-    cfg = tconfigs.get_smoke_config(arch)
-    grid = make_debug_mesh(1, model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="16.1b"):
-        specs.param_shardings(tm.init_params(cfg, SHAPES_ONLY), grid, cfg)
-    # a model axis of one changes nothing
-    one = make_debug_mesh(1, model=1, device="cpu")
-    params = tm.init_params(cfg, SHAPES_ONLY)
-    assert specs.shard_params(params, one, cfg) is params
 
 
 @pytest.mark.parametrize("t", [2, 4])
