@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases kernels,multipod   # the pod axis
     python3 chip_smoke.py --phases kernels,model_axis # the in-pod model axis
     python3 chip_smoke.py --phases kernels,numa_sim   # the NUMA simulator
+    python3 chip_smoke.py --phases kernels,cells      # the dry run's cells
     python3 chip_smoke.py --phases profile # where a decode step's time goes
     python3 chip_smoke.py --phases profile_train  # ... and a train step's
 
@@ -86,7 +87,23 @@ and the script exits non-zero):
             layers, kernel path against plain path (loss rel <= 1e-3, every
             gradient leaf within 2e-2 of its largest value), and the
             fault-tolerant Trainer at the smoke width (12 steps, a checkpoint
-            every 4, a crash at 6) whose replay must match a clean run
+            every 4, a crash at 6) whose replay must match a clean run; these
+            take no rematerialisation (remat=False, as the reference's
+            Trainer).  The remat row: the same cut's gradients with remat
+            False, "full" and "dots" in turn on the same weights, 3 rounds
+            (each one AdamW step): losses and the first round's gradients
+            bit-equal across the three, K2's forward and LSE writes doubled
+            under remat; gradient ms, AdamW ms, peak GB; then the most layers
+            whose step trains on the card with remat "full"
+  cells     the dry run (``repro_torch.launch.dryrun``): all 33 cells on one
+            pod of 16 x 16 and on two, built on the meta device, each
+            cell's per-device bytes equal to the count from the config's
+            widths, its roofline line printed; then Yi-6B's decode_32k (8
+            rows at 32 768 tokens, all 32 layers), prefill_32k (2 rows) and
+            train_4k (2 rows, remat "full", depth cut to fit) as one device
+            runs them (``launch/profile_cell.py``): step ms, peak GB within
+            15 % of the analytic peak, busy ms and idle share, the largest
+            kernels, beside the analytic bound
   multipod  the pod axis on one card (``LoopPods(4)``), Qwen3-14B and Yi-6B at
             published widths.  A: ``serve()`` of Qwen3-14B (all 40 layers,
             batch 16, prompt 1 024, 64 tokens, 32 requests) over 4 KV pools
@@ -210,7 +227,9 @@ from repro_torch.serving import (SERVING_POLICIES,  # noqa: E402
 from repro_torch.distributed import LoopPods, compression  # noqa: E402
 from repro_torch.kvcache import PagedKVManager  # noqa: E402
 from repro_torch.kvcache import gather as kv_gather  # noqa: E402
-from repro_torch.launch import specs  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.launch import (analysis, dryrun, profile_cell,  # noqa: E402
+                                specs)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import (active_param_count,  # noqa: E402
                                 decode_step, forward_lm, greedy_sample,
@@ -1894,7 +1913,7 @@ def train_run(cfg, ds, steps):
 def loss_and_grads(cfg, params, batch):
     for p in tree_leaves(params):
         p.grad = None
-    total, metrics = lm_loss(cfg, params, batch)
+    total, metrics = lm_loss(cfg, params, batch, remat=False)
     total.backward()
     return (float(metrics["loss"].detach()),
             [p.grad.clone() for p in tree_leaves(params)])
@@ -1958,13 +1977,179 @@ def trainer_replay() -> dict:
     return out
 
 
+# the remat row: TRAIN's cut, the gradients of one set of weights taken with
+# each policy in turn (the order rotated every round), then one AdamW step
+REMAT = dict(modes=(False, "full", "dots"), rounds=3)
+
+
+def k2_launches(cfg, remat) -> dict:
+    """K2's launches in one gradient of ``cfg`` (one attention layer a
+    layer): the recomputation of ``"full"`` and ``"dots"`` runs each
+    layer's forward, and writes its LSE, a second time."""
+    fwd = cfg.n_layers * (2 if remat else 1)
+    return {"paged_attention": 0, "flash_attention": fwd,
+            "flash_attention_bwd": cfg.n_layers, "pte_gather": 0,
+            "fifo_miss": 0, "lse_writes": fwd}
+
+
+def remat_row(cfg, ds) -> dict:
+    """The gradients of Yi-6B (TRAIN's cut) with ``remat`` False, "full"
+    and "dots", taken in turn on the same weights, ``REMAT["rounds"]``
+    rounds (each a batch and one AdamW step on the last policy's
+    gradients): the losses must be bit-equal across the policies in every
+    round and the first round's gradients bit for bit; K2's launches must
+    follow the path (``k2_launches``).  Each policy's gradient ms (CUDA
+    events) and its peak GB beside the rest of the step (AdamW's ms and
+    peak) from the rounds after the first (the first holds one policy's
+    gradients for the comparison)."""
+    modes, rounds = REMAT["modes"], REMAT["rounds"]
+    release()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+    opt = adamw_init(params)
+    grad_ms = {m: [] for m in modes}
+    peaks = {m: [] for m in modes}
+    losses = {m: [] for m in modes}
+    adam_ms, adam_peak, counts = [], [], {}
+    for r in range(rounds):
+        batch = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in ds.batch_at(r).items()}
+        order = modes[r % len(modes):] + modes[:r % len(modes)]
+        first = grads = None
+        for m in order:
+            grads = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            with lse_pointers_counted({}) as lse:
+                start.record()
+                _, metrics, grads = specs._grads(cfg, params, batch, remat=m)
+                end.record()
+                torch.cuda.synchronize()
+            got = dict(counts_now(), lse_writes=lse["lse_writes"])
+            check(got == k2_launches(cfg, m),
+                  f"remat {m}: launches {got}, the path implies "
+                  f"{k2_launches(cfg, m)}")
+            counts[m] = got
+            losses[m].append(float(metrics["loss"].detach()))
+            grad_ms[m].append(start.elapsed_time(end))
+            peaks[m].append(torch.cuda.max_memory_allocated() / 1e9)
+            if r == 0 and first is None:
+                first = grads
+            elif r == 0:
+                check(all(torch.equal(a, b) for a, b in zip(grads, first)),
+                      f"remat {m}: the first round's gradients differ from "
+                      f"remat {order[0]}'s")
+        del first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        params, opt, _ = adamw_update(params, grads, opt)
+        end.record()
+        torch.cuda.synchronize()
+        adam_ms.append(start.elapsed_time(end))
+        adam_peak.append(torch.cuda.max_memory_allocated() / 1e9)
+        del grads
+    check(all(losses[m] == losses[modes[0]] for m in modes),
+          f"remat: losses differ across the policies: {losses}")
+    del params, opt
+    release()
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    adam = float(np.median(adam_ms[1:]))
+    out = {"modes": {}, "losses": losses[modes[0]], "rounds": rounds,
+           "losses_bit_equal": True, "first_round_grads_bit_equal": True,
+           "adamw_ms": adam, "adamw_peak_gb": max(adam_peak[1:])}
+    for m in modes:
+        g = float(np.median(grad_ms[m][1:]))
+        out["modes"][str(m)] = {
+            "grad_ms": g, "grad_ms_all": grad_ms[m], "step_ms": g + adam,
+            "tokens_per_s": tokens / ((g + adam) / 1e3),
+            "grad_peak_gb": max(peaks[m][1:]),
+            "peak_gb": max(max(peaks[m][1:]), max(adam_peak[1:])),
+            "launches": counts[m]}
+    base = out["modes"]["False"]["step_ms"]
+    for m in modes:
+        out["modes"][str(m)]["step_vs_no_remat"] = out["modes"][str(m)]["step_ms"] / base
+    return out
+
+
+def train_fits(n_layers: int, steps: int = 2):
+    """TRAIN's shape at ``n_layers`` with remat "full" through
+    ``build_train_step``: (step ms of the last step, peak GB), or None when
+    the card runs out of memory."""
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=n_layers)
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len=TRAIN["seq"],
+                            global_batch=TRAIN["batch"])
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+        opt = adamw_init(params)
+        step = specs.build_train_step(cfg, remat="full")
+        for i in range(steps):
+            batch = {k: torch.from_numpy(v).to(DEV)
+                     for k, v in ds.batch_at(i).items()}
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            float(m["loss"])
+            dt = time.perf_counter() - t0
+        out = (1e3 * dt, torch.cuda.max_memory_allocated() / 1e9)
+    except torch.cuda.OutOfMemoryError:
+        out = None
+    params = opt = None
+    release()
+    return out
+
+
+def largest_cut() -> dict:
+    """The most of Yi-6B's 32 layers whose train step at TRAIN's batch runs
+    on the card with remat "full": from the analytic prediction (the most
+    layers whose ``analysis.peak_bytes`` fits the card's memory), one layer
+    more until a step runs out of memory, or fewer until one fits."""
+    total = torch.cuda.get_device_properties(DEV).total_memory
+    shape = tconfigs.ShapeSpec("train_1k", TRAIN["seq"], TRAIN["batch"], "train")
+    full = get_config(TRAIN["arch"]).n_layers
+    opts = specs.PerfOptions(remat="full")
+    predicted = profile_cell.fit_layers(TRAIN["arch"], shape, TRAIN["batch"],
+                                        opts, budget=total)
+
+    def analytic(L):
+        return analysis.peak_bytes(profile_cell._cell(
+            TRAIN["arch"], shape, TRAIN["batch"], L, opts, "meta")) / 1e9
+
+    tried, L = {}, max(predicted, 1)
+    while True:
+        tried[L] = train_fits(L)
+        if tried[L] is not None and L < full and L + 1 not in tried:
+            L += 1
+        elif tried[L] is None and L > 1 and L - 1 not in tried:
+            L -= 1
+        else:
+            break
+    fit = max([k for k, v in tried.items() if v is not None], default=0)
+    check(fit > TRAIN["n_layers"], f"remat full fits {fit} layers, no more "
+                                   f"than the {TRAIN['n_layers']} without it")
+    return {"predicted_layers": predicted, "analytic_peak_gb": analytic(fit),
+            "card_total_gb": total / 1e9, "largest_layers": fit,
+            "step_ms": tried[fit][0], "peak_gb": tried[fit][1],
+            "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / (tried[fit][0] / 1e3),
+            "tried": {str(k): v for k, v in sorted(tried.items())}}
+
+
 def phase_train():
     """Yi-6B trains at published widths (TRAIN: depth 8 of 32) twice from
-    seed 0: the two loss lists must be bit-equal, K2 forward and backward
-    must run once a layer a step (writing the LSE each time) and K1 / K3
-    never; then the kernel path against the plain path for one step, and the
-    Trainer's crash/restore replay at the smoke width.  Returns the counts
-    of the first run and what the path implies."""
+    seed 0 without rematerialisation: the two loss lists must be bit-equal,
+    K2 forward and backward must run once a layer a step (writing the LSE
+    each time) and K1 / K3 never; then the remat row (``remat_row``: the
+    three policies' losses and gradients bit-equal, K2's forward and LSE
+    writes doubled under remat) and the largest layer cut that trains with
+    remat "full" (``largest_cut``); then the kernel path against the plain
+    path for one step, and the Trainer's crash/restore replay at the smoke
+    width.  Returns the counts of the first run and the remat row's, with
+    what the path implies."""
     cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN["n_layers"])
     steps, tokens = TRAIN["steps"], TRAIN["batch"] * TRAIN["seq"]
     ds = SyntheticLMDataset(cfg.vocab_size, seq_len=TRAIN["seq"],
@@ -1980,6 +2165,10 @@ def phase_train():
     check(first["losses"] == second["losses"],
           f"two runs from seed 0 differ: {first['losses']} {second['losses']}")
     step_ms = 1e3 * float(np.median(first["step_s"]))
+    remat = remat_row(cfg, ds)
+    emit({"phase": "train_remat", "arch": TRAIN["arch"],
+          "layers": cfg.n_layers, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+          **remat, "largest_cut_full": largest_cut()})
     emit({"phase": "train", "arch": TRAIN["arch"], "widths": "published",
           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
@@ -2000,10 +2189,17 @@ def phase_train():
           "peak_mem_gb": first["peak_mem_gb"],
           "loss_first": first["losses"][0], "loss_last": first["losses"][-1],
           "losses": first["losses"], "grad_norms": first["grad_norms"],
-          "runs_bit_equal": True, "launches": first["counts"],
+          "remat": False, "runs_bit_equal": True, "launches": first["counts"],
           "parity": train_parity(), "trainer_replay": trainer_replay()})
-    counts = {k: v for k, v in first["counts"].items() if k in KERNEL_FNS}
-    return counts, {k: v for k, v in want.items() if k in KERNEL_FNS}
+    kernels = lambda c: {k: v for k, v in c.items() if k in KERNEL_FNS}
+    modes = REMAT["modes"]
+    rounds = REMAT["rounds"]
+    remat_counts = {k: rounds * sum(remat["modes"][str(m)]["launches"][k]
+                                    for m in modes) for k in KERNEL_FNS}
+    remat_want = {k: rounds * sum(k2_launches(cfg, m)[k] for m in modes)
+                  for k in KERNEL_FNS}
+    return {"train_yi_6b": (kernels(first["counts"]), kernels(want)),
+            "train_remat_yi_6b": (remat_counts, remat_want)}
 
 
 # ------------------------------------------------------------------ pod axis
@@ -2224,7 +2420,7 @@ def multipod_train() -> dict:
     reset_counters()
     with lse_pointers_counted({}) as lse:
         stepped, _, m8, _ = specs.build_train_step(
-            cfg, compress_pod_grads=True, pods=pods)(
+            cfg, compress_pod_grads=True, pods=pods, remat=False)(
                 stepped, adamw_init(stepped), data)
         torch.cuda.synchronize()
     counts = counts_now()
@@ -2237,10 +2433,11 @@ def multipod_train() -> dict:
 
     start = fresh()
     pods.reset_counters()
-    avg32, m32, _ = specs.pod_gradients(cfg, start, data, pods)
+    avg32, m32, _ = specs.pod_gradients(cfg, start, data, pods, remat=False)
     wire32 = pods.wire_bytes
     pods.reset_counters()
-    avg8, _, ef = specs.pod_gradients(cfg, start, data, pods, True)
+    avg8, _, ef = specs.pod_gradients(cfg, start, data, pods, True,
+                                      remat=False)
     wire8 = pods.wire_bytes
     check(float(m8["loss"]) == float(m32["loss"]),
           f"int8 leg's loss {float(m8['loss'])} != {float(m32['loss'])}")
@@ -2253,7 +2450,7 @@ def multipod_train() -> dict:
     residual = 0.0
     for i in range(n):
         share = {k: v[i * per_pod:(i + 1) * per_pod] for k, v in data.items()}
-        g = specs._grads(cfg, start, share)[2]
+        g = specs._grads(cfg, start, share, remat=False)[2]
         for j in range(n_leaves):
             gj = g[j].float()
             q, sc = compression.quantize_int8(gj)
@@ -2290,7 +2487,8 @@ def multipod_train() -> dict:
     check(same, "AdamW on the checked average differs from the train step")
     del replay, stepped, avg8
     release()
-    avg8b, _, _ = specs.pod_gradients(cfg, start, data, pods, True, ef)
+    avg8b, _, _ = specs.pod_gradients(cfg, start, data, pods, True, ef,
+                                      remat=False)
     second = all(bool(within_ulp(a, w / n).all()) for a, w in zip(avg8b, acc1))
     check(second, "the int8 leg's second average is not the pods' mean of "
           "dequant(quant(g + e)) within 1 ulp")
@@ -2459,7 +2657,7 @@ def grid_train(cfg, ds, grid, steps, params=None, opt=None, start=0):
         params = specs.shard_params(init_params(
             cfg, torch.Generator(device=DEV).manual_seed(0)), grid, cfg)
         opt = adamw_init(params)
-    step = specs.build_train_step(cfg, pods=grid)
+    step = specs.build_train_step(cfg, pods=grid, remat=False)
     losses, step_s = [], []
     for i in range(start, start + steps):
         batch = {k: torch.from_numpy(v).to(DEV)
@@ -3037,6 +3235,85 @@ def phase_profile_train(warm: int = 2, profiled: int = 2):
     release()
 
 
+# ------------------------------------------------------------------ cells
+# (b): Yi-6B's cells as one device of the 16 x 16 grid runs them (one data
+# shard's rows, the whole model on one card), each with its timed steps
+CELL_RUNS = (("decode_32k", dict(), 3), ("prefill_32k", dict(), 2),
+             ("train_4k", dict(rows=2), 2))
+#: a run's peak of allocated memory against ``analysis.peak_bytes``
+PEAK_MARGIN = 0.15
+
+
+def cell_launches(cell, runs: int) -> dict:
+    """What ``runs`` steps of a Yi-6B cell launch: K1 once a layer a decode
+    step, K2 once a layer a prefill (no LSE), and a train step with remat
+    "full" K2's forward twice a layer (the LSE each time) and its backward
+    once."""
+    L = cell.cfg.n_layers
+    want = {name: 0 for name in KERNEL_FNS}
+    step = cell.shape.step
+    if step == "decode":
+        want["paged_attention"] = L * runs
+    elif step == "prefill":
+        want["flash_attention"] = L * runs
+    else:
+        want["flash_attention"] = 2 * L * runs
+        want["flash_attention_bwd"] = L * runs
+    return want
+
+
+def phase_cells() -> dict:
+    """(a) All 33 cells of the dry run on the production grid (one pod of
+    16 x 16, and two), built on the meta device: each cell's per-device
+    bytes summed from its tensors must equal the count from the config's
+    widths; each prints its roofline line.  (b) Yi-6B's decode_32k,
+    prefill_32k and train_4k (remat "full", depth cut to fit) as one device
+    runs them (``profile_cell``): step ms, peak GB against the analytic peak
+    (within PEAK_MARGIN), device busy ms and idle share, the largest
+    kernels, beside the analytic bound of the same work; the kernels'
+    launches follow the path.  Any failure fails the phase."""
+    t0 = time.perf_counter()
+    summary = {"cells": 0, "fit": 0, "dominant": {}}
+    for multi in (False, True):
+        grid = dryrun.production_grid(multi)
+        for arch, shape in tconfigs.all_cells():
+            cell = specs.build_cell(arch, tconfigs.SHAPES[shape], grid)
+            got, want = analysis.per_device_bytes(cell), analysis.device_bytes(cell)
+            check(abs(got - want) <= 1e-9 * want,
+                  f"{arch} x {shape}: {got} bytes a device, the count {want}")
+            roof = analysis.roofline(cell)
+            print(analysis.summary(roof), flush=True)
+            summary["cells"] += 1
+            summary["fit"] += roof.fits
+            summary["dominant"][roof.dominant] = summary["dominant"].get(
+                roof.dominant, 0) + 1
+    check(summary["cells"] == 66, f"{summary['cells']} cells, not 2 x 33")
+    summary["build_s"] = time.perf_counter() - t0
+    emit({"phase": "cells_meta", **summary})
+    counts = {name: 0 for name in KERNEL_FNS}
+    wants = dict(counts)
+    for shape, kw, steps in CELL_RUNS:
+        release()
+        cell = profile_cell.card_cell("yi_6b", shape, device=DEV, **kw)
+        reset_counters()
+        out = profile_cell.profile(cell, steps=steps)
+        runs = steps + 2                     # a warm-up and a profiled step
+        got, want = counts_now(), cell_launches(cell, runs)
+        check(got == want, f"{shape}: launches {got}, the path implies {want}")
+        for name in KERNEL_FNS:
+            counts[name] += got[name]
+            wants[name] += want[name]
+        off = abs(out["peak_gb"] - out["analytic_peak_gb"]) / out["analytic_peak_gb"]
+        check(off <= PEAK_MARGIN,
+              f"{shape}: peak {out['peak_gb']:.2f} GB, the analytic peak "
+              f"{out['analytic_peak_gb']:.2f} GB (margin {PEAK_MARGIN})")
+        emit({"phase": "cells_card", **out, "launches": got,
+              "peak_off": off, "peak_margin": PEAK_MARGIN})
+        del cell
+    release()
+    return {"cells_yi_6b": (counts, wants)}
+
+
 # -------------------------------------------------------------- NUMA simulator
 # fig08_apps at its full settings with --scale 16 (benchmarks/fig08_apps.py):
 # the 8-socket machine, 40 000 accesses a thread, 4 096 pages a GB, every
@@ -3369,8 +3646,8 @@ def phase_numa_sim():
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernels,serve,parity,coherence,train,multipod,"
-                            "model_axis,numa_sim")
+                    default="kernels,serve,parity,coherence,train,cells,"
+                            "multipod,model_axis,numa_sim")
     ap.add_argument("--layers", type=int, default=SERVE_DEPTH["qwen3_14b"],
                     help="depth of the Qwen3-14B serve and profile (widths are "
                          "never cut; every other arch runs at SERVE_DEPTH)")
@@ -3411,7 +3688,9 @@ def main() -> None:
     if "coherence" in phases:
         timed_phase("coherence", phase_coherence)
     if "train" in phases:
-        runs["train_yi_6b"] = timed_phase("train", phase_train)
+        runs.update(timed_phase("train", phase_train))
+    if "cells" in phases:
+        runs.update(timed_phase("cells", phase_cells))
     if "multipod" in phases:
         runs.update(timed_phase("multipod", phase_multipod))
     if "model_axis" in phases:

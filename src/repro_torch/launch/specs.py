@@ -19,13 +19,25 @@ decode and the int8 pod leg of a model axis split across processes raise
 NotImplementedError naming ROADMAP queue 1 slice 16.1c
 (``require_model_axis``).
 
-The reference also builds ShapeDtypeStruct cells for an XLA dry run on a
-512-device mesh (``build_cell``, ``_state_shardings``, ``PerfOptions``, the
-decode geometry that feeds them); those wait for ROADMAP queue 1 slice 16.2.
+The dry run's cells (``build_cell``): each (arch x shape) of
+``configs.all_cells`` on the production grid, ``make_debug_mesh(pods,
+data=16, model=16, device="meta")``, its arguments the port's real trees on
+the ``meta`` device (nothing drawn or allocated), each leaf with the number
+of devices it is split over (``CellSpec.shares``, in place of the
+reference's NamedShardings: ``param_shardings`` for the parameters and
+moments, ``kv_split`` / ``state_split`` and the rows of ``_row_shares`` for
+the decode state); ``launch/analysis.py`` reads them.  With
+``device="cuda"`` the same function builds a cell the card runs.
+``PerfOptions`` are the reference's levers; Megatron sequence parallelism
+(``seq_parallel``) raises NotImplementedError naming ROADMAP queue 1 slice
+16.2b, and ``decode_kernel="fused_ref"`` (the reference's model of its
+Pallas kernel's streaming) a ValueError: the port decodes with K1.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import math
 import time
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
@@ -40,11 +52,16 @@ from ..distributed.pods import Pods
 from ..distributed.sharding import (MULTI_POD_RULES, SINGLE_POD_RULES,
                                     ShardingRules, Spec, param_pspec,
                                     use_rules)
-from ..models import greedy_sample, lm_loss
-from ..models.common import ModelConfig
-from ..models.transformer import DecodeState, decode_step, prefill, vocab_split
-from ..optim import adamw_update
+from .._device import DeviceLike, resolve_device
+from ..configs import ShapeSpec, get_config
+from ..models import greedy_sample, init_decode_state, init_params, lm_loss
+from ..models.common import SHAPES_ONLY, ModelConfig
+from ..models.transformer import (DecodeState, decode_step, prefill,
+                                  prefill_encdec, remat_policy, vocab_split)
+from ..optim import adamw_init, adamw_update
+from ..optim.adamw import decays
 from ..pagedpt.coherence import eager_sync, numapte_prologue
+from .mesh import make_debug_mesh
 
 PyTree = Any
 
@@ -57,8 +74,8 @@ def _axis_sizes(grid: Pods) -> Dict[str, int]:
 def make_rules(cfg: ModelConfig, grid: Pods) -> ShardingRules:
     """The base table of the grid (multi-pod when its pod axis splits), the
     config's ``rule_overrides`` on top.  (The reference's Megatron-SP
-    option, ``act_seq`` on ``model``, waits with ``PerfOptions`` for slice
-    16.2.)"""
+    option, ``act_seq`` on ``model``, waits for ROADMAP queue 1 slice
+    16.2b: ``require_options``.)"""
     base = MULTI_POD_RULES if grid.n > 1 else SINGLE_POD_RULES
     table = dict(base.rules)
     table.update(dict(cfg.rule_overrides))
@@ -318,14 +335,35 @@ PREFETCH_DEGREE = 3
 
 
 # --------------------------------------------------------------------------- steps
+def _compute_copy(path, p: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The leaf that a step differentiates: ``p`` detached, or with
+    ``bf16`` a bfloat16 copy of a float32 leaf of the reference's rank 2 or
+    more (its stacked tree's ``p.ndim >= 2``, ``optim/adamw.py:decays``, on
+    the unsharded leaf)."""
+    p = p.detach()
+    split = _split_dim(path, p) is not None
+    if bf16 and p.dtype == torch.float32 and decays(path, p, split):
+        p = p.to(torch.bfloat16)
+    return p.requires_grad_(True)
+
+
 def _grads(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor],
-           tp: Optional[Pods] = None):
+           tp: Optional[Pods] = None, *, remat="full",
+           bf16_grads: bool = False):
     """(total, metrics, gradients of params' leaves); ``tp``: the model
-    axis (a split leaf's gradient is its local shards' [p, ...])."""
-    cparams = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    total, metrics = lm_loss(cfg, cparams, batch, tp)
+    axis (a split leaf's gradient is its local shards' [p, ...]);
+    ``remat``: ``lm_loss``'s.  With ``bf16_grads`` the loss is
+    differentiated with respect to a bfloat16 copy of every float32 matrix
+    (``_compute_copy``) and each gradient is cast back to its parameter's
+    dtype, as the reference's mixed precision does (its data axis's
+    all-reduce then moves bf16; AdamW's float32 moments keep the
+    precision)."""
+    cparams = tree_map_with_path(
+        lambda path, p: _compute_copy(path, p, bf16_grads), params)
+    total, metrics = lm_loss(cfg, cparams, batch, tp, remat=remat)
     grads = torch.autograd.grad(total, tree_leaves(cparams))
-    return total.detach(), metrics, list(grads)
+    grads = [g.to(p.dtype) for g, p in zip(grads, tree_leaves(params))]
+    return total.detach(), metrics, grads
 
 
 def _split_rows(batch: Dict[str, torch.Tensor], p: int
@@ -349,20 +387,23 @@ def _averaged(axis: Pods, stacked: List[torch.Tensor],
 
 
 def data_gradients(cfg: ModelConfig, params: PyTree,
-                   batch: Dict[str, torch.Tensor], grid: Pods):
+                   batch: Dict[str, torch.Tensor], grid: Pods, *,
+                   remat="full", bf16_grads: bool = False):
     """The in-pod half of a train step: each local data shard differentiates
     its share of ``batch`` (the rows split evenly) through the model axis,
     and the shares' gradients are averaged over the data axis (float32 for
     float32 leaves), as ``pod_gradients`` averages the pods'.  Returns
-    (gradients, metrics); with a data axis of size 1, ``_grads``' own."""
+    (gradients, metrics); with a data axis of size 1, ``_grads``' own.
+    ``remat`` / ``bf16_grads``: as ``_grads``'."""
     data, tp = grid.data, grid.model
+    how = dict(remat=remat, bf16_grads=bf16_grads)
     if data.n == 1:
-        _, m, g = _grads(cfg, params, batch, tp)
+        _, m, g = _grads(cfg, params, batch, tp, **how)
         return g, {k: v.detach() for k, v in m.items()}
     p = data.local
     stacked, share_metrics = None, []
     for i, share in enumerate(_split_rows(batch, p)):
-        _, m, g = _grads(cfg, params, share, tp)
+        _, m, g = _grads(cfg, params, share, tp, **how)
         if stacked is None:
             stacked = [torch.empty((p,) + t.shape, dtype=t.dtype,
                                    device=t.device) for t in g]
@@ -375,7 +416,8 @@ def data_gradients(cfg: ModelConfig, params: PyTree,
 
 def pod_gradients(cfg: ModelConfig, params: PyTree,
                   batch: Dict[str, torch.Tensor], pods: Pods,
-                  compress_pod_grads: bool = False, ef: Optional[List] = None):
+                  compress_pod_grads: bool = False, ef: Optional[List] = None,
+                  *, remat="full", bf16_grads: bool = False):
     """The pod axis's half of a train step: each local pod differentiates
     its share of the batch (the rows split evenly over the local pods), and
     the pod leg averages the gradients over the axis — in float32, or with
@@ -385,12 +427,13 @@ def pod_gradients(cfg: ModelConfig, params: PyTree,
     ``pods`` carries them.  Returns (the averaged gradient of each leaf, as
     the step hands it to AdamW; metrics: ``loss`` and ``aux`` the pods'
     mean, ``tokens`` their sum; the new error buffers, ``ef`` itself for the
-    float32 leg)."""
+    float32 leg).  ``remat`` / ``bf16_grads``: as ``_grads``'."""
     p, n = pods.local, pods.n
     require_model_axis(pods, int8_leg=compress_pod_grads)
     stacked, pod_metrics = None, []
     for i, share in enumerate(_split_rows(batch, p)):
-        g, m = data_gradients(cfg, params, share, pods)
+        g, m = data_gradients(cfg, params, share, pods, remat=remat,
+                              bf16_grads=bf16_grads)
         if stacked is None:      # [p, ...] a leaf, filled pod by pod
             stacked = [torch.empty((p,) + t.shape, dtype=t.dtype,
                                    device=t.device) for t in g]
@@ -410,9 +453,13 @@ def pod_gradients(cfg: ModelConfig, params: PyTree,
 
 
 def build_train_step(cfg: ModelConfig, compress_pod_grads: bool = False,
-                     pods: Optional[Pods] = None) -> Callable:
+                     pods: Optional[Pods] = None, *, remat="full",
+                     bf16_grads: bool = False) -> Callable:
     """``step(params, opt_state, batch, ef=None)``: gradients, then one
-    ``adamw_update`` (in place).  Without ``pods`` the gradients are
+    ``adamw_update`` (in place).  ``remat`` (default ``"full"``: every
+    layer rematerialised) and ``bf16_grads`` (differentiate a bfloat16
+    copy of the float32 matrices) are the reference's options
+    (``_grads``).  Without ``pods`` the gradients are
     ``lm_loss``'s; with ``pods`` (the grid: its pod axis, carrying
     ``.data`` and ``.model``) they are ``pod_gradients``' average, and
     ``params`` / ``opt_state`` are split over the model axis
@@ -421,16 +468,18 @@ def build_train_step(cfg: ModelConfig, compress_pod_grads: bool = False,
     opt_state, metrics), and the new error buffers as a fourth item when the
     leg is compressed or ``ef`` is given."""
     require_model_axis(pods, int8_leg=compress_pod_grads)
+    remat_policy(remat)
+    how = dict(remat=remat, bf16_grads=bf16_grads)
 
     def train_step(params, opt_state, batch, ef=None):
         tp, split = None, None
         if pods is None:
-            _, metrics, grads = _grads(cfg, params, batch)
+            _, metrics, grads = _grads(cfg, params, batch, **how)
             metrics = {k: v.detach() for k, v in metrics.items()}
             new_ef = ef
         else:
             grads, metrics, new_ef = pod_gradients(
-                cfg, params, batch, pods, compress_pod_grads, ef)
+                cfg, params, batch, pods, compress_pod_grads, ef, **how)
             if pods.model.n > 1:
                 tp, split = pods.model, split_leaves(params)
         params, new_opt, gnorm = adamw_update(params, grads, opt_state,
@@ -581,3 +630,311 @@ def _coherence_prologue(mode: str, pods: Pods, entries, sharers, owner,
         return eager_sync(entries, mut_t, mut_i, mut_v, mut_ok, pods), sharers
     return numapte_prologue(entries, sharers, owner, mut_t, mut_i, mut_v,
                             mut_ok, miss, PREFETCH_DEGREE, pods)
+
+
+# --------------------------------------------------------------------------- cells
+@dataclasses.dataclass(frozen=True)
+class PerfOptions:
+    """The reference's levers.  All default to the paper-faithful
+    baseline."""
+    decode_kernel: str = "ref"      # ref | fused_ref (the reference's model
+    #                                 of its Pallas kernel's streaming)
+    bf16_grads: bool = False        # differentiate a bf16 copy (``_grads``)
+    seq_parallel: bool = False      # Megatron-SP: residual activations
+    #                                 sharded over 'model' between blocks
+    coherence: str = "none"         # none | eager | numapte: block-table
+    #                                 coherence prologue on the pod axis
+    remat: str = "full"             # full | dots (checkpoint policy); the
+    #                                 port also takes False (none)
+    compress_pod_grads: bool = False  # int8 error-feedback leg on the pods
+
+    def tag(self) -> str:
+        bits = []
+        if self.decode_kernel != "ref":
+            bits.append(self.decode_kernel)
+        if self.bf16_grads:
+            bits.append("bf16g")
+        if self.seq_parallel:
+            bits.append("sp")
+        if self.coherence != "none":
+            bits.append(self.coherence)
+        if self.remat != "full":
+            bits.append("remat-" + (self.remat or "none"))
+        if self.compress_pod_grads:
+            bits.append("int8pod")
+        return "+".join(bits) or "base"
+
+
+def require_options(opts: PerfOptions) -> None:
+    """Refuse the options the port does not run as the reference does:
+    ``decode_kernel="fused_ref"`` models the Pallas kernel's streaming,
+    where the port always decodes with K1 (ValueError); Megatron sequence
+    parallelism waits for ROADMAP queue 1 slice 16.2b."""
+    if opts.decode_kernel != "ref":
+        raise ValueError(f"decode_kernel {opts.decode_kernel!r}: the port "
+                         "decodes with K1 (paged_attention), only 'ref'")
+    if opts.seq_parallel:
+        raise NotImplementedError("Megatron sequence parallelism "
+                                  "(seq_parallel) waits for ROADMAP queue 1 "
+                                  "slice 16.2b")
+    if opts.coherence not in ("none", "eager", "numapte"):
+        raise ValueError(f"coherence {opts.coherence!r}")
+    remat_policy(opts.remat)
+
+
+def build_prefill_step(cfg: ModelConfig, pods: Optional[Pods] = None
+                       ) -> Callable:
+    """``step(params, state, tokens, phys_blocks)`` (an encoder-decoder:
+    ``step(params, state, enc_feats, dec_tokens, phys_blocks)``): a prefill
+    over the grid ``pods`` (``prefill_on_grid``; the encoder-decoder's
+    ``prefill_encdec`` over the model axis), then greedy sampling of the
+    last position's logits.  Returns (tokens [B] int32, state)."""
+    sample = lambda params, logits: grid_sampler(params, pods)(logits)
+    if cfg.family == "encdec":
+        def step(params, state, enc_feats, dec_tokens, phys_blocks):
+            tp = None if pods is None else pods.model
+            if pods is not None and pods.data.local > 1:
+                _row_shares(pods.data, dec_tokens.shape[0], state)
+            logits, state = prefill_encdec(cfg, params, enc_feats, dec_tokens,
+                                           state, phys_blocks, tp=tp)
+            return sample(params, logits), state
+        return step
+
+    def step(params, state, tokens, phys_blocks):
+        logits, state = prefill_on_grid(cfg, params, tokens, state,
+                                        phys_blocks, pods)
+        return sample(params, logits), state
+    return step
+
+
+@dataclasses.dataclass
+class CellSpec:
+    """One (arch x shape x grid) cell: its step and its arguments.
+    ``shares``: for each leaf of ``args`` (in ``tree_leaves`` order), the
+    number of devices of the grid it is split over (1: every device holds
+    it whole); ``rows``: the batch rows the cell holds (the shape's global
+    batch unless cut); ``cuts``: what was cut from the shape or the config,
+    and why."""
+    arch: str
+    shape: ShapeSpec
+    cfg: ModelConfig
+    step_fn: Callable
+    args: Tuple
+    grid: Pods
+    opts: PerfOptions
+    shares: List[int]
+    rows: int
+    cuts: Dict[str, str] = dataclasses.field(default_factory=dict)
+    donate: Tuple[int, ...] = ()
+
+    @property
+    def chips(self) -> int:
+        return self.grid.n * self.grid.data.n * self.grid.model.n
+
+
+def _decode_geometry(cfg: ModelConfig, shape: ShapeSpec,
+                     data_size: int) -> Tuple[int, int, int]:
+    """(n_frames, max_blocks_per_seq, n_pools)."""
+    bt = cfg.kv_block_tokens
+    mb = -(-shape.seq_len // bt) + 1
+    mb = -(-mb // data_size) * data_size     # SP shards table columns evenly
+    n_frames = shape.global_batch * mb
+    n_pools = data_size
+    n_frames = -(-n_frames // n_pools) * n_pools      # divisible pool split
+    return n_frames, mb, n_pools
+
+
+#: the reference's per-step coherence budgets (``BlockTableSpec``'s
+#: defaults) and its table size
+MUTATION_BUDGET, MISS_BUDGET, TABLE_ENTRIES = 1024, 256, 512
+
+
+def _row_share(rows: int, data_size: int) -> int:
+    """Devices the rows split over: the data size when it divides them
+    (the reference's ``_divisible``), else 1 (replicated)."""
+    return data_size if rows % data_size == 0 else 1
+
+
+def _state_shares(state: DecodeState, row_share: int, n_pools: int,
+                  kv: int, rec: int) -> List[int]:
+    """The ``shares`` of a decode state's leaves: the paged slabs over their
+    pools (``[L, P, N/P, ...]``: one pool a device of the pod and data axes)
+    and their kv heads (``kv``), the caches held a row over the rows and
+    over their split (``kv`` for rings and cross K/V, ``rec`` for the
+    recurrent ``h`` / ``conv``), ``seq_lens`` over the rows."""
+    shares = []
+    for cache in state.caches:
+        for name in cache:
+            if name in ("k_slabs", "v_slabs"):
+                shares.append((n_pools if cache[name].dim() == 6 else 1) * kv)
+            elif name in ("h", "conv"):
+                shares.append(row_share * rec)
+            else:                       # rings, cross K/V
+                shares.append(row_share * kv)
+    return shares + [row_share]
+
+
+def _tensor(shape, dtype, device, gen: Optional[torch.Generator],
+            high: Optional[int] = None) -> torch.Tensor:
+    """An argument of a cell: empty on the meta device; on a real device
+    drawn from ``gen`` (ids below ``high``, or standard normals)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    if high is not None:
+        return torch.randint(0, high, shape, generator=gen, device=device,
+                             dtype=dtype)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def build_cell(arch: str, shape: ShapeSpec, grid: Pods, *,
+               opts: Optional[PerfOptions] = None, device: DeviceLike = "meta",
+               rows: Optional[int] = None, n_layers: Optional[int] = None,
+               cfg: Optional[ModelConfig] = None) -> CellSpec:
+    """The cell of ``arch`` at ``shape`` on ``grid`` (its pod axis carrying
+    ``.data`` and ``.model``).  On the meta device (the default) ``args``
+    are the port's argument trees with nothing drawn or allocated:
+
+      * train: (parameters split by ``shard_params``, their AdamW state,
+        the batch ``{"tokens": [B, S+1]}``, an encoder-decoder's
+        ``enc_feats`` [B, S, D] bf16 and its ``max_decoder_len + 1``
+        tokens), and the int8 leg's error buffers with
+        ``compress_pod_grads`` on several pods;
+      * prefill: (parameters, the decode state, tokens [B, S] (an
+        encoder-decoder: ``enc_feats``, ``dec_tokens`` [B,
+        max_decoder_len]), block tables [B, mb]);
+      * decode: (parameters, the decode state, tokens [B], block tables
+        [B, mb]) and, with a coherence mode on several pods, the
+        prologue's replicas [P, T, 512] and buffers (1 024 mutations and
+        256 misses a pod).
+
+    The geometry is ``_decode_geometry``'s over the pod and data axes
+    (one KV pool each); decode is sequence-parallel where the rows are
+    fewer than the pools.  On a real ``device`` the arguments are drawn
+    from seed 0 (weights as ``init_params``; a decode state holding
+    ``seq_len`` tokens a row, an encoder-decoder's decoder at most
+    ``max_decoder_len``, each row its own frames), ``rows`` cuts the batch
+    and ``n_layers`` the depth (named in ``cuts``); ``cfg`` replaces the
+    arch's published config (a smoke config in the tests).  ``step_fn`` is
+    the port's step over ``grid``: ``build_train_step``,
+    ``build_prefill_step`` or ``build_serve_step``; where the port does not
+    run the grid yet it raises when called (ROADMAP queue 1 slice 16.1c)."""
+    opts = opts or PerfOptions()
+    require_options(opts)
+    device = resolve_device(device)
+    cfg = cfg or get_config(arch)
+    cuts: Dict[str, str] = {}
+    if n_layers is not None and n_layers != cfg.n_layers:
+        cuts["n_layers"] = f"{n_layers} of {cfg.n_layers}"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gb = shape.global_batch if rows is None else rows
+    if gb != shape.global_batch:
+        cuts["rows"] = f"{gb} of {shape.global_batch}"
+    S, t = shape.seq_len, grid.model.n
+    data_size = grid.n * grid.data.n
+    row_share = _row_share(gb, data_size)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(0))
+    params = (_meta_params(cfg, grid.n, grid.data.n, t) if gen is None
+              else shard_params(init_params(cfg, gen), grid, cfg))
+    p_shares = [t if s else 1 for s in split_leaves(params)]
+    i32 = torch.int32
+    step_fn = functools.partial(_cell_step, cfg, grid, opts, shape.step)
+    enc = cfg.family == "encdec"
+
+    if shape.step == "train":
+        opt = adamw_init(params)
+        if enc:
+            batch = {"enc_feats": _tensor((gb, S, cfg.d_model), torch.bfloat16,
+                                          device, gen),
+                     "tokens": _tensor((gb, cfg.max_decoder_len + 1), i32,
+                                       device, gen, cfg.vocab_size)}
+        else:
+            batch = {"tokens": _tensor((gb, S + 1), i32, device, gen,
+                                       cfg.vocab_size)}
+        args = (params, opt, batch)
+        shares = p_shares + [1] + p_shares * 2 + [row_share] * len(batch)
+        if opts.compress_pod_grads and grid.n > 1:
+            ef = tree_map(lambda p: torch.zeros((grid.local,) + tuple(p.shape),
+                                                dtype=torch.float32,
+                                                device=device), params)
+            args = args + (ef,)
+            shares += [grid.n * s for s in p_shares]
+        return CellSpec(arch, shape, cfg, step_fn, args, grid, opts, shares,
+                        gb, cuts, donate=(0, 1))
+
+    n_frames, mb, n_pools = _decode_geometry(
+        cfg, dataclasses.replace(shape, global_batch=gb), data_size)
+    sp = shape.step == "decode" and gb < data_size
+    kv, rec = kv_split(cfg, grid), state_split(params, grid)
+    state = init_decode_state(cfg, gb, n_frames, mb, enc_len=S if enc else 0,
+                              n_pools=n_pools, kv_split=kv, state_split=rec,
+                              device=device)
+    state_shares = _state_shares(state, row_share, n_pools, kv, rec)
+    if device.type == "meta":
+        tables = torch.empty((gb, mb), dtype=i32, device=device)
+    elif n_pools == 1:                        # each row its own frames
+        tables = torch.arange(n_frames, dtype=i32, device=device)[
+            :gb * mb].view(gb, mb)
+    else:
+        raise ValueError("a cell on a real device holds one KV pool: build "
+                         "it on a grid without pod and data axes")
+
+    if shape.step == "prefill":
+        if enc:
+            args = (params, state,
+                    _tensor((gb, S, cfg.d_model), torch.bfloat16, device, gen),
+                    _tensor((gb, cfg.max_decoder_len), i32, device, gen,
+                            cfg.vocab_size), tables)
+            inputs = [row_share] * 3
+        else:
+            args = (params, state,
+                    _tensor((gb, S), i32, device, gen, cfg.vocab_size), tables)
+            inputs = [row_share] * 2
+        return CellSpec(arch, shape, cfg, step_fn, args, grid, opts,
+                        p_shares + state_shares + inputs, gb, cuts,
+                        donate=(1,))
+
+    if device.type != "meta":                 # a context of S tokens a row
+        state.seq_lens.fill_(min(S, cfg.max_decoder_len) if enc else S)
+    tokens = _tensor((gb,), i32, device, gen, cfg.vocab_size)
+    args = (params, state, tokens, tables)
+    inputs = [1, n_pools] if sp else [row_share, row_share]
+    if opts.coherence != "none" and grid.n > 1:
+        P, T = grid.n, max(1, -(-n_frames // TABLE_ENTRIES))
+        M, Q = MUTATION_BUDGET, MISS_BUDGET
+        empty = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+        args = args + (empty((P, T, TABLE_ENTRIES), i32),
+                       empty((T,), torch.int64), empty((T,), i32),
+                       empty((P, M), i32), empty((P, M), i32),
+                       empty((P, M), i32), empty((P, M), torch.bool),
+                       empty((P, Q), i32))
+        inputs += [P, 1, 1, P, P, P, P, P]
+    return CellSpec(arch, shape, cfg,
+                    functools.partial(step_fn, sp=sp), args, grid, opts,
+                    p_shares + state_shares + inputs, gb, cuts, donate=(1,))
+
+
+@functools.lru_cache(maxsize=8)
+def _meta_params(cfg: ModelConfig, pods: int, data: int, model: int) -> PyTree:
+    """``shard_params`` of ``cfg``'s meta parameters over a (pods, data,
+    model) grid; the cells of one arch on one grid share the tree (meta
+    tensors hold no data)."""
+    grid = make_debug_mesh(pods, data=data, model=model, device="meta")
+    return shard_params(init_params(cfg, SHAPES_ONLY), grid, cfg)
+
+
+def _cell_step(cfg: ModelConfig, grid: Pods, opts: PerfOptions, step: str,
+               *args, sp: bool = False):
+    """A cell's step: the port's step builder over ``grid``, called (a
+    train step on a grid of one device runs without one: the pod and data
+    legs would only copy its gradients)."""
+    if step == "train":
+        one = grid.n * grid.data.n * grid.model.n == 1
+        return build_train_step(cfg, opts.compress_pod_grads,
+                                pods=None if one else grid,
+                                remat=opts.remat,
+                                bf16_grads=opts.bf16_grads)(*args)
+    if step == "prefill":
+        return build_prefill_step(cfg, pods=grid)(*args)
+    return build_serve_step(cfg, sp=sp, coherence=opts.coherence,
+                            pods=grid)(*args)

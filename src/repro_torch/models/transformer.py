@@ -21,6 +21,13 @@ state whole.
 Every arch of the reference is ported; only ``attn_logit_softcap``, which no
 config sets, raises NotImplementedError naming its ROADMAP item.
 
+Training rematerialises each layer by default, as the reference does
+(``forward_lm`` / ``forward_encdec`` / ``lm_loss(remat=True)``; ``"full"`` or
+``"dots"``, ``_run_group``): a forward that autograd records runs each layer
+(``_layer``) under non-reentrant ``torch.utils.checkpoint``, and the backward
+runs it again, its K2 launches (with the LSE) and model-axis collectives
+included.  A prefill or a decode step is never wrapped.
+
 Over the grid's ``model`` axis (``tp``: a ``Pods``, tensor parallelism; the
 parameters from ``launch/specs.py:shard_params``, a split leaf carrying a
 leading local-shard dimension) every family runs as the reference's rules
@@ -46,10 +53,14 @@ size 1, every path is the one above.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves
@@ -320,53 +331,123 @@ def _store_kv_shard(cfg: ModelConfig, g: LayerGroup,
     return store
 
 
+def _layer(cfg: ModelConfig, g: LayerGroup, li: int, lp: PyTree,
+           x: torch.Tensor, positions: torch.Tensor, rope, *,
+           cache: Optional[Dict[str, torch.Tensor]] = None,
+           phys_blocks: Optional[torch.Tensor] = None,
+           enc_out: Optional[torch.Tensor] = None,
+           tp: Optional[Pods] = None
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Layer ``li`` of group ``g`` over a whole sequence x [B,S,D]: (x, its
+    MoE aux loss or None).  With ``cache`` it also fills its part of the
+    group's decode state (``_run_group``)."""
+    causal = g.kind != "enc_attn"
+    h = apply_norm(cfg, x, lp["norm1"])
+    if g.kind in ("ssd", "rglru"):
+        fwd = ssd_forward if g.kind == "ssd" else rglru_forward
+        if cache is None:
+            out = fwd(cfg, lp[g.kind], h, tp=tp)
+        else:
+            out, state = fwd(cfg, lp[g.kind], h, return_state=True, tp=tp)
+            _store_state(cache, li, state)
+        x = x + out
+        if g.kind == "ssd":             # an SSD layer has no FFN
+            return x, None
+    elif tp is not None and heads_sharded(lp["attn"]):
+        store = (None if cache is None else
+                 _store_kv_shard(cfg, g, cache, li, positions, phys_blocks))
+        x = x + attend_tp(cfg, lp["attn"], h, rope, tp, causal=causal,
+                          window=g.window, store=store)
+    else:
+        q, k, v = project_qk_rope_v(cfg, lp["attn"], h, rope)
+        a = attend(cfg, lp["attn"], q, k, v, causal=causal, window=g.window)
+        if cache is not None:
+            _store_kv(cfg, g, cache, li, k, v, positions, phys_blocks)
+        x = x + a
+    if g.kind == "dec_attn":
+        ck, cv = ((cache["cross_k"][li], cache["cross_v"][li])
+                  if cache is not None
+                  else _cross_kv(cfg, lp["cross"], enc_out, tp))
+        h = apply_norm(cfg, x, lp["norm_cross"])
+        x = x + _cross_attend(cfg, lp["cross"], h, ck, cv, tp)
+    return _ffn_block(cfg, lp, x, tp)
+
+
+#: the values ``remat`` takes, as in the reference's ``_run_groups``
+REMAT = (False, True, "full", "dots")
+
+#: the products ``"dots"`` keeps: JAX's ``dots_with_no_batch_dims_saveable``
+#: saves a dot_general's output when it has no batch dimension, the
+#: projections and the head; on the port's dispatcher those are ``aten.mm``
+#: (a [B,S,D] @ [D,F] product is flattened into one) and ``aten.addmm``.
+#: Every other op is recomputed in the backward: norms, rope, activations,
+#: the attention (K2 and its LSE, or on the CPU its plain ``bmm``s) and the
+#: MoE's expert ``bmm``s, whose expert index is a batch dimension.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy(remat) -> Optional[str]:
+    """``remat`` -> None (keep every activation), ``"full"`` or ``"dots"``;
+    ``True`` means ``"full"``, as in the reference."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}: one of {REMAT}")
+    if remat is False:
+        return None
+    return "full" if remat is True else remat
+
+
+def _recording(x: torch.Tensor, lp: PyTree) -> bool:
+    """Whether autograd records a layer on ``x`` with parameters ``lp``."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(lp)))
+
+
+def _rematerialised(layer, policy: str, *args, **kwargs):
+    """``layer(*args, **kwargs)`` under ``torch.utils.checkpoint``: its
+    activations are dropped after the forward and recomputed in the
+    backward (``"full"``), or all but the outputs of ``_SAVED_DOTS``
+    (``"dots"``).  The outputs are the first forward's (the MoE aux loss is
+    counted once); the recomputation runs the layer again, its kernels and
+    its model-axis collectives included, in the backward's order, which is
+    the same on every rank.  No layer draws random numbers, so the RNG
+    state is not stashed."""
+    context = (functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+               if policy == "dots" else noop_context_fn)
+    return checkpoint(layer, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=context, **kwargs)
+
+
 def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
                positions: torch.Tensor, *,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                phys_blocks: Optional[torch.Tensor] = None,
                enc_out: Optional[torch.Tensor] = None,
-               tp: Optional[Pods] = None
+               tp: Optional[Pods] = None, remat=False
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer group over a whole sequence x [B,S,D]: (x, the summed MoE
     aux loss or None).  With ``cache`` (the group's decode state) every
     layer also fills its part of it, in place: self-attention K/V
     (``_store_kv``), the SSD / RG-LRU state, and a decoder layer reads its
-    cross K/V from it; without, a decoder layer projects ``enc_out``."""
+    cross K/V from it; without, a decoder layer projects ``enc_out``.
+    ``remat`` (``remat_policy``) rematerialises each layer of a training
+    forward (no cache, autograd recording); a prefill is never wrapped."""
     rope = (rope_for(cfg, positions, g.rope_theta) if g.kind in ATTN_KINDS
             else None)
+    policy = remat_policy(remat)
     aux: Optional[torch.Tensor] = None
-    causal = g.kind != "enc_attn"
     for li, lp in enumerate(gp):
-        h = apply_norm(cfg, x, lp["norm1"])
-        if g.kind in ("ssd", "rglru"):
-            fwd = ssd_forward if g.kind == "ssd" else rglru_forward
-            if cache is None:
-                out = fwd(cfg, lp[g.kind], h, tp=tp)
-            else:
-                out, state = fwd(cfg, lp[g.kind], h, return_state=True, tp=tp)
-                _store_state(cache, li, state)
-            x = x + out
-            if g.kind == "ssd":             # an SSD layer has no FFN
-                continue
-        elif tp is not None and heads_sharded(lp["attn"]):
-            store = (None if cache is None else
-                     _store_kv_shard(cfg, g, cache, li, positions, phys_blocks))
-            x = x + attend_tp(cfg, lp["attn"], h, rope, tp, causal=causal,
-                              window=g.window, store=store)
+        args = (cfg, g, li, lp, x, positions, rope)
+        kw = dict(cache=cache, phys_blocks=phys_blocks, enc_out=enc_out, tp=tp)
+        if policy is not None and cache is None and _recording(x, lp):
+            x, a = _rematerialised(_layer, policy, *args, **kw)
         else:
-            q, k, v = project_qk_rope_v(cfg, lp["attn"], h, rope)
-            a = attend(cfg, lp["attn"], q, k, v, causal=causal,
-                       window=g.window)
-            if cache is not None:
-                _store_kv(cfg, g, cache, li, k, v, positions, phys_blocks)
-            x = x + a
-        if g.kind == "dec_attn":
-            ck, cv = ((cache["cross_k"][li], cache["cross_v"][li])
-                      if cache is not None
-                      else _cross_kv(cfg, lp["cross"], enc_out, tp))
-            h = apply_norm(cfg, x, lp["norm_cross"])
-            x = x + _cross_attend(cfg, lp["cross"], h, ck, cv, tp)
-        x, a = _ffn_block(cfg, lp, x, tp)
+            x, a = _layer(*args, **kw)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
@@ -390,19 +471,20 @@ def _cross_attend(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
 
 
 def forward_lm(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
-               tp: Optional[Pods] = None
+               tp: Optional[Pods] = None, *, remat=True
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decoder-only LM forward.  tokens: [B,S] int -> (logits [B,S,V], aux);
     aux is the sum of the MoE layers' auxiliary losses, zero for a dense
     config.  Over a vocab-split model axis ``tp`` the logits are the local
-    shards' [p,B,S,V/t] (``gather_vocab`` joins them)."""
+    shards' [p,B,S,V/t] (``gather_vocab`` joins them).  ``remat``: each
+    layer rematerialised when autograd records (``_run_group``)."""
     groups = require_ported(cfg)
     tp = model_axis(tp)
     x = _embed(cfg, params, tokens, tp)
     positions = _positions(*tokens.shape, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for g, gp in zip(groups, params["groups"]):
-        x, a = _run_group(cfg, g, gp, x, positions, tp=tp)
+        x, a = _run_group(cfg, g, gp, x, positions, tp=tp, remat=remat)
         if a is not None:
             aux = aux + a
     return _lm_head(cfg, params, x, tp), aux
@@ -429,7 +511,7 @@ def _round_weights(tree: PyTree, dtype) -> PyTree:
 
 
 def _encode(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
-            tp: Optional[Pods] = None) -> torch.Tensor:
+            tp: Optional[Pods] = None, remat=False) -> torch.Tensor:
     """The encoder over frame embeddings enc_feats [B,Se,D] (the audio
     frontend is a stub, as in the reference) -> enc_out [B,Se,D] float32.
 
@@ -437,29 +519,31 @@ def _encode(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
     its type promotion then carries the whole encoder in float32, each
     product on weights rounded to ``cfg.dtype``.  The port computes the
     same: the encoder's layers under a float32 config, on its matrices
-    rounded once.  ``tp``: the model axis."""
+    rounded once.  ``tp``: the model axis; ``remat``: as ``_run_group``'s."""
     B, Se, _ = enc_feats.shape
     g = require_ported(cfg)[0]
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     x = (enc_feats.to(cfg.dtype).float()
          + _sinusoids(Se, cfg.d_model, enc_feats.device)[None])
     x, _ = _run_group(cfg32, g, _round_weights(params["groups"][0], cfg.dtype),
-                      x, _positions(B, Se, x.device), tp=tp)
+                      x, _positions(B, Se, x.device), tp=tp, remat=remat)
     return apply_norm(cfg32, x, params["enc_norm"])
 
 
 def forward_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
-                   dec_tokens: torch.Tensor, tp: Optional[Pods] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   dec_tokens: torch.Tensor, tp: Optional[Pods] = None, *,
+                   remat=True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whisper-style: enc_feats [B,Se,D] (frontend stub), dec_tokens [B,Sd]
-    -> (logits [B,Sd,V], aux (zero: no MoE)).  ``tp``: the model axis."""
+    -> (logits [B,Sd,V], aux (zero: no MoE)).  ``tp``: the model axis;
+    ``remat``: the encoder's and the decoder's layers rematerialised when
+    autograd records, as the reference wraps both groups."""
     dec_g = require_ported(cfg)[1]
     tp = model_axis(tp)
-    enc_out = _encode(cfg, params, enc_feats, tp)
+    enc_out = _encode(cfg, params, enc_feats, tp, remat)
     positions = _positions(*dec_tokens.shape, dec_tokens.device)
     y = _dec_embed(cfg, params, dec_tokens, positions)
     y, _ = _run_group(cfg, dec_g, params["groups"][1], y, positions,
-                      enc_out=enc_out, tp=tp)
+                      enc_out=enc_out, tp=tp, remat=remat)
     return (_lm_head(cfg, params, y),
             torch.zeros((), dtype=torch.float32, device=y.device))
 
@@ -516,20 +600,23 @@ def _vocab_parallel_ll(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def lm_loss(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor],
-            tp: Optional[Pods] = None
+            tp: Optional[Pods] = None, *, remat=True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy on a float32 log-softmax, plus 0.01 times
     the MoE aux loss.  batch: ``tokens`` [B,S+1] (and ``enc_feats`` [B,Se,D]
     for an encoder-decoder), optionally ``mask`` [B,S+1] (position 0 is
     dropped with the inputs).  ``tp``: the model axis (the log-softmax over
-    vocab shards, never gathered).  Returns (total, {loss, aux, tokens})."""
+    vocab shards, never gathered); ``remat``: each layer rematerialised
+    (``_run_group``; the reference's default).  Returns (total, {loss, aux,
+    tokens})."""
     tokens = batch["tokens"]
     tp = model_axis(tp)
     if cfg.family == "encdec":
         logits, aux = forward_encdec(cfg, params, batch["enc_feats"],
-                                     tokens[:, :-1], tp)
+                                     tokens[:, :-1], tp, remat=remat)
     else:
-        logits, aux = forward_lm(cfg, params, tokens[:, :-1], tp)
+        logits, aux = forward_lm(cfg, params, tokens[:, :-1], tp,
+                                 remat=remat)
     targets = tokens[:, 1:].long()
     if tp is not None and vocab_split(params):
         ll = _vocab_parallel_ll(logits, targets, tp)

@@ -100,11 +100,12 @@ class TrainerConfig:
 def train_step(cfg: ModelConfig, params: PyTree, opt_state, batch
                ) -> Tuple[PyTree, Any, Dict[str, torch.Tensor]]:
     """One step: ``lm_loss`` -> ``.backward()`` -> ``adamw_update`` (in
-    place).  ``params`` must require grad.  Returns (params, the new
+    place), with no rematerialisation, as the reference's ``Trainer``
+    differentiates ``lm_loss(remat=False)``.  ``params`` must require grad.  Returns (params, the new
     optimizer state, the metrics of ``lm_loss`` plus ``grad_norm``, all
     detached)."""
     leaves = tree_leaves(params)
-    total, metrics = lm_loss(cfg, params, batch)
+    total, metrics = lm_loss(cfg, params, batch, remat=False)
     total.backward()
     params, opt_state, gnorm = adamw_update(params, [p.grad for p in leaves],
                                             opt_state)
@@ -144,7 +145,7 @@ class Trainer:
     def _default_step(self) -> Callable:
         if self.grid is not None:
             from ..launch.specs import build_train_step
-            return build_train_step(self.cfg, pods=self.grid)
+            return build_train_step(self.cfg, pods=self.grid, remat=False)
         return functools.partial(train_step, self.cfg)
 
     def _fresh(self):
