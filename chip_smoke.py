@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases kernels # build + kernel checks only
     python3 chip_smoke.py --phases train   # build + the training slice only
     python3 chip_smoke.py --phases kernels_bwd  # build + K2's backward row only
+    python3 chip_smoke.py --phases kernels_cap  # build + the soft-cap rows only
+    python3 chip_smoke.py --phases cap     # the logit soft-cap at full width
     python3 chip_smoke.py --phases kernels,multipod   # the pod axis
     python3 chip_smoke.py --phases kernels,model_axis # the in-pod model axis
     python3 chip_smoke.py --phases kernels,numa_sim   # the NUMA simulator
@@ -46,6 +48,15 @@ and the script exits non-zero):
             kinds of dO, and float32 inputs on the FMA kernels) beside the
             plain version and SDPA's backward.
             ``--phases kernels_bwd`` runs this row alone.
+            K1, K2 and K2's backward with the logit soft-cap (cap 50, Gemma 2's
+            published value, and 2, where the plain version without the cap
+            must miss the bound) against their plain versions with it, both
+            dtypes, also at the capped serve's Gemma-3-4B shapes (K1, K2
+            global and windowed, bf16, where the cap of 2 must be seen too),
+            the LSEs of the capped scores, timed at Qwen3-14B's
+            serving and prefill shapes and Yi-6B's training shape beside the
+            uncapped instance and flex_attention with a tanh score_mod
+            (``--phases kernels_cap`` runs these rows alone).
             K1's per-row log-sum-exp (``lse``) against the plain version's
             (within 1e-5, both dtypes, a dead row, shard-local lengths past
             either end of a shard, with and without a window, one split and
@@ -95,6 +106,14 @@ and the script exits non-zero):
             bit-equal across the three, K2's forward and LSE writes doubled
             under remat; gradient ms, AdamW ms, peak GB; then the most layers
             whose step trains on the card with remat "full"
+  cap       the logit soft-cap at published widths: Gemma-3-4B served (all 34
+            layers, one wave of 16 x 2 048, 64 tokens) with cap 50 beside
+            without: every K1 and K2 launch of the capped run is the capped
+            instance and none of the other's; prefill / step ms, tokens/s;
+            the capped first wave's prefill and first step against the plain
+            path (logits within 0.03, tokens equal but at near-ties); one
+            Yi-6B train step (8 of 32 layers, 8 x 1 024) with the cap against
+            the plain path (loss 1e-3, every gradient leaf 2e-2)
   cells     the dry run (``repro_torch.launch.dryrun``): all 33 cells on one
             pod of 16 x 16 and on two, built on the meta device, each
             cell's per-device bytes equal to the count from the config's
@@ -103,7 +122,10 @@ and the script exits non-zero):
             train_4k (2 rows, remat "full", depth cut to fit) as one device
             runs them (``launch/profile_cell.py``): step ms, peak GB within
             15 % of the analytic peak, busy ms and idle share, the largest
-            kernels, beside the analytic bound
+            kernels, beside the analytic bound; and the 66 cells again with
+            Megatron sequence parallelism (``seq_parallel``), then the
+            roofline table (``dryrun --table``) of train_4k and prefill_32k
+            with it off and on
   multipod  the pod axis on one card (``LoopPods(4)``), Qwen3-14B and Yi-6B at
             published widths.  A: ``serve()`` of Qwen3-14B (all 40 layers,
             batch 16, prompt 1 024, 64 tokens, 32 requests) over 4 KV pools
@@ -137,7 +159,16 @@ and the script exits non-zero):
             master weights) 4 steps at model = 2 against model = 1.  C: Yi-6B
             (2 of 32 layers) 6 steps at (data 2, model 4), a checkpoint equal
             to the gathered live shards, 4 more steps there and 4 restored
-            onto (data 2, model 2): within 2e-2 and the bound from readings
+            onto (data 2, model 2): within 2e-2 and the bound from readings.
+            E: Megatron sequence parallelism at model 2, the dry run's cells
+            on the card: Yi-6B (8 of 32 layers, 8 x 1 024) 4 train steps and
+            Qwen3-14B's prefill (8 of 40 layers, 16 x 1 024) with and without
+            it: the first loss bit-equal and the rest within SP_LOSS_TOL,
+            the prefill's logits and tokens equal, each step's launches as
+            the path implies and its model-axis bytes equal to
+            ``analysis.model_wire`` of its cell, and at 2 layers the first
+            gradients equal but for the norm scales' (within
+            SP_GRAD_TOL_REL)
   numa_sim  the NUMA simulator (``repro_torch.core``, host protocol in numpy)
             with pass 1 of its batch engine on the fifo_miss kernel: fig08's
             five apps x three policies at its full settings with --scale 16
@@ -185,6 +216,7 @@ import dataclasses
 import gc
 import json
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -225,6 +257,7 @@ from repro_torch.serving import (SERVING_POLICIES,  # noqa: E402
                                  nominal_capacity_rps, poisson_trace,
                                  run_closed_loop)
 from repro_torch.distributed import LoopPods, compression  # noqa: E402
+from repro_torch.distributed.sharding import use_rules  # noqa: E402
 from repro_torch.kvcache import PagedKVManager  # noqa: E402
 from repro_torch.kvcache import gather as kv_gather  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
@@ -235,7 +268,7 @@ from repro_torch.models import (active_param_count,  # noqa: E402
                                 decode_step, forward_lm, greedy_sample,
                                 init_decode_state, init_params, layer_groups,
                                 lm_loss, param_count, prefill, prefill_encdec)
-from repro_torch.models.transformer import DecodeState  # noqa: E402
+from repro_torch.models.transformer import DecodeState, gather_vocab  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.pagedpt import coherence  # noqa: E402
 from repro_torch.pagedpt.blocktable import (CoherenceMode,  # noqa: E402
@@ -278,6 +311,13 @@ KERNEL_FNS = {"paged_attention": paged_attention,
               "flash_attention_bwd": flash_attention_bwd,
               "pte_gather": pte_gather,
               "fifo_miss": fifo_miss_ids}
+#: the wrappers whose ``softcap_launches`` count their capped instance's
+#: launches; a path's counts name them "<kernel>/softcap"
+CAP_FNS = {"paged_attention": paged_attention,
+           "flash_attention": flash_attention,
+           "flash_attention_bwd": flash_attention_bwd}
+#: every count a path reads: each kernel's, and each capped instance's
+COUNTED = list(KERNEL_FNS) + [f"{name}/softcap" for name in CAP_FNS]
 RNG = np.random.default_rng(0)
 
 
@@ -318,9 +358,13 @@ def time_ms(fn, iters: int = 10) -> float:
 
 
 # --------------------------------------------------------------------- inputs
+# the kernel checks' normal inputs, drawn on the card from seed 0: a
+# full-width operand drawn on the host took seconds of the script's budget
+DEV_GEN = torch.Generator(device=DEV).manual_seed(0)
+
+
 def randn(shape, dtype):
-    return torch.from_numpy(RNG.standard_normal(shape).astype(np.float32)).to(
-        device=DEV, dtype=dtype)
+    return torch.randn(tuple(shape), generator=DEV_GEN, device=DEV).to(dtype)
 
 
 def make_tables(B, MB, bt, N, lens=None, dead_row=False):
@@ -658,6 +702,282 @@ def phase_kernels_bwd() -> dict:
     del args
     release()
     return row
+
+
+# ------------------------------------------------------- the logit soft-cap
+# Gemma 2's published attn_logit_softcapping; the checks also run at a cap
+# that bites at these inputs (unit normals: scaled scores of a few units), where
+# the plain version without the cap must miss the bound, or the bound could
+# not see a dropped cap
+SOFTCAP = 50.0
+SOFTCAP_TIGHT = 2.0
+# the timed shapes: Qwen3-14B's serving (K1) and prefill (K2), Yi-6B's training
+# (K2's backward)
+CAP_PAGED = (16, 40, 8, 128, 16, 69, 4416, None)
+CAP_FLASH = (16, 40, 8, 1024, 128, True, None)
+# the capped serve's shapes, at both caps in bf16 (its dtype): Gemma-3-4B's K1
+# (16 rows of 2 048 prompt tokens + 1, head_dim 256) and its K2, global and
+# over its 1 024 window (q [16, 8, 2 048, 256])
+CAP_GEMMA_PAGED = (16, 8, 4, 256, 16, 133, 4256, None)
+CAP_GEMMA_LEN = 2049
+CAP_GEMMA_FLASH = [(16, 8, 4, 2048, 256, True, None),
+                   (16, 8, 4, 2048, 256, True, 1024)]
+
+
+def capped(fn, cap):
+    """``fn`` with ``softcap=cap``."""
+    def run(*args, **kw):
+        return fn(*args, softcap=cap, **kw)
+    return run
+
+
+def flex_score_mod(cap):
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / cap) * cap
+    return score_mod
+
+
+def flex_library(kind: str, args, kw, cap):
+    """Yardstick only (the port never calls it): the same capped function
+    as one ``torch.nn.attention.flex_attention`` call with a tanh
+    ``score_mod`` (K1: on the gathered blocks).  Returns (the call to time,
+    or None, and what it is or why it is not there)."""
+    t0 = time.perf_counter()
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                        flex_attention)
+        flex = torch.compile(flex_attention, dynamic=False)
+        mod = flex_score_mod(cap)
+        if kind == "paged":
+            q, ks, vs, tables, lens = args
+            B, H, hd = q.shape
+            _, bt, K, _ = ks.shape
+            frames = tables.long().clamp_min(0)
+            T = tables.shape[1] * bt
+            live = lens.long()
+            mask = lambda b, h, q_idx, kv_idx: kv_idx < live[b]
+            bm = create_block_mask(mask, B, None, 1, T, device=DEV)
+
+            def call():
+                k = ks[frames].reshape(B, T, K, hd).transpose(1, 2)
+                v = vs[frames].reshape(B, T, K, hd).transpose(1, 2)
+                return flex(q[:, :, None], k, v, score_mod=mod, block_mask=bm,
+                            enable_gqa=True)
+        else:
+            q, k, v = (a.detach().contiguous() for a in args[:3])
+            S = q.shape[2]
+            causal = lambda b, h, q_idx, kv_idx: q_idx >= kv_idx
+            bm = create_block_mask(causal, None, None, S, S, device=DEV)
+            if kind == "flash":
+                def call():
+                    return flex(q, k, v, score_mod=mod, block_mask=bm,
+                                enable_gqa=True)
+            else:
+                leaves = [t.requires_grad_() for t in (q, k, v)]
+                o = flex(*leaves, score_mod=mod, block_mask=bm, enable_gqa=True)
+                g = args[5].to(o.dtype)
+
+                def call():
+                    return torch.autograd.grad(o, leaves, g, retain_graph=True)
+        call()
+        torch.cuda.synchronize()
+        return call, {"library": "flex_attention, tanh score_mod, compiled",
+                      "library_compile_s": time.perf_counter() - t0}
+    except Exception as e:  # noqa: BLE001 - the yardstick is optional
+        return None, {"library": f"none: flex_attention did not run here "
+                                 f"({type(e).__name__}: {str(e)[:200]})"}
+
+
+def cap_cases(cases, ref, fn, tol, name):
+    """Each case at both caps, the kernel against its plain version; returns
+    the largest error by dtype."""
+    errs = {}
+    for args, kw in cases:
+        for cap in (SOFTCAP, SOFTCAP_TIGHT):
+            got, want = capped(fn, cap)(*args, **kw), capped(ref, cap)(*args, **kw)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            dt = str(args[0].dtype).replace("torch.", "")
+            check(err <= tol, f"{name} cap {cap} {tuple(args[0].shape)} {dt}: "
+                              f"|err| {err} > {tol}")
+            errs[dt] = max(errs.get(dt, 0.0), err)
+    return errs
+
+
+def no_cap_miss(ref, tol, args, kw):
+    """How far the plain version without the cap lies from it with cap
+    SOFTCAP_TIGHT on a case: must be past the bound, or the case could not
+    see a dropped cap."""
+    miss = max_err(ref(*args, **kw), capped(ref, SOFTCAP_TIGHT)(*args, **kw))
+    check(miss > tol, f"{ref.__name__} {tuple(args[0].shape)}: a dropped "
+                      f"cap misses by only {miss}")
+    return miss
+
+
+def cap_row(name, source, replaces, fn, ref, bound, library_kind, args, kw,
+            errs, cases, tol, control):
+    """A capped kernel's row: its check, its time beside the uncapped
+    instance's at the same shape in the same call, the plain version's, the
+    bound (the products; the cap's one tanh a visible pair is not counted)
+    and flex_attention's."""
+    t_bytes, t_ops = bound(args, kw)
+    lib, lib_note = flex_library(library_kind, args, kw, SOFTCAP)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "softcap": SOFTCAP, "launches": 0,
+           "max_abs_err": max_err(capped(fn, SOFTCAP)(*args, **kw),
+                                  capped(ref, SOFTCAP)(*args, **kw)),
+           "ms": time_ms(lambda: capped(fn, SOFTCAP)(*args, **kw)),
+           "uncapped_ms": time_ms(lambda: fn(*args, **kw)),
+           "plain_ms": time_ms(lambda: capped(ref, SOFTCAP)(*args, **kw)),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None if lib is None else time_ms(lib), **lib_note,
+           "timed_shape": [list(a.shape) for a in args if torch.is_tensor(a)],
+           "max_abs_err_by_dtype": errs, "tolerance": tol, "cases": cases,
+           "caps_checked": [SOFTCAP, SOFTCAP_TIGHT],
+           "no_cap_control_err": control}
+    check(control > tol, f"{name}: the plain version without the cap misses "
+                         f"by {control}, within {tol}: the bound cannot see it")
+    return row
+
+
+def flash_bwd_cap_case(B, H, K, S, hd, causal, window, dtype, cap,
+                       dout_bf16=False):
+    """``flash_bwd_case`` with the kernel forward's output and LSE capped."""
+    (q, k, v), kw = flash_case(B, H, K, S, hd, causal, window, dtype)
+    out, lse = flash_ops._forward(q, k, v, causal, window, with_lse=True,
+                                  softcap=cap)
+    _, want = flash_attention_ref(q, k, v, return_lse=True, softcap=cap, **kw)
+    dout = randn((B, H, S, hd), torch.float32)
+    if dout_bf16:
+        dout = dout.to(torch.bfloat16).float()
+    return (q, k, v, out, lse, dout), kw, max_err(lse, want)
+
+
+def phase_kernels_cap() -> list:
+    """K1, K2 and K2's backward with the logit soft-cap against their plain
+    versions with it (both dtypes, both caps, the reference's bounds), the
+    LSEs of the capped scores, a control that the bounds see a dropped cap,
+    and the three timed rows."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    both = (f32, bf16)
+    rows = []
+    # K1
+    paged = [paged_case(*row, dt) for dt in both for row in [
+        (2, 8, 2, 64, 16, 8, 32, None), (2, 16, 2, 64, 8, 16, 48, 24),
+        (1, 4, 1, 32, 4, 4, 8, None), (2, 32, 2, 64, 16, 8, 32, None),
+        (2, 8, 2, 256, 16, 8, 32, None)]]
+    paged += [paged_case(4, 8, 2, 64, 16, 8, 32, None, dt, dead_row=True)
+              for dt in both]
+    paged += [paged_case(16, 20, 8, 128, 16, 69, 4416, None, dt,
+                         kv_heads=(4, 4)) for dt in both]
+    paged += [paged_case(*CAP_PAGED, dt, lens=np.full(16, 1057)) for dt in both]
+    gemma = paged_case(*CAP_GEMMA_PAGED, bf16, lens=np.full(16, CAP_GEMMA_LEN))
+    paged.append(gemma)
+    errs = cap_cases(paged, paged_attention_ref, paged_attention,
+                     TOL["paged_attention"], "paged_attention")
+    gemma_control = [no_cap_miss(paged_attention_ref, TOL["paged_attention"],
+                                 *gemma)]
+    del gemma
+    lse_err = 0.0
+    for args, kw in lse_cases()[:4]:
+        lse = torch.empty(args[0].shape[:2], dtype=torch.float32, device=DEV)
+        paged_attention(*args, lse=lse, softcap=SOFTCAP_TIGHT, **kw)
+        _, want = paged_attention_ref(*args, return_lse=True,
+                                      softcap=SOFTCAP_TIGHT, **kw)
+        lse_err = max(lse_err, max_err(lse, want))
+    check(lse_err <= LSE_TOL, f"K1's capped lse: |err| {lse_err}")
+    args, kw = paged_case(*CAP_PAGED, bf16, lens=np.full(16, 1057))
+    control = max_err(paged_attention_ref(*args, **kw),
+                      capped(paged_attention_ref, SOFTCAP_TIGHT)(*args, **kw))
+    row = cap_row("paged_attention/softcap",
+                  "src/repro_torch/kernels/csrc/paged_attention.cu",
+                  "src/repro/kernels/paged_attention/kernel.py:91",
+                  paged_attention, paged_attention_ref, paged_bound, "paged",
+                  args, kw, errs, 2 * len(paged), TOL["paged_attention"], control)
+    row.update(lse_max_abs_err=lse_err, gemma3_4b_shape=list(CAP_GEMMA_PAGED),
+               gemma3_4b_no_cap_control_err=gemma_control)
+    rows.append(row)
+    del paged, args
+    # K2 forward
+    flash = [flash_case(*row, dt) for dt in both for row in [
+        (2, 4, 2, 128, 64, True, None), (2, 4, 1, 128, 128, True, 64),
+        (1, 4, 2, 256, 64, False, None), (2, 4, 2, 100, 16, True, None),
+        (1, 2, 1, 70, 256, False, 33), (2, 40, 8, 1024, 128, True, None)]]
+    gemma = [flash_case(*row, bf16) for row in CAP_GEMMA_FLASH]
+    errs = cap_cases(flash + gemma, flash_attention_ref, flash_attention,
+                     TOL["flash_attention"], "flash_attention")
+    gemma_control = [no_cap_miss(flash_attention_ref, TOL["flash_attention"],
+                                 *case) for case in gemma]
+    del gemma
+    lse_err = 0.0
+    for (q, k, v), kw in flash[:6]:
+        _, lse = flash_ops._forward(q, k, v, kw["causal"], kw["window"],
+                                    with_lse=True, softcap=SOFTCAP_TIGHT)
+        _, want = flash_attention_ref(q, k, v, return_lse=True,
+                                      softcap=SOFTCAP_TIGHT, **kw)
+        lse_err = max(lse_err, max_err(lse, want))
+    check(lse_err <= TOL["flash_attention"], f"K2's capped lse: |err| {lse_err}")
+    args, kw = flash_case(*CAP_FLASH, bf16)
+    control = max_err(flash_attention_ref(*args, **kw),
+                      capped(flash_attention_ref, SOFTCAP_TIGHT)(*args, **kw))
+    row = cap_row("flash_attention/softcap",
+                  "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention/kernel.py:81",
+                  flash_attention, flash_attention_ref, flash_bound, "flash",
+                  args, kw, errs, 2 * (len(flash) + len(CAP_GEMMA_FLASH)),
+                  TOL["flash_attention"], control)
+    row.update(lse_max_abs_err=lse_err, gemma3_4b_shapes=CAP_GEMMA_FLASH,
+               gemma3_4b_no_cap_control_err=gemma_control)
+    rows.append(row)
+    del flash, args
+    # K2's backward: each case at both caps, both kinds of dO
+    rel_by = {}
+    shapes = [((2, 4, 2, 100, 16, True, None), f32),
+              ((2, 4, 2, 100, 16, True, None), bf16),
+              ((1, 8, 2, 333, 128, True, 100), bf16),
+              ((1, 4, 2, 256, 64, False, None), bf16),
+              ((1, 2, 1, 70, 256, False, 33), bf16),     # head_dim 256: FMAs
+              ((2,) + FLASH_BWD_TRAIN[1:], f32), (FLASH_BWD_TRAIN, bf16)]
+    n = 0
+    for shape, dt in shapes:
+        for cap in (SOFTCAP, SOFTCAP_TIGHT):
+            for dout_bf16 in ((False, True) if dt == bf16 else (False,)):
+                a, kw, lse_err = flash_bwd_cap_case(*shape, dt, cap,
+                                                    dout_bf16=dout_bf16)
+                rel = flash_bwd_rel(flash_attention_bwd(*a, softcap=cap, **kw),
+                                    flash_attention_bwd_ref(*a, softcap=cap,
+                                                            **kw))
+                torch.cuda.synchronize()
+                check(max(rel.values()) <= BWD_TOL_REL and
+                      lse_err <= TOL["flash_attention"],
+                      f"flash_attention_bwd cap {cap} {shape} {dt}: {rel}, "
+                      f"lse {lse_err}")
+                key = str(dt).replace("torch.", "") + (
+                    "/bf16_valued_dout" if dout_bf16 else "")
+                rel_by[key] = max(rel_by.get(key, 0.0), *rel.values())
+                n += 1
+                del a
+    args, kw, _ = flash_bwd_cap_case(*FLASH_BWD_TRAIN, bf16, SOFTCAP,
+                                     dout_bf16=True)
+    want = capped(flash_attention_bwd_ref, SOFTCAP_TIGHT)(*args, **kw)
+    control = min(flash_bwd_rel(flash_attention_bwd_ref(*args, **kw),
+                                want).values())
+    row = cap_row("flash_attention_bwd/softcap",
+                  "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                  "src/repro/kernels/flash_attention/kernel.py:81",
+                  flash_attention_bwd, flash_attention_bwd_ref,
+                  flash_bwd_bound, "flash_bwd", args, kw, rel_by, n,
+                  BWD_TOL_REL, control)
+    row.update(tolerance_rel=BWD_TOL_REL,
+               dout="bf16-valued (the train step's)",
+               rel_err=flash_bwd_rel(
+                   capped(flash_attention_bwd, SOFTCAP)(*args, **kw),
+                   capped(flash_attention_bwd_ref, SOFTCAP)(*args, **kw)))
+    rows.append(row)
+    del args, want
+    release()
+    return rows
 
 
 # ---------------------------------------------------------------- pte gather
@@ -1312,6 +1632,7 @@ def phase_kernels():
                   f"within {TOL[name]}: the bound cannot see it")
         rows.append(row)
     rows.insert(2, phase_kernels_bwd())
+    rows.extend(phase_kernels_cap())
     return rows
 
 
@@ -1338,6 +1659,21 @@ def release() -> None:
 def reset_counters() -> None:
     for fn in KERNEL_FNS.values():
         fn.launches = 0
+    for fn in CAP_FNS.values():
+        fn.softcap_launches = 0
+
+
+def counts_now() -> dict:
+    """The launches of each kernel, and of each capped instance under
+    "<kernel>/softcap", since the counters were zeroed."""
+    return {**{name: fn.launches for name, fn in KERNEL_FNS.items()},
+            **{f"{name}/softcap": fn.softcap_launches
+               for name, fn in CAP_FNS.items()}}
+
+
+def uncapped(want: dict) -> dict:
+    """``want`` of a path that launches no capped instance."""
+    return {**want, **{f"{name}/softcap": 0 for name in CAP_FNS}}
 
 
 # the prompt each arch is served with: Gemma's is longer than its 1 024-token
@@ -1384,10 +1720,10 @@ def expected_launches(cfg, waves: int, gen_len: int, warm_up: bool,
     once a shard; 1 where the attention runs replicated)."""
     n_global, n_attn = attention_layers(cfg)
     extra = 1 if warm_up else 0
-    return {"paged_attention": n_global * (gen_len * waves + extra) * shards,
-            "flash_attention": n_attn * (waves + extra) * shards,
-            "flash_attention_bwd": 0,
-            "pte_gather": (2 + gen_len) * waves, "fifo_miss": 0}
+    return uncapped({"paged_attention": n_global * (gen_len * waves + extra) * shards,
+                     "flash_attention": n_attn * (waves + extra) * shards,
+                     "flash_attention_bwd": 0,
+                     "pte_gather": (2 + gen_len) * waves, "fifo_miss": 0})
 
 
 @contextlib.contextmanager
@@ -1425,7 +1761,7 @@ def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
         r = serve(arch, full_width=True, n_layers=n_layers, batch=batch,
                   prompt_len=prompt_len, gen_len=gen_len, n_requests=n_requests,
                   n_pods=4, mode="numapte", verbose=False)
-    counts = {name: fn.launches for name, fn in KERNEL_FNS.items()}
+    counts = counts_now()
     check(lse["lse_writes"] == 0, f"{arch}: serving wrote an LSE {lse}")
     waves = -(-n_requests // batch)
     cfg = get_config(arch)
@@ -1559,7 +1895,7 @@ def phase_whisper(n_pods: int = 4):
     t0 = time.perf_counter()
     with lse_pointers_counted({}) as lse:
         r = whisper_serve(cfg, params, n_pods=n_pods, **spec)
-    counts = {name: fn.launches for name, fn in KERNEL_FNS.items()}
+    counts = counts_now()
     check(lse["lse_writes"] == 0, f"{arch}: serving wrote an LSE {lse}")
     waves = -(-spec["n_requests"] // spec["batch"])
     want = expected_launches(cfg, waves, spec["gen_len"], warm_up=False)
@@ -1900,7 +2236,7 @@ def train_run(cfg, ds, steps):
             losses.append(float(metrics["loss"]))
             step_s.append(time.perf_counter() - t0)
             norms.append(float(metrics["grad_norm"]))
-    counts = {name: fn.launches for name, fn in KERNEL_FNS.items()}
+    counts = counts_now()
     counts["lse_writes"] = lse["lse_writes"]
     out = {"losses": losses, "grad_norms": norms, "step_s": step_s,
            "counts": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1987,9 +2323,9 @@ def k2_launches(cfg, remat) -> dict:
     layer): the recomputation of ``"full"`` and ``"dots"`` runs each
     layer's forward, and writes its LSE, a second time."""
     fwd = cfg.n_layers * (2 if remat else 1)
-    return {"paged_attention": 0, "flash_attention": fwd,
-            "flash_attention_bwd": cfg.n_layers, "pte_gather": 0,
-            "fifo_miss": 0, "lse_writes": fwd}
+    return uncapped({"paged_attention": 0, "flash_attention": fwd,
+                     "flash_attention_bwd": cfg.n_layers, "pte_gather": 0,
+                     "fifo_miss": 0, "lse_writes": fwd})
 
 
 def remat_row(cfg, ds) -> dict:
@@ -2155,9 +2491,9 @@ def phase_train():
     ds = SyntheticLMDataset(cfg.vocab_size, seq_len=TRAIN["seq"],
                             global_batch=TRAIN["batch"])
     first, second = train_run(cfg, ds, steps), train_run(cfg, ds, steps)
-    want = {"paged_attention": 0, "flash_attention": cfg.n_layers * steps,
-            "flash_attention_bwd": cfg.n_layers * steps, "pte_gather": 0,
-            "fifo_miss": 0, "lse_writes": cfg.n_layers * steps}
+    want = uncapped({"paged_attention": 0, "flash_attention": cfg.n_layers * steps,
+                     "flash_attention_bwd": cfg.n_layers * steps, "pte_gather": 0,
+                     "fifo_miss": 0, "lse_writes": cfg.n_layers * steps})
     for run in (first, second):
         check(run["counts"] == want,
               f"train: launch counts {run['counts']}, the path implies {want}")
@@ -2191,15 +2527,134 @@ def phase_train():
           "losses": first["losses"], "grad_norms": first["grad_norms"],
           "remat": False, "runs_bit_equal": True, "launches": first["counts"],
           "parity": train_parity(), "trainer_replay": trainer_replay()})
-    kernels = lambda c: {k: v for k, v in c.items() if k in KERNEL_FNS}
+    kernels = lambda c: {k: v for k, v in c.items() if k in COUNTED}
     modes = REMAT["modes"]
     rounds = REMAT["rounds"]
     remat_counts = {k: rounds * sum(remat["modes"][str(m)]["launches"][k]
-                                    for m in modes) for k in KERNEL_FNS}
+                                    for m in modes) for k in COUNTED}
     remat_want = {k: rounds * sum(k2_launches(cfg, m)[k] for m in modes)
-                  for k in KERNEL_FNS}
+                  for k in COUNTED}
     return {"train_yi_6b": (kernels(first["counts"]), kernels(want)),
             "train_remat_yi_6b": (remat_counts, remat_want)}
+
+
+# ------------------------------------------------------------- the soft-cap
+# Gemma-3-4B served with the cap at published widths, all 34 layers, one wave
+# (batch 16, prompt 2 048 past its 1 024 window); Yi-6B's train step (TRAIN's
+# cut) with the cap
+CAP_SERVE = dict(arch="gemma3_4b", batch=16, prompt_len=2048, gen_len=64,
+                 n_requests=16)
+
+
+def cap_serve() -> dict:
+    """``serve()`` of Gemma-3-4B with ``attn_logit_softcap`` = SOFTCAP beside
+    the same run without it: every K1 and K2 launch of the capped run is the
+    capped instance, none of the other's; then the capped first wave's
+    prefill and first decode step, the kernel path against the plain one."""
+    arch = CAP_SERVE["arch"]
+    cfg0 = get_config(arch)
+    runs, out = {}, {}
+    for tag, cfg in (("uncapped", cfg0),
+                     ("capped", dataclasses.replace(cfg0,
+                                                    attn_logit_softcap=SOFTCAP))):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        r = serve(arch, cfg=cfg, full_width=True, n_pods=4, mode="numapte",
+                  verbose=False, **{k: v for k, v in CAP_SERVE.items()
+                                    if k != "arch"})
+        counts = counts_now()
+        want = expected_launches(cfg, 1, CAP_SERVE["gen_len"], warm_up=True)
+        on = tag == "capped"
+        want.update({"paged_attention/softcap": want["paged_attention"] * on,
+                     "flash_attention/softcap": want["flash_attention"] * on,
+                     "flash_attention_bwd/softcap": 0})
+        check(counts == want, f"cap serve {tag}: launches {counts}, not {want}")
+        check(r["logits_finite"], f"cap serve {tag}: non-finite logits")
+        out[tag] = {k: r[k] for k in ("prefill_ms", "decode_step_ms",
+                                      "tok_per_s")}
+        out[tag]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[tag]["launches"] = counts
+        runs[f"cap_serve_{tag}"] = (counts, want)
+    cfg = dataclasses.replace(cfg0, attn_logit_softcap=SOFTCAP)
+    release()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         param_dtype=cfg.dtype)
+    shape = (CAP_SERVE["batch"], CAP_SERVE["prompt_len"], 1)
+    with torch.no_grad():
+        got = first_wave(cfg, params, *shape)
+        with plain_versions():
+            want = first_wave(cfg, params, *shape)
+    rels = [rel_err(g, w) for g, w in zip(got, want)]
+    ids_g = [g.argmax(-1) for g in got]
+    ids_w = [w.argmax(-1) for w in want]
+    flips = []
+    for g, w, ig, iw, rel in zip(got, want, ids_g, ids_w, rels):
+        for r in torch.nonzero(ig != iw).flatten().tolist():
+            top = w[r].topk(2).values
+            flips.append({"margin": float(top[0] - top[1]),
+                          "logit_err": float((g[r] - w[r]).abs().max())})
+    out["parity"] = {"bf16_prefill_rel": rels[0], "bf16_decode_rel": rels[1:],
+                     "tokens_compared": sum(i.numel() for i in ids_g),
+                     "tokens_equal": sum(int((a == b).sum())
+                                         for a, b in zip(ids_g, ids_w)),
+                     "flips": flips}
+    check(max(rels) < 0.03, f"cap serve: kernel path and plain path differ: "
+                            f"{out['parity']}")
+    check(all(f["margin"] <= 2 * f["logit_err"] for f in flips),
+          f"cap serve: a token flips at no near-tie: {flips}")
+    del params, got, want
+    release()
+    emit({"phase": "cap_serve", "arch": arch, "widths": "published",
+          "layers": cfg.n_layers, "softcap": SOFTCAP, **CAP_SERVE, **out})
+    return runs
+
+
+def cap_train() -> dict:
+    """One Yi-6B train step (TRAIN's cut) with the cap: loss and gradients
+    of the kernel path (K2 and its backward, capped) against the plain
+    path's, every gradient leaf held to train_parity's bounds."""
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN["n_layers"],
+                              attn_logit_softcap=SOFTCAP)
+    release()
+    params = trainable(init_params(cfg, torch.Generator(device=DEV).manual_seed(0)))
+    data = {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLMDataset(
+        cfg.vocab_size, seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+        seed=1).batch_at(0).items()}
+    reset_counters()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(cfg, params, data)
+    step_s = time.perf_counter() - t0
+    counts = counts_now()
+    L = cfg.n_layers
+    want = {"paged_attention": 0, "flash_attention": L,
+            "flash_attention_bwd": L, "pte_gather": 0, "fifo_miss": 0,
+            "paged_attention/softcap": 0, "flash_attention/softcap": L,
+            "flash_attention_bwd/softcap": L}
+    check(counts == want, f"cap train: launches {counts}, not {want}")
+    with plain_versions():
+        want_loss, want_grads = loss_and_grads(cfg, params, data)
+    rels = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(grads, want_grads)]
+    out = {"layers": L, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+           "softcap": SOFTCAP, "loss": loss, "plain_loss": want_loss,
+           "loss_rel": abs(loss - want_loss) / abs(want_loss),
+           "grad_rel_max": max(rels), "grad_rel_median": float(np.median(rels)),
+           "grad_leaves": len(rels), "kernel_path_s": step_s,
+           "launches": counts}
+    check(out["loss_rel"] <= 1e-3 and out["grad_rel_max"] <= 2e-2,
+          f"cap train: kernel path and plain path differ: {out}")
+    del params, grads, want_grads
+    release()
+    emit({"phase": "cap_train", "arch": TRAIN["arch"], "widths": "published",
+          **out})
+    return {"cap_train_yi_6b": (counts, want)}
+
+
+def phase_cap() -> dict:
+    runs = cap_serve()
+    runs.update(cap_train())
+    return runs
 
 
 # ------------------------------------------------------------------ pod axis
@@ -2218,10 +2673,6 @@ MULTIPOD_MODES = {          # path: serve() arguments (host mode, pools, replica
 SP = dict(context=32768, steps=32, shards=4, max_flips=4)
 # C: Yi-6B at published widths, 2 of 32 layers, batch 8 x 1 024, 4 pods
 POD_TRAIN = dict(arch="yi_6b", n_layers=2, batch=8, seq=1024, pods=4)
-
-
-def counts_now() -> dict:
-    return {name: fn.launches for name, fn in KERNEL_FNS.items()}
 
 
 def multipod_serve(params) -> dict:
@@ -2310,9 +2761,9 @@ def multipod_sp(params) -> dict:
     torch.cuda.synchronize()
     sp_counts = counts_now()
     n_layers = cfg.n_layers
-    sp_want = {"paged_attention": n_layers * n * steps,
-               "flash_attention": n_layers, "flash_attention_bwd": 0,
-               "pte_gather": 1, "fifo_miss": 0}
+    sp_want = uncapped({"paged_attention": n_layers * n * steps,
+                        "flash_attention": n_layers, "flash_attention_bwd": 0,
+                        "pte_gather": 1, "fifo_miss": 0})
     check(sp_counts == sp_want, f"sp: launch counts {sp_counts}, the path "
           f"implies {sp_want}")
     reset_counters()
@@ -2333,8 +2784,8 @@ def multipod_sp(params) -> dict:
                           "logit_err": err})
     torch.cuda.synchronize()
     one_counts = counts_now()
-    one_want = {"paged_attention": n_layers * steps, "flash_attention": 0,
-                "flash_attention_bwd": 0, "pte_gather": 0, "fifo_miss": 0}
+    one_want = uncapped({"paged_attention": n_layers * steps, "flash_attention": 0,
+                         "flash_attention_bwd": 0, "pte_gather": 0, "fifo_miss": 0})
     check(one_counts == one_want, f"sp one-pool: {one_counts} not {one_want}")
     check(max(rels) < 0.03 and len(flips) <= SP["max_flips"]
           and all(f["gap"] <= f["logit_err"] for f in flips),
@@ -2424,9 +2875,9 @@ def multipod_train() -> dict:
                 stepped, adamw_init(stepped), data)
         torch.cuda.synchronize()
     counts = counts_now()
-    want = {"paged_attention": 0, "flash_attention": cfg.n_layers * n,
-            "flash_attention_bwd": cfg.n_layers * n, "pte_gather": 0,
-            "fifo_miss": 0}
+    want = uncapped({"paged_attention": 0, "flash_attention": cfg.n_layers * n,
+                     "flash_attention_bwd": cfg.n_layers * n, "pte_gather": 0,
+                     "fifo_miss": 0})
     check(counts == want and lse["lse_writes"] == cfg.n_layers * n,
           f"pod train step: launches {counts} lse {lse}, not {want}")
     release()
@@ -2687,9 +3138,10 @@ def model_axis_train() -> dict:
             params, opt, losses, step_s = grid_train(
                 cfg, ds, make_debug_mesh(1, model=model, device=DEV), steps)
         counts = counts_now()
-        want = {"paged_attention": 0, "flash_attention": cfg.n_layers * steps * model,
-                "flash_attention_bwd": cfg.n_layers * steps * model,
-                "pte_gather": 0, "fifo_miss": 0}
+        want = uncapped({"paged_attention": 0,
+                         "flash_attention": cfg.n_layers * steps * model,
+                         "flash_attention_bwd": cfg.n_layers * steps * model,
+                         "pte_gather": 0, "fifo_miss": 0})
         check(counts == want and lse["lse_writes"] == want["flash_attention"],
               f"train at model {model}: launches {counts} lse {lse}, not {want}")
         step_ms = 1e3 * float(np.median(step_s))
@@ -2771,8 +3223,8 @@ def model_axis_elastic() -> dict:
     db, mb = ELASTIC["grid_b"]
     k2 = cfg.n_layers * ((ELASTIC["first"] + ELASTIC["then"]) * da * ma
                          + ELASTIC["then"] * db * mb)
-    want = {"paged_attention": 0, "flash_attention": k2,
-            "flash_attention_bwd": k2, "pte_gather": 0, "fifo_miss": 0}
+    want = uncapped({"paged_attention": 0, "flash_attention": k2,
+                     "flash_attention_bwd": k2, "pte_gather": 0, "fifo_miss": 0})
     check(counts == want, f"elastic: launches {counts}, not {want}")
     drift = max(abs(a - b) for a, b in zip(uninterrupted, resumed))
     check(all(np.isfinite(resumed)) and drift <= ELASTIC["loss_tol"]
@@ -3107,11 +3559,158 @@ def model_axis_families() -> dict:
     return runs
 
 
+# E: Megatron sequence parallelism at model 2: Yi-6B trained (part B's cut,
+# no remat) and Qwen3-14B's prefill (8 of 40 layers, 16 x 1 024), each with
+# and without, as the dry run's cells on the card
+MODEL_SP = dict(train=("yi_6b", 8, 8, 1024, 4), prefill=("qwen3_14b", 8, 16, 1024),
+                model=2)
+# only the norm scales' gradients may differ with SP: each shard sums its rows'
+# share and the shares are added, a sum in another order (read: <= 3.5e-7 of
+# the leaf's largest); the losses of steps 2-4 then drift by as much (read:
+# 2.0e-5 at step 4)
+SP_GRAD_TOL_REL = 1e-5
+SP_LOSS_TOL = 1e-4
+
+
+def sp_grad_diff(n_layers: int = 2) -> dict:
+    """Part E's train cell cut to ``n_layers``: its first gradients with and
+    without sequence parallelism, each leaf whose gradients differ and by
+    how much (relative to the leaf's largest)."""
+    arch, _, B, S, _ = MODEL_SP["train"]
+    grads, names, losses = {}, None, {}
+    for sp in (False, True):
+        release()
+        grid = make_debug_mesh(1, model=MODEL_SP["model"], device=DEV)
+        cell = specs.build_cell(arch, tconfigs.ShapeSpec("train_sp", S, B, "train"),
+                                grid, device=DEV, n_layers=n_layers,
+                                opts=specs.PerfOptions(seq_parallel=sp, remat=False))
+        params, _, batch = cell.args
+        with use_rules(specs.make_rules(cell.cfg, grid, cell.opts)):
+            grads[sp], m = specs.data_gradients(cell.cfg, params, batch, grid,
+                                                remat=False)
+        losses[sp] = float(m["loss"])
+        names = ["/".join(p) for p, _ in tree_leaves_with_path(params)]
+        del cell, params, batch
+    diffs = sorted((float((a - b).abs().max() / b.abs().max()), name)
+                   for name, a, b in zip(names, grads[True], grads[False])
+                   if not torch.equal(a, b))
+    del grads
+    return {"layers": n_layers, "loss_equal": losses[True] == losses[False],
+            "leaves": len(names), "leaves_differing": len(diffs),
+            "differing": [[n, r] for r, n in diffs]}
+
+
+def model_axis_sp() -> dict:
+    """E: the train and prefill cells (``specs.build_cell`` on the card over
+    a grid of one pod, model 2) with ``seq_parallel`` beside without: the
+    train losses bit-equal (or printed with the reason), the prefill's
+    logits equal, each step's model-axis bytes equal to ``model_wire`` of
+    its cell; step ms and launches a step."""
+    t_part = time.perf_counter()
+    t = MODEL_SP["model"]
+    arch, L, B, S, steps = MODEL_SP["train"]
+    out, runs = {"train": {}, "prefill": {}}, {}
+    for sp in (False, True):
+        release()
+        grid = make_debug_mesh(1, model=t, device=DEV)
+        cell = specs.build_cell(arch, tconfigs.ShapeSpec("train_sp", S, B, "train"),
+                                grid, device=DEV, n_layers=L,
+                                opts=specs.PerfOptions(seq_parallel=sp, remat=False))
+        params, opt, batch = cell.args
+        losses, step_s, wires = [], [], []
+        reset_counters()
+        for _ in range(steps):
+            grid.model.reset_counters()
+            t0 = time.perf_counter()
+            params, opt, m = cell.step_fn(params, opt, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            wires.append(grid.model.wire_bytes)
+        counts = counts_now()
+        want_wire = analysis.model_wire(cell)
+        check(all(w == want_wire for w in wires),
+              f"E train sp={sp}: wire {wires}, model_wire {want_wire}")
+        want = uncapped({"paged_attention": 0, "flash_attention": L * steps * t,
+                         "flash_attention_bwd": L * steps * t, "pte_gather": 0,
+                         "fifo_miss": 0})
+        check(counts == want, f"E train sp={sp}: launches {counts}, not {want}")
+        runs[f"model_axis_sp_train_{sp}"] = (counts, want)
+        out["train"]["sp" if sp else "base"] = {
+            "losses": losses, "step_ms": [1e3 * x for x in step_s],
+            "step_ms_median": 1e3 * float(np.median(step_s)),
+            "wire_bytes_per_step": wires[0], "model_wire": want_wire,
+            "seq_split": cell.seq_split, "calls": dict(grid.model.calls)}
+        del cell, params, opt, batch
+    base, spr = out["train"]["base"], out["train"]["sp"]
+    out["train"]["losses_bit_equal"] = base["losses"] == spr["losses"]
+    out["train"]["loss_max_abs_diff"] = max(
+        abs(a - b) for a, b in zip(base["losses"], spr["losses"]))
+    check(base["losses"][0] == spr["losses"][0],
+          f"E: the first step's loss differs with SP: {out['train']}")
+    check(out["train"]["loss_max_abs_diff"] <= SP_LOSS_TOL,
+          f"E: losses with SP {spr['losses']}, without {base['losses']}")
+    grads = out["train"]["first_gradients"] = sp_grad_diff()
+    check(grads["loss_equal"]
+          and all(n.endswith("norm1/scale") or n.endswith("norm2/scale")
+                  or n == "final_norm/scale" for n, _ in grads["differing"])
+          and all(r <= SP_GRAD_TOL_REL for _, r in grads["differing"]),
+          f"E: the first gradients with SP differ beyond the norm scales' "
+          f"sums, or by more than {SP_GRAD_TOL_REL}: {grads}")
+    arch, L, B, S = MODEL_SP["prefill"]
+    logits = {}
+    for sp in (False, True):
+        release()
+        grid = make_debug_mesh(1, model=t, device=DEV)
+        cell = specs.build_cell(arch, tconfigs.ShapeSpec("prefill_sp", S, B, "prefill"),
+                                grid, device=DEV, n_layers=L,
+                                opts=specs.PerfOptions(seq_parallel=sp))
+        reset_counters()
+        grid.model.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, _ = cell.step_fn(*cell.args)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        wire, want_wire = grid.model.wire_bytes, analysis.model_wire(cell)
+        check(wire == want_wire, f"E prefill sp={sp}: wire {wire}, "
+                                 f"model_wire {want_wire}")
+        counts = counts_now()
+        want = uncapped({"paged_attention": 0, "flash_attention": L * t,
+                         "flash_attention_bwd": 0, "pte_gather": 0,
+                         "fifo_miss": 0})
+        check(counts == want, f"E prefill sp={sp}: launches {counts}, not {want}")
+        runs[f"model_axis_sp_prefill_{sp}"] = (counts, want)
+        params, state, toks, tables = cell.args
+        with torch.no_grad(), use_rules(specs.make_rules(cell.cfg, grid,
+                                                         cell.opts)):
+            lg, _ = specs.prefill_on_grid(cell.cfg, params, toks, state, tables,
+                                          grid)
+        logits[sp] = gather_vocab(lg, grid.model).float()
+        out["prefill"]["sp" if sp else "base"] = {
+            "ms": ms, "wire_bytes": wire, "model_wire": want_wire,
+            "seq_split": cell.seq_split, "tokens": tokens.tolist(),
+            "launches": counts}
+        del cell, params, state, toks, tables, lg
+    diff = float((logits[True] - logits[False]).abs().max())
+    out["prefill"]["logits_max_abs_diff"] = diff
+    check(diff == 0.0, f"E: prefill logits with SP differ by {diff}")
+    check(out["prefill"]["sp"]["tokens"] == out["prefill"]["base"]["tokens"],
+          "E: prefill tokens with SP differ")
+    del logits
+    release()
+    emit({"phase": "model_axis_sp", "widths": "published", "model": t,
+          "train_arch": MODEL_SP["train"][0], "train_layers": MODEL_SP["train"][1],
+          "prefill_arch": arch, "prefill_layers": L, **out,
+          "wall_s": time.perf_counter() - t_part})
+    return runs
+
+
 def phase_model_axis() -> dict:
     runs = model_axis_serve()
     runs.update(model_axis_train())
     runs.update(model_axis_elastic())
     runs.update(model_axis_families())
+    runs.update(model_axis_sp())
     return runs
 
 
@@ -3250,7 +3849,7 @@ def cell_launches(cell, runs: int) -> dict:
     "full" K2's forward twice a layer (the LSE each time) and its backward
     once."""
     L = cell.cfg.n_layers
-    want = {name: 0 for name in KERNEL_FNS}
+    want = {name: 0 for name in COUNTED}
     step = cell.shape.step
     if step == "decode":
         want["paged_attention"] = L * runs
@@ -3260,6 +3859,42 @@ def cell_launches(cell, runs: int) -> dict:
         want["flash_attention"] = 2 * L * runs
         want["flash_attention_bwd"] = L * runs
     return want
+
+
+def cells_sp() -> dict:
+    """Every cell with ``seq_parallel`` on one pod and on two, on the meta
+    device (bytes a device equal to the count); then the roofline table of
+    train_4k and prefill_32k with SP off and on (``dryrun --table``), its
+    cell files in a directory of their own."""
+    t0 = time.perf_counter()
+    sp = specs.PerfOptions(seq_parallel=True)
+    summary = {"cells": 0, "split": 0, "dominant": {}}
+    for multi in (False, True):
+        grid = dryrun.production_grid(multi)
+        for arch, shape in tconfigs.all_cells():
+            cell = specs.build_cell(arch, tconfigs.SHAPES[shape], grid, opts=sp)
+            got, want = analysis.per_device_bytes(cell), analysis.device_bytes(cell)
+            check(abs(got - want) <= 1e-9 * want,
+                  f"{arch} x {shape} sp: {got} bytes a device, the count {want}")
+            roof = analysis.roofline(cell)
+            summary["cells"] += 1
+            summary["split"] += any(cell.seq_split.values())
+            summary["dominant"][roof.dominant] = summary["dominant"].get(
+                roof.dominant, 0) + 1
+    check(summary["cells"] == 66, f"{summary['cells']} sp cells, not 2 x 33")
+    summary["build_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        for opts in (specs.PerfOptions(), sp):
+            for arch in tconfigs.ARCH_IDS:
+                for shape in ("train_4k", "prefill_32k"):
+                    if shape in tconfigs.shape_cells(arch):
+                        dryrun.run_cell(arch, shape, opts=opts, out_dir=out,
+                                        verbose=False)
+        rows = dryrun.table(out)
+        dryrun.print_table(rows)
+    summary["table_rows"] = len(rows)
+    return summary
 
 
 def phase_cells() -> dict:
@@ -3290,7 +3925,8 @@ def phase_cells() -> dict:
     check(summary["cells"] == 66, f"{summary['cells']} cells, not 2 x 33")
     summary["build_s"] = time.perf_counter() - t0
     emit({"phase": "cells_meta", **summary})
-    counts = {name: 0 for name in KERNEL_FNS}
+    emit({"phase": "cells_meta_sp", **cells_sp()})
+    counts = {name: 0 for name in COUNTED}
     wants = dict(counts)
     for shape, kw, steps in CELL_RUNS:
         release()
@@ -3300,7 +3936,7 @@ def phase_cells() -> dict:
         runs = steps + 2                     # a warm-up and a profiled step
         got, want = counts_now(), cell_launches(cell, runs)
         check(got == want, f"{shape}: launches {got}, the path implies {want}")
-        for name in KERNEL_FNS:
+        for name in COUNTED:
             counts[name] += got[name]
             wants[name] += want[name]
         off = abs(out["peak_gb"] - out["analytic_peak_gb"]) / out["analytic_peak_gb"]
@@ -3600,8 +4236,9 @@ def phase_numa_sim():
                                           if got_apps[k] != want_apps[k]))
     check(got_loop == want_loop, "run_closed_loop differs between backends")
     launched = sum(1 for n in sizes if n > 0)
-    want = {"paged_attention": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0, "pte_gather": 0, "fifo_miss": launched}
+    want = uncapped({"paged_attention": 0, "flash_attention": 0,
+                     "flash_attention_bwd": 0, "pte_gather": 0,
+                     "fifo_miss": launched})
     check(launched == 8 * len(got_apps) and counts == want,
           f"numa_sim: launch counts {counts}, the path implies {want}")
     engine_t = fifo_times(*engine, sm_mhz=sm_mhz, iters=10)
@@ -3646,7 +4283,7 @@ def phase_numa_sim():
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernels,serve,parity,coherence,train,cells,"
+                    default="kernels,serve,parity,coherence,train,cap,cells,"
                             "multipod,model_axis,numa_sim")
     ap.add_argument("--layers", type=int, default=SERVE_DEPTH["qwen3_14b"],
                     help="depth of the Qwen3-14B serve and profile (widths are "
@@ -3671,6 +4308,8 @@ def main() -> None:
         rows = phase_kernels()
     elif "kernels_bwd" in phases:         # K2's backward row alone
         rows = [phase_kernels_bwd()]
+    elif "kernels_cap" in phases:         # the soft-cap rows alone
+        rows = phase_kernels_cap()
     runs, walls = {}, {"kernels": time.perf_counter() - t0}
 
     def timed_phase(name, fn):
@@ -3689,6 +4328,8 @@ def main() -> None:
         timed_phase("coherence", phase_coherence)
     if "train" in phases:
         runs.update(timed_phase("train", phase_train))
+    if "cap" in phases:
+        runs.update(timed_phase("cap", phase_cap))
     if "cells" in phases:
         runs.update(timed_phase("cells", phase_cells))
     if "multipod" in phases:
@@ -3707,7 +4348,8 @@ def main() -> None:
     if runs:
         counts = {path: by_name for path, (by_name, _) in runs.items()}
         for row in rows:
-            row["launches_by_arch"] = {a: c[row["name"]] for a, c in counts.items()}
+            row["launches_by_arch"] = {a: c[row["name"]]
+                                       for a, c in counts.items()}
             row["launches"] = sum(row["launches_by_arch"].values())
     if "profile" in phases:
         for i, arch in enumerate(("qwen3_14b", "gemma3_4b",

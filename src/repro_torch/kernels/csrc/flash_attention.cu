@@ -54,7 +54,15 @@
 //     natural log of sum exp(scale * q.k) over the visible keys.  The FMA
 //     kernel keeps m in the scaled domain, the tensor-core kernel in the
 //     unscaled one (exp2 of scale_log2 * x): each converts at its end.  The
-//     serving path passes null and writes nothing.
+//     serving path passes null and writes nothing;
+//   * the logit soft-cap (`softcap` = c > 0; 0 is none) replaces each
+//     visible scaled score s by c tanh(s / c) before the softmax, the
+//     reference's order.  It is a template flag (CAP), so the instance
+//     without it is the one that ran before.  tanh is not linear, so the
+//     tensor-core kernel cannot keep its max in the unscaled domain under a
+//     cap: it takes y = log2(e) c tanhf(scale x / c) per element and keeps
+//     m and l in y's domain (exp2 of y - m).  tanhf, not tanh.approx.f32:
+//     the approximation's ~2^-11 relative error would miss the 1e-4 bound.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -85,13 +93,15 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 }
 
 // DPT: output head_dim elements per thread (thread tx owns d = tx + 16*j).
-template <typename T, int DPT>
+// CAP: scores capped at c = `cap` (c tanh(s / c)).
+template <typename T, int DPT, bool CAP>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, float* __restrict__ out,
                        float* __restrict__ lse, int G, int S, int hd, int causal,
-                       int window, float scale, Strides qs, Strides ks,
+                       int window, float scale, float cap, Strides qs, Strides ks,
                        Strides vs, Strides os) {
+    const float cap_scale = CAP ? scale / cap : 0.f;
     extern __shared__ __align__(16) float smem[];
     const int ld = hd + 4;            // keeps rows 16-byte aligned, spreads banks
     float* sq = smem;                 // [BQ][ld]
@@ -157,7 +167,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
                 const bool ok = visible(qpos, k_start + tx + 16 * j, S, causal, window);
-                s[i][j] = ok ? s[i][j] * scale : NEG_INF;
+                if constexpr (CAP)
+                    s[i][j] = ok ? cap * tanhf(s[i][j] * cap_scale) : NEG_INF;
+                else
+                    s[i][j] = ok ? s[i][j] * scale : NEG_INF;
                 mx = fmaxf(mx, s[i][j]);
             }
 #pragma unroll
@@ -221,14 +234,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int DPT>
+template <typename T, int DPT, bool CAP>
 cudaError_t launch_dpt(const void* q, const void* k, const void* v, float* out,
                        float* lse, int B, int H, int K, int S, int hd, int causal,
-                       int window,
+                       int window, float cap,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        cudaStream_t stream) {
     const size_t smem = ((size_t)(BQ + 2 * BK) * (hd + 4) + (size_t)BQ * LDP) * sizeof(float);
-    auto kernel = flash_attention_kernel<T, DPT>;
+    auto kernel = flash_attention_kernel<T, DPT, CAP>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -236,23 +249,23 @@ cudaError_t launch_dpt(const void* q, const void* k, const void* v, float* out,
     const float scale = 1.0f / sqrtf((float)hd);
     kernel<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, out,
                                        lse, H / K, S, hd, causal, window, scale,
-                                       qs, ks, vs, os);
+                                       cap, qs, ks, vs, os);
     return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAP>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, float* out,
                       float* lse, int B, int H, int K, int S, int hd, int causal,
-                      int window,
+                      int window, float cap,
                       Strides qs, Strides ks, Strides vs, Strides os,
                       cudaStream_t stream) {
     const int per_thread = (hd + 15) / 16;
-#define FA_ARGS q, k, v, out, lse, B, H, K, S, hd, causal, window, qs, ks, vs, os, stream
-    if (per_thread <= 1) return launch_dpt<T, 1>(FA_ARGS);
-    if (per_thread <= 2) return launch_dpt<T, 2>(FA_ARGS);
-    if (per_thread <= 4) return launch_dpt<T, 4>(FA_ARGS);
-    if (per_thread <= 8) return launch_dpt<T, 8>(FA_ARGS);
-    return launch_dpt<T, 16>(FA_ARGS);
+#define FA_ARGS q, k, v, out, lse, B, H, K, S, hd, causal, window, cap, qs, ks, vs, os, stream
+    if (per_thread <= 1) return launch_dpt<T, 1, CAP>(FA_ARGS);
+    if (per_thread <= 2) return launch_dpt<T, 2, CAP>(FA_ARGS);
+    if (per_thread <= 4) return launch_dpt<T, 4, CAP>(FA_ARGS);
+    if (per_thread <= 8) return launch_dpt<T, 8, CAP>(FA_ARGS);
+    return launch_dpt<T, 16, CAP>(FA_ARGS);
 #undef FA_ARGS
 }
 
@@ -282,15 +295,22 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
 }
 
 // HDP: head_dim rounded up to a power of two >= 16 (columns past hd are 0).
-template <int HDP>
+// CAP: scores capped at c = `cap`; each visible score becomes
+// y = log2(e) c tanhf(scale x / c) and the softmax state is kept in y's
+// domain (`mul` = 1 below), where without a cap it stays in x's
+// (`mul` = scale_log2).
+template <int HDP, bool CAP>
 __global__ void __launch_bounds__(TC_NT)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             float* __restrict__ out, float* __restrict__ lse,
                             int G, int S, int hd, int causal, int window,
-                            float scale_log2, Strides qs, Strides ks, Strides vs,
-                            Strides os) {
+                            float scale_log2, float cap, Strides qs, Strides ks,
+                            Strides vs, Strides os) {
+    const float mul = CAP ? 1.f : scale_log2;
+    const float cap_log2 = CAP ? cap * 1.44269504f : 0.f;      // c log2(e)
+    const float cap_scale = CAP ? scale_log2 * 0.69314718f / cap : 0.f;  // scale / c
     constexpr int LD = HDP + 8;              // +16 bytes: ldmatrix conflict-free
     constexpr int KSTEPS = HDP / 16;         // 16-wide slices of head_dim
     constexpr int DBLK = HDP / 8;            // 8-wide output column blocks
@@ -371,7 +391,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         }
 
         // online softmax on the unscaled scores, exp(scale * (x - m)) as one
-        // exp2 of an FMA; a row's 64 scores lie on the 4 lanes of a quad
+        // exp2 of an FMA (on the capped y with a cap, exp2(y - m)); a row's
+        // 64 scores lie on the 4 lanes of a quad
         const int k_start = kt * BK;
         const bool edge = k_start + BK > S || (causal && k_start + BK - 1 > q_start) ||
                           (window >= 0 && q_start + BQ - 1 - k_start >= window);
@@ -386,14 +407,17 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                     float& x = s[j][2 * r + c];
                     const bool ok = !edge || visible(qpos, k_start + 8 * j + 2 * t + c,
                                                      S, causal, window);
-                    x = ok ? x : NEG_INF;
+                    if constexpr (CAP)
+                        x = ok ? cap_log2 * tanhf(x * cap_scale) : NEG_INF;
+                    else
+                        x = ok ? x : NEG_INF;
                     mx = fmaxf(mx, x);
                 }
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
             const float m_new = fmaxf(m[r], mx);
-            const float alpha = exp2f((m[r] - m_new) * scale_log2);
-            const float m_log2 = m_new * scale_log2;
+            const float alpha = exp2f((m[r] - m_new) * mul);
+            const float m_log2 = m_new * mul;
             float sum = 0.f;
 #pragma unroll
             for (int j = 0; j < NBLK; ++j)
@@ -402,7 +426,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                     float& x = s[j][2 * r + c];
                     const bool ok = !edge || visible(qpos, k_start + 8 * j + 2 * t + c,
                                                      S, causal, window);
-                    x = ok ? exp2f(fmaf(x, scale_log2, -m_log2)) : 0.f;
+                    x = ok ? exp2f(fmaf(x, mul, -m_log2)) : 0.f;
                     sum += x;
                 }
             l[r] = l[r] * alpha + sum;
@@ -455,21 +479,21 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 *reinterpret_cast<float2*>(&ob[row * os.s + d]) =
                     make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
         }
-        // m is the unscaled row max here and lr the sum of
-        // 2^(scale_log2 (x - m)): ln(sum e^(scale x)) = ln 2 (m scale_log2 + log2 lr)
+        // m is the unscaled row max here (with a cap: the max of y) and lr
+        // the sum of 2^(mul (x - m)): ln(sum e^s) = ln 2 (m mul + log2 lr)
         if (lse != nullptr && t == 0)
             lse[((int64_t)b * gridDim.y + h) * S + row] =
-                0.69314718f * fmaf(m[r], scale_log2, log2f(fmaxf(lr, 1e-30f)));
+                0.69314718f * fmaf(m[r], mul, log2f(fmaxf(lr, 1e-30f)));
     }
 }
 
-template <int HDP>
+template <int HDP, bool CAP>
 cudaError_t launch_tc_hdp(const void* q, const void* k, const void* v, float* out,
                           float* lse, int B, int H, int K, int S, int hd,
-                          int causal, int window, Strides qs, Strides ks,
-                          Strides vs, Strides os, cudaStream_t stream) {
+                          int causal, int window, float cap, Strides qs,
+                          Strides ks, Strides vs, Strides os, cudaStream_t stream) {
     const size_t smem = (size_t)(BQ + 4 * BK) * (HDP + 8) * sizeof(__nv_bfloat16);
-    auto kernel = flash_attention_bf16_kernel<HDP>;
+    auto kernel = flash_attention_bf16_kernel<HDP, CAP>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -477,20 +501,21 @@ cudaError_t launch_tc_hdp(const void* q, const void* k, const void* v, float* ou
     const float scale_log2 = 1.44269504f / sqrtf((float)hd);   // log2(e) / sqrt(hd)
     kernel<<<grid, TC_NT, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        out, lse, H / K, S, hd, causal, window, scale_log2, qs, ks, vs, os);
+        out, lse, H / K, S, hd, causal, window, scale_log2, cap, qs, ks, vs, os);
     return cudaGetLastError();
 }
 
+template <bool CAP>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, float* out,
                       float* lse, int B, int H, int K, int S, int hd, int causal,
-                      int window, Strides qs, Strides ks, Strides vs, Strides os,
-                      cudaStream_t stream) {
-#define FA_ARGS q, k, v, out, lse, B, H, K, S, hd, causal, window, qs, ks, vs, os, stream
-    if (hd <= 16) return launch_tc_hdp<16>(FA_ARGS);
-    if (hd <= 32) return launch_tc_hdp<32>(FA_ARGS);
-    if (hd <= 64) return launch_tc_hdp<64>(FA_ARGS);
-    if (hd <= 128) return launch_tc_hdp<128>(FA_ARGS);
-    return launch_tc_hdp<256>(FA_ARGS);
+                      int window, float cap, Strides qs, Strides ks, Strides vs,
+                      Strides os, cudaStream_t stream) {
+#define FA_ARGS q, k, v, out, lse, B, H, K, S, hd, causal, window, cap, qs, ks, vs, os, stream
+    if (hd <= 16) return launch_tc_hdp<16, CAP>(FA_ARGS);
+    if (hd <= 32) return launch_tc_hdp<32, CAP>(FA_ARGS);
+    if (hd <= 64) return launch_tc_hdp<64, CAP>(FA_ARGS);
+    if (hd <= 128) return launch_tc_hdp<128, CAP>(FA_ARGS);
+    return launch_tc_hdp<256, CAP>(FA_ARGS);
 #undef FA_ARGS
 }
 
@@ -499,23 +524,28 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, float* out,
 // q [B,H,S,hd], k/v [B,K,S,hd] of `dtype`, out [B,H,S,hd] f32, each given by
 // its (batch, head, row) strides in elements with head_dim contiguous; lse
 // null, or [B,H,S] f32 contiguous for the rows' log-sum-exp.
-// window < 0 means none.  Needs hd <= 256 and hd % 4 == 0, H <= 65535 and
+// window < 0 means none; softcap > 0 caps the scores at it, 0 means none.
+// Needs hd <= 256 and hd % 4 == 0, H <= 65535 and
 // B <= 65535 (grid limits); bf16 also needs hd % 16 == 0 and every stride a
 // multiple of 8 elements (16-byte copies).  The wrapper checks.  Returns the
 // launch's cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, void* lse, int B, int H, int K, int S,
                                       int hd, int causal, int window, int dtype,
-                                      const int64_t* strides, void* stream) {
+                                      float softcap, const int64_t* strides,
+                                      void* stream) {
     if (B == 0 || S == 0) return 0;
     const Strides qs{strides[0], strides[1], strides[2]};
     const Strides ks{strides[3], strides[4], strides[5]};
     const Strides vs{strides[6], strides[7], strides[8]};
     const Strides os{strides[9], strides[10], strides[11]};
     cudaStream_t st = (cudaStream_t)stream;
+    float* o = (float*)out;
+    float* l = (float*)lse;
+#define FA_ARGS q, k, v, o, l, B, H, K, S, hd, causal, window, softcap, qs, ks, vs, os, st
     if (dtype == DTYPE_BF16)
-        return (int)launch_tc(q, k, v, (float*)out, (float*)lse, B, H, K, S, hd,
-                              causal, window, qs, ks, vs, os, st);
-    return (int)launch_hd<float>(q, k, v, (float*)out, (float*)lse, B, H, K, S, hd,
-                                 causal, window, qs, ks, vs, os, st);
+        return (int)(softcap > 0.f ? launch_tc<true>(FA_ARGS) : launch_tc<false>(FA_ARGS));
+    return (int)(softcap > 0.f ? launch_hd<float, true>(FA_ARGS)
+                               : launch_hd<float, false>(FA_ARGS));
+#undef FA_ARGS
 }

@@ -71,6 +71,12 @@
 //     contribute an exact 0 and are never exponentiated.
 //   * Every operand is addressed through (batch, head, row) strides with
 //     head_dim contiguous.
+//   * The logit soft-cap (`softcap` = c > 0; 0 is none), a template flag
+//     (CAP) of every kernel, so the instances without it are the ones that
+//     ran before: the forward's scores were y = c tanh(scale q.k / c), so
+//     P = exp(y - lse) is recomputed from the capped score, and dS, the
+//     gradient of y, is multiplied by dy / d(scale q.k) = 1 - tanh^2 before
+//     dQ and dK take their `scale`.  tanhf, not tanh.approx.f32.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -144,14 +150,15 @@ __device__ __forceinline__ void dot_tile(float (&acc)[RT][RT], const float* sa,
 // From the scores s (query rows ty + 16 i, key columns tx + 16 j) and dP =
 // dO V^T of one (query tile q0, key tile k0) pair: P = exp(scale s - lse)
 // on visible pairs (0 elsewhere) into sp (if given) and dS = P (dP - D)
-// into sds, both [BT][BT + 1] indexed [query][key].
-template <int RT>
+// into sds, both [BT][BT + 1] indexed [query][key].  CAP: P = exp(c th -
+// lse) and dS times 1 - th^2, th = tanh(scale s / c).
+template <int RT, bool CAP>
 __device__ __forceinline__ void p_and_ds(const float (&s)[RT][RT],
                                          const float (&dp)[RT][RT],
                                          const float* sl, const float* sd,
                                          float* sp, float* sds, int lds, int q0,
                                          int k0, int S, int causal, int window,
-                                         float scale, int ty, int tx) {
+                                         float scale, float cap, int ty, int tx) {
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
         const int r = ty + 16 * i;
@@ -159,10 +166,18 @@ __device__ __forceinline__ void p_and_ds(const float (&s)[RT][RT],
 #pragma unroll
         for (int j = 0; j < RT; ++j) {
             const int c = tx + 16 * j;
-            const float p = visible(q0 + r, k0 + c, S, causal, window)
-                                ? expf(fmaf(s[i][j], scale, -l)) : 0.f;
+            const bool ok = visible(q0 + r, k0 + c, S, causal, window);
+            float p, ds;
+            if constexpr (CAP) {
+                const float th = tanhf(s[i][j] * scale / cap);
+                p = ok ? expf(fmaf(cap, th, -l)) : 0.f;
+                ds = p * (dp[i][j] - dd) * (1.f - th * th);
+            } else {
+                p = ok ? expf(fmaf(s[i][j], scale, -l)) : 0.f;
+                ds = p * (dp[i][j] - dd);
+            }
             if (sp != nullptr) sp[r * lds + c] = p;
-            sds[r * lds + c] = p * (dp[i][j] - dd);
+            sds[r * lds + c] = ds;
         }
     }
 }
@@ -207,13 +222,14 @@ flash_bwd_delta_kernel(const float* __restrict__ out, const float* __restrict__ 
 
 // dK and dV of one (key tile, kv head, batch); DPT: accumulator columns a
 // thread (d = tx + 16 j).
-template <typename T, int BT, int DPT>
+template <typename T, int BT, int DPT, bool CAP>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv, int G, int S,
-                      int hd, int causal, int window, float scale, Strides qs,
+                      int hd, int causal, int window, float scale, float cap,
+                      Strides qs,
                       Strides ks, Strides vs, Strides dos, Strides dks,
                       Strides dvs) {
     constexpr int RT = BT / 16;
@@ -263,8 +279,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             float s[RT][RT], dp[RT][RT];
             dot_tile<RT>(s, sq, sk, hd, ld, ty, tx);
             dot_tile<RT>(dp, sdo, sv, hd, ld, ty, tx);
-            p_and_ds<RT>(s, dp, sl, sd, sp, sds, LDS, q0, k0, S, causal, window,
-                         scale, ty, tx);
+            p_and_ds<RT, CAP>(s, dp, sl, sd, sp, sds, LDS, q0, k0, S, causal,
+                              window, scale, cap, ty, tx);
             __syncthreads();
 
             // dV += P^T dO, dK += dS^T Q: key rows ty + 16 i, columns tx + 16 j
@@ -309,13 +325,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dQ of one (query tile, head, batch).
-template <typename T, int BT, int DPT>
+template <typename T, int BT, int DPT, bool CAP>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dq, int G, int S, int hd, int causal,
-                    int window, float scale, Strides qs, Strides ks, Strides vs,
+                    int window, float scale, float cap, Strides qs, Strides ks,
+                    Strides vs,
                     Strides dos, Strides dqs) {
     constexpr int RT = BT / 16;
     constexpr int LDS = BT + 1;
@@ -361,8 +378,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s[RT][RT], dp[RT][RT];
         dot_tile<RT>(s, sq, sk, hd, ld, ty, tx);
         dot_tile<RT>(dp, sdo, sv, hd, ld, ty, tx);
-        p_and_ds<RT>(s, dp, sl, sd, nullptr, sds, LDS, q0, k0, S, causal, window,
-                     scale, ty, tx);
+        p_and_ds<RT, CAP>(s, dp, sl, sd, nullptr, sds, LDS, q0, k0, S, causal,
+                          window, scale, cap, ty, tx);
         __syncthreads();
 
         // dQ += dS K: query rows ty + 16 i, columns tx + 16 j
@@ -498,8 +515,8 @@ __device__ __forceinline__ void split_frag(const float (&c0)[4], const float (&c
 }
 
 // dK and dV of one (64-key tile, kv head, batch).  HDP: head_dim rounded up
-// to a power of two >= 16 (columns past hd are 0).
-template <int HDP>
+// to a power of two >= 16 (columns past hd are 0).  CAP: as p_and_ds.
+template <int HDP, bool CAP>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -510,8 +527,11 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta, float* __restrict__ dk,
                            float* __restrict__ dv, int G, int S, int hd, int causal,
-                           int window, float scale, float scale_log2, Strides qs,
-                           Strides ks, Strides vs, Strides dks, Strides dvs) {
+                           int window, float scale, float scale_log2, float cap,
+                           Strides qs, Strides ks, Strides vs, Strides dks,
+                           Strides dvs) {
+    const float cap_scale = CAP ? scale / cap : 0.f;
+    const float cap_log2 = CAP ? cap * LOG2E : 0.f;
     constexpr int LD = HDP + 8;
     constexpr int DBLK = HDP / 8;            // 8-wide accumulator column blocks
     constexpr int NB = KV_STEP / 8;          // 8-query column blocks of S^T
@@ -610,9 +630,16 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 const int col = 8 * j + 2 * t + (c & 1);
                 const bool ok = !edge || visible(q0 + col, kpos0 + 8 * (c >> 1), S,
                                                  causal, window);
-                const float p = ok ? exp2f(fmaf(st[j][c], scale_log2, -sl[col])) : 0.f;
-                st[j][c] = p;
-                dpt[j][c] = p * (dpt[j][c] - sd[col]);
+                if constexpr (CAP) {
+                    const float th = tanhf(st[j][c] * cap_scale);
+                    const float p = ok ? exp2f(fmaf(th, cap_log2, -sl[col])) : 0.f;
+                    st[j][c] = p;
+                    dpt[j][c] = p * (dpt[j][c] - sd[col]) * (1.f - th * th);
+                } else {
+                    const float p = ok ? exp2f(fmaf(st[j][c], scale_log2, -sl[col])) : 0.f;
+                    st[j][c] = p;
+                    dpt[j][c] = p * (dpt[j][c] - sd[col]);
+                }
             }
 
         // dV += P^T dO and dK += dS^T Q: the step's 32 queries are the k of
@@ -661,8 +688,8 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-// dQ of one (64-row query tile, head, batch).
-template <int HDP>
+// dQ of one (64-row query tile, head, batch).  CAP: as p_and_ds.
+template <int HDP, bool CAP>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -673,8 +700,10 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, float* __restrict__ dq,
                          int G, int S, int hd, int causal, int window, float scale,
-                         float scale_log2, Strides qs, Strides ks, Strides vs,
-                         Strides dqs) {
+                         float scale_log2, float cap, Strides qs, Strides ks,
+                         Strides vs, Strides dqs) {
+    const float cap_scale = CAP ? scale / cap : 0.f;
+    const float cap_log2 = CAP ? cap * LOG2E : 0.f;
     constexpr int LD = HDP + 8;
     constexpr int DBLK = HDP / 8;
     constexpr int NB = Q_STEP / 8;           // 8-key column blocks of S
@@ -759,8 +788,14 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 const int r = c >> 1;
                 const bool ok = !edge || visible(qpos0 + 8 * r, k0 + 8 * j + 2 * t + (c & 1),
                                                  S, causal, window);
-                const float p = ok ? exp2f(fmaf(s[j][c], scale_log2, -lr[r])) : 0.f;
-                s[j][c] = p * (dp[j][c] - dr[r]);
+                if constexpr (CAP) {
+                    const float th = tanhf(s[j][c] * cap_scale);
+                    const float p = ok ? exp2f(fmaf(th, cap_log2, -lr[r])) : 0.f;
+                    s[j][c] = p * (dp[j][c] - dr[r]) * (1.f - th * th);
+                } else {
+                    const float p = ok ? exp2f(fmaf(s[j][c], scale_log2, -lr[r])) : 0.f;
+                    s[j][c] = p * (dp[j][c] - dr[r]);
+                }
             }
 
         // dQ += dS K: the step's 32 keys are the k of the product, 16 columns
@@ -804,6 +839,7 @@ struct Args {
     __nv_bfloat16* do_split;   // [2][B,H,S,hd]: dO's hi and lo halves (tensor cores)
     int* lo_flag;
     int B, H, K, S, hd, causal, window;
+    float cap;                 // the logit soft-cap, 0 for none
     Strides qs, ks, vs, os, dos, dqs, dks, dvs;
 };
 
@@ -821,14 +857,14 @@ cudaError_t launch_delta(const Args& a, bool split, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-template <typename T, int BT, int DPT>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <typename T, int BT, int DPT, bool CAP>
+cudaError_t launch_cap(const Args& a, cudaStream_t stream) {
     constexpr int LDS = BT + 1;
     const int ld = a.hd + 4;
     const size_t smem_dkdv = ((size_t)4 * BT * ld + 2 * BT * LDS + 2 * BT) * sizeof(float);
     const size_t smem_dq = ((size_t)4 * BT * ld + BT * LDS + 2 * BT) * sizeof(float);
-    auto dkdv = flash_bwd_dkdv_kernel<T, BT, DPT>;
-    auto dq = flash_bwd_dq_kernel<T, BT, DPT>;
+    auto dkdv = flash_bwd_dkdv_kernel<T, BT, DPT, CAP>;
+    auto dq = flash_bwd_dq_kernel<T, BT, DPT, CAP>;
     cudaError_t err = cudaFuncSetAttribute(
         dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
     if (err != cudaSuccess) return err;
@@ -843,14 +879,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     const int tiles = (a.S + BT - 1) / BT;
     dkdv<<<dim3(tiles, a.K, a.B), NT, smem_dkdv, stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, a.dout, a.lse, a.delta, a.dk,
-        a.dv, G, a.S, a.hd, a.causal, a.window, scale, a.qs, a.ks, a.vs, a.dos,
-        a.dks, a.dvs);
+        a.dv, G, a.S, a.hd, a.causal, a.window, scale, a.cap, a.qs, a.ks, a.vs,
+        a.dos, a.dks, a.dvs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     dq<<<dim3(tiles, a.H, a.B), NT, smem_dq, stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, a.dout, a.lse, a.delta, a.dq,
-        G, a.S, a.hd, a.causal, a.window, scale, a.qs, a.ks, a.vs, a.dos, a.dqs);
+        G, a.S, a.hd, a.causal, a.window, scale, a.cap, a.qs, a.ks, a.vs, a.dos,
+        a.dqs);
     return cudaGetLastError();
+}
+
+template <typename T, int BT, int DPT>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+    return a.cap > 0.f ? launch_cap<T, BT, DPT, true>(a, stream)
+                       : launch_cap<T, BT, DPT, false>(a, stream);
 }
 
 template <typename T>
@@ -862,14 +905,14 @@ cudaError_t launch_hd(const Args& a, cudaStream_t stream) {
     return launch<T, 32, 16>(a, stream);
 }
 
-template <int HDP>
-cudaError_t launch_tc_hdp(const Args& a, cudaStream_t stream) {
+template <int HDP, bool CAP>
+cudaError_t launch_tc_cap(const Args& a, cudaStream_t stream) {
     constexpr int LD = HDP + 8;
     const size_t smem_kv = (size_t)(2 * KV_ROWS + 6 * KV_STEP) * LD * sizeof(__nv_bfloat16) +
                            4 * KV_STEP * sizeof(float);
     const size_t smem_q = (size_t)(3 * Q_ROWS + 4 * Q_STEP) * LD * sizeof(__nv_bfloat16);
-    auto dkdv = flash_bwd_dkdv_bf16_kernel<HDP>;
-    auto dq = flash_bwd_dq_bf16_kernel<HDP>;
+    auto dkdv = flash_bwd_dkdv_bf16_kernel<HDP, CAP>;
+    auto dq = flash_bwd_dq_bf16_kernel<HDP, CAP>;
     cudaError_t err = cudaFuncSetAttribute(
         dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
     if (err != cudaSuccess) return err;
@@ -890,13 +933,19 @@ cudaError_t launch_tc_hdp(const Args& a, cudaStream_t stream) {
     auto v = (const __nv_bfloat16*)a.v;
     dkdv<<<dim3(a.K, a.B, (a.S + KV_ROWS - 1) / KV_ROWS), TC_NT, smem_kv, stream>>>(
         q, k, v, hi, lo, a.lo_flag, a.lse, a.delta, a.dk, a.dv, G, a.S, a.hd,
-        a.causal, a.window, scale, scale_log2, a.qs, a.ks, a.vs, a.dks, a.dvs);
+        a.causal, a.window, scale, scale_log2, a.cap, a.qs, a.ks, a.vs, a.dks, a.dvs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     dq<<<dim3(a.H, a.B, (a.S + Q_ROWS - 1) / Q_ROWS), TC_NT, smem_q, stream>>>(
         q, k, v, hi, lo, a.lo_flag, a.lse, a.delta, a.dq, G, a.S, a.hd, a.causal,
-        a.window, scale, scale_log2, a.qs, a.ks, a.vs, a.dqs);
+        a.window, scale, scale_log2, a.cap, a.qs, a.ks, a.vs, a.dqs);
     return cudaGetLastError();
+}
+
+template <int HDP>
+cudaError_t launch_tc_hdp(const Args& a, cudaStream_t stream) {
+    return a.cap > 0.f ? launch_tc_cap<HDP, true>(a, stream)
+                       : launch_tc_cap<HDP, false>(a, stream);
 }
 
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
@@ -917,7 +966,8 @@ cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
 // [B,K,S,hd] f32 outputs.  Strides: (batch, head, row) of q, k, v, out,
 // dout, dq, dk, dv in elements, head_dim contiguous, every stride and
 // pointer aligned to 4 elements (the wrapper checks or copies).  Needs
-// hd <= 256 and hd % 4 == 0.  window < 0 means none.  The caller picks the
+// hd <= 256 and hd % 4 == 0.  window < 0 means none; softcap > 0 is the
+// forward's logit cap, 0 none.  The caller picks the
 // route (ops.py:bwd_route): a non-null `do_split` (bf16 scratch of
 // 2 * B*H*S*hd elements, 16-byte aligned) runs the tensor-core kernels,
 // which also need bf16, hd <= 128, hd % 16 == 0, S <= 64 * 65535, q/k/v
@@ -930,7 +980,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                                           void* lo_flag, void* dq, void* dk, void* dv,
                                           int B, int H, int K, int S, int hd,
                                           int causal, int window, int dtype,
-                                          const int64_t* strides, void* stream) {
+                                          float softcap, const int64_t* strides,
+                                          void* stream) {
     if (B == 0 || S == 0) return 0;
     Args a;
     a.q = q; a.k = k; a.v = v;
@@ -938,6 +989,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     a.delta = (float*)delta; a.dq = (float*)dq; a.dk = (float*)dk; a.dv = (float*)dv;
     a.do_split = (__nv_bfloat16*)do_split; a.lo_flag = (int*)lo_flag;
     a.B = B; a.H = H; a.K = K; a.S = S; a.hd = hd; a.causal = causal; a.window = window;
+    a.cap = softcap;
     Strides* all[8] = {&a.qs, &a.ks, &a.vs, &a.os, &a.dos, &a.dqs, &a.dks, &a.dvs};
     for (int i = 0; i < 8; ++i)
         *all[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};

@@ -52,7 +52,11 @@
 //     single-split path or by the merging block.  Sequence-parallel decode
 //     combines shards' partials with it.  Serving passes null.
 // Scores are kept in log2 units (scale * log2(e) folded in), so every
-// exponential is one exp2f.
+// exponential is one exp2f.  The logit soft-cap (`softcap` = c > 0; 0 is
+// none) makes a live score log2(e) c tanhf(scale q.k / c), the reference's
+// c tanh(s / c) in log2 units; it is a template flag (CAP), so the instance
+// without it is the one that ran before.  tanhf, not tanh.approx.f32: the
+// approximation's ~2^-11 relative error would miss the 5e-5 bound.
 #include <type_traits>
 
 #include "common.cuh"
@@ -89,7 +93,18 @@ struct Params {
     int B, H, K, G, hd, bt, MB, window, n_gc, n_splits, cps;
     float scale_log2;
     int K_slab, kv0;    // kv heads a slab slot holds; the first one read
+    float cap_log2;     // with a cap c: c log2(e) ...
+    float cap_scale;    // ... and scale / c
 };
+
+// A live score in log2 units: scale log2(e) x, or under a cap c
+// log2(e) c tanh(scale x / c).
+template <bool CAP>
+__device__ __forceinline__ float live_score(float x, float scale_log2,
+                                            float cap_log2, float cap_scale) {
+    if constexpr (CAP) return cap_log2 * tanhf(x * cap_scale);
+    return x * scale_log2;
+}
 
 constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
@@ -179,11 +194,12 @@ struct State<T, HDP, false> {
 };
 
 // One tile on the tensor cores (bf16).
-template <int HDP>
+template <int HDP, bool CAP>
 __device__ __forceinline__ void tile_tc(State<__nv_bfloat16, HDP>& st,
                                         const __nv_bfloat16* sq,
                                         const __nv_bfloat16* sk, uint32_t mask,
-                                        float scale_log2, int lane) {
+                                        float scale_log2, float cap_log2,
+                                        float cap_scale, int lane) {
     using L = Layout<__nv_bfloat16, HDP>;
     using S = State<__nv_bfloat16, HDP>;
     constexpr int LD = L::LD;
@@ -224,7 +240,7 @@ __device__ __forceinline__ void tile_tc(State<__nv_bfloat16, HDP>& st,
             for (int c = 0; c < 2; ++c) {
                 float& x = s[j][2 * r + c];
                 const bool ok = (mask >> (8 * j + 2 * t + c)) & 1u;
-                x = ok ? x * scale_log2 : NEG_INF;
+                x = ok ? live_score<CAP>(x, scale_log2, cap_log2, cap_scale) : NEG_INF;
                 mx = fmaxf(mx, x);
             }
         mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
@@ -272,10 +288,11 @@ __device__ __forceinline__ void tile_tc(State<__nv_bfloat16, HDP>& st,
 // One tile in float32 FMAs.  Q K^T: lane (slot = lane % 16, half = lane / 16)
 // sums its half of head_dim.  P V: lane (cg = lane % LPC, kg = lane / LPC)
 // owns columns 4 cg + 128 j over the slots kg, kg + KG, ...
-template <int HDP>
+template <int HDP, bool CAP>
 __device__ __forceinline__ void tile_f32(State<float, HDP>& st, const float* sq,
                                          const float* sk, float* sp, uint32_t mask,
-                                         int Gc, float scale_log2, int lane) {
+                                         int Gc, float scale_log2, float cap_log2,
+                                         float cap_scale, int lane) {
     using L = Layout<float, HDP>;
     using S = State<float, HDP>;
     constexpr int LD = L::LD, HALF = HDP / 2;
@@ -306,7 +323,7 @@ __device__ __forceinline__ void tile_f32(State<float, HDP>& st, const float* sq,
     for (int g = 0; g < GM; ++g) {
         if (g < Gc) {
             float x = s[g] + __shfl_xor_sync(FULL, s[g], 16);
-            x = ok ? x * scale_log2 : NEG_INF;
+            x = ok ? live_score<CAP>(x, scale_log2, cap_log2, cap_scale) : NEG_INF;
             float mx = x;
 #pragma unroll
             for (int off = 1; off < 16; off <<= 1)
@@ -350,7 +367,7 @@ __device__ __forceinline__ void tile_f32(State<float, HDP>& st, const float* sq,
     }
 }
 
-template <typename T, int HDP>
+template <typename T, int HDP, bool CAP>
 __global__ void __launch_bounds__(NT)
 paged_attention_kernel(const Params p) {
     using L = Layout<T, HDP>;
@@ -469,10 +486,11 @@ paged_attention_kernel(const Params p) {
         const T* sk = ring + (i % STAGES) * L::STAGE;
         if (mask) {
             if constexpr (L::TC)
-                tile_tc<HDP>(st, sq, sk, mask, p.scale_log2, lane);
+                tile_tc<HDP, CAP>(st, sq, sk, mask, p.scale_log2, p.cap_log2,
+                                  p.cap_scale, lane);
             else
-                tile_f32<HDP>(st, sq, sk, sp_all + warp * GM * TK, mask, Gc,
-                              p.scale_log2, lane);
+                tile_f32<HDP, CAP>(st, sq, sk, sp_all + warp * GM * TK, mask, Gc,
+                                   p.scale_log2, p.cap_log2, p.cap_scale, lane);
         }
         __syncwarp();                          // stage i % STAGES is free again
     }
@@ -618,10 +636,10 @@ paged_attention_kernel(const Params p) {
     if (threadIdx.x == 0) *counter = 0;         // ready for the next launch
 }
 
-template <typename T, int HDP>
+template <typename T, int HDP, bool CAP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
     const size_t smem = smem_bytes<T, HDP>(p.n_splits);
-    auto kernel = paged_attention_kernel<T, HDP>;
+    auto kernel = paged_attention_kernel<T, HDP, CAP>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -630,11 +648,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-// Blocks of the kernel for (T, HDP) that one SM holds at once.
-template <typename T, int HDP>
+// Blocks of the kernel for (T, HDP, CAP) that one SM holds at once.
+template <typename T, int HDP, bool CAP>
 cudaError_t occupancy(int* blocks) {
     const size_t smem = smem_bytes<T, HDP>(1);
-    auto kernel = paged_attention_kernel<T, HDP>;
+    auto kernel = paged_attention_kernel<T, HDP, CAP>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -661,7 +679,8 @@ cudaError_t dispatch(int dtype, int hd, F&& f) {
 // `dtype`), of which kv heads [kv0, kv0 + K) are read (a model shard's heads
 // of a replicated slab; K_slab = K and kv0 = 0 read them all),
 // tables [B,MB] i32 physical frames (-1 absent), lens [B] i32, out [B,H,hd]
-// f32, lse [B,H] f32 or null.  window < 0 means none.  The split plan (n_gc
+// f32, lse [B,H] f32 or null.  window < 0 means none; softcap > 0 caps the
+// scores at it, 0 means none.  The split plan (n_gc
 // groups of up to 16 query heads, n_splits ranges of cps columns) comes from
 // the wrapper; with n_splits > 1, `part` holds B*H*n_splits*(hd + 2) floats
 // and `counters` B*K*n_gc ints that are 0 (the kernel leaves them 0).  Needs
@@ -677,7 +696,7 @@ extern "C" int paged_attention_launch(const void* q, const void* k_slabs,
                                       int K, int K_slab, int kv0, int hd, int bt,
                                       int MB, int window,
                                       int n_gc, int n_splits, int cps, int dtype,
-                                      void* stream) {
+                                      float softcap, void* stream) {
     if (B == 0) return 0;
     if (n_splits < 1 || n_splits > MAX_SPLITS || cps < 1 || cps > MAX_COLS ||
         K < 1 || kv0 < 0 || kv0 + K > K_slab || n_gc * GM < H / K)
@@ -686,18 +705,25 @@ extern "C" int paged_attention_launch(const void* q, const void* k_slabs,
              (float*)out, (float*)part, (int*)counters, (float*)lse, B, H, K,
              H / K, hd, bt, MB, window, n_gc, n_splits, cps,
              1.44269504f / sqrtf((float)hd),    // log2(e) / sqrt(hd)
-             K_slab, kv0};
+             K_slab, kv0,
+             softcap > 0.f ? 1.44269504f * softcap : 0.f,
+             softcap > 0.f ? 1.0f / (sqrtf((float)hd) * softcap) : 0.f};
     cudaStream_t st = (cudaStream_t)stream;
     return (int)dispatch(dtype, hd, [&](auto t, auto h) {
-        return launch<decltype(t), decltype(h)::value>(p, st);
+        using T = decltype(t);
+        constexpr int HDP = decltype(h)::value;
+        return softcap > 0.f ? launch<T, HDP, true>(p, st) : launch<T, HDP, false>(p, st);
     });
 }
 
-// How many blocks of the kernel for (hd, dtype) one SM holds at once, into
-// *blocks: the wrapper sizes the split plan to one wave of them.  Returns the
-// cudaError_t of the query.
-extern "C" int paged_attention_blocks_per_sm(int hd, int dtype, int* blocks) {
+// How many blocks of the kernel for (hd, dtype, capped) one SM holds at
+// once, into *blocks: the wrapper sizes the split plan to one wave of them.
+// Returns the cudaError_t of the query.
+extern "C" int paged_attention_blocks_per_sm(int hd, int dtype, int capped,
+                                             int* blocks) {
     return (int)dispatch(dtype, hd, [&](auto t, auto h) {
-        return occupancy<decltype(t), decltype(h)::value>(blocks);
+        using T = decltype(t);
+        constexpr int HDP = decltype(h)::value;
+        return capped ? occupancy<T, HDP, true>(blocks) : occupancy<T, HDP, false>(blocks);
     });
 }

@@ -4,12 +4,18 @@ A CUDA tensor launches the hand-written kernels (``csrc/flash_attention.cu``
 forward, ``csrc/flash_attention_bwd.cu`` backward) or raises; only a CPU
 tensor takes the plain PyTorch versions.  ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count kernel launches (the backward's one
-call is its three kernels: the D pre-pass, dK/dV and dQ).  bfloat16 inputs
+call is its three kernels: the D pre-pass, dK/dV and dQ), and their
+``softcap_launches`` those of them with a cap.  bfloat16 inputs
 run the forward on the tensor cores, float32 inputs on the CUDA cores.  The
 backward runs bfloat16 inputs up to head_dim 128 on the tensor cores, with
 dO, P and dS split into two bf16 halves each, and float32 inputs (and
 bfloat16 at head_dim 256) as float32 FMAs on the CUDA cores
 (``bwd_route``); both accumulate in float32.
+
+``softcap`` = c caps the scaled scores, ``c * tanh(s / c)``, before the mask
+(the reference's logit soft-cap); each kernel takes it as a template flag,
+so the launch without a cap runs the instance it ran before.  The backward
+recomputes P from the capped scores and multiplies dS by ``1 - tanh^2``.
 
 ``flash_attention`` is differentiable: when autograd records (grad mode on
 and an input requires grad) it runs as ``FlashAttentionFn``, whose forward
@@ -33,13 +39,13 @@ from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [_P] * 5 + [_I] * 8 + [ctypes.POINTER(ctypes.c_int64), _P]
+    fn.argtypes = [_P] * 5 + [_I] * 8 + [_F, ctypes.POINTER(ctypes.c_int64), _P]
     fn.restype = _I
     return fn
 
@@ -47,7 +53,7 @@ def _launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [_P] * 12 + [_I] * 8 + [ctypes.POINTER(ctypes.c_int64), _P]
+    fn.argtypes = [_P] * 12 + [_I] * 8 + [_F, ctypes.POINTER(ctypes.c_int64), _P]
     fn.restype = _I
     return fn
 
@@ -78,15 +84,25 @@ def _strides(*tensors: torch.Tensor):
         *(t.stride(d) for t in tensors for d in (0, 1, 2)))
 
 
+def _cap(softcap: Optional[float]) -> float:
+    """The kernels' cap argument: c, or 0.0 for none."""
+    if softcap is not None and softcap < 0:
+        raise ValueError(f"softcap {softcap}: a cap is positive")
+    return float(softcap or 0.0)
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-             window: Optional[int], with_lse: bool
+             window: Optional[int], with_lse: bool,
+             softcap: Optional[float] = None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(out [B,H,S,hd] f32, lse [B,H,S] f32 or None)."""
+    cap = _cap(softcap)
     if not q.is_cuda:
         if with_lse:
             return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       return_lse=True)
-        return flash_attention_ref(q, k, v, causal=causal, window=window), None
+                                       return_lse=True, softcap=cap)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=cap), None
     _check(q, k, v)
     B, H, S, hd = q.shape
     out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
@@ -99,10 +115,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             B, H, k.shape[1], S, hd, int(bool(causal)),
-            -1 if window is None else int(window), _DTYPES[q.dtype],
+            -1 if window is None else int(window), _DTYPES[q.dtype], cap,
             _strides(q, k, v, out), torch.cuda.current_stream().cuda_stream)
     _build.check_launch("flash_attention", code)
     flash_attention.launches += 1
+    flash_attention.softcap_launches += cap > 0
     return out, lse
 
 
@@ -131,14 +148,16 @@ def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
-                        window: Optional[int] = None
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``flash_attention`` from its forward's ``out`` and
     ``lse`` and the output gradient ``dout`` [B,H,S,hd]: (dq [B,H,S,hd],
-    dk, dv [B,K,S,hd]), float32."""
+    dk, dv [B,K,S,hd]), float32.  ``softcap``: the forward's."""
+    cap = _cap(softcap)
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
-                                       window=window)
+                                       window=window, softcap=cap)
     _check(q, k, v)
     B, H, S, hd = q.shape
     K = k.shape[1]
@@ -172,11 +191,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if do_split is None else do_split.data_ptr(),
             None if lo_flag is None else lo_flag.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, K, S, hd, int(bool(causal)),
-            -1 if window is None else int(window), _DTYPES[q.dtype],
+            -1 if window is None else int(window), _DTYPES[q.dtype], cap,
             _strides(q, k, v, out, dout, dq, dk, dv),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch("flash_attention_bwd", code)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.softcap_launches += cap > 0
     return dq, dk, dv
 
 
@@ -186,31 +206,39 @@ class FlashAttentionFn(torch.autograd.Function):
     ``flash_attention_bwd`` and casts each gradient to its input's dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+    def forward(ctx, q, k, v, causal, window, softcap=None):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True,
+                            softcap=softcap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                         causal=ctx.causal, window=ctx.window)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+                                         causal=ctx.causal, window=ctx.window,
+                                         softcap=ctx.softcap)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """q: [B,H,S,hd]; k,v: [B,K,S,hd] (GQA, kv head = h // (H/K)).  Returns a
     contiguous [B,H,S,hd] float32 tensor.  S is free (ragged tiles are
-    masked).  Differentiable in q, k and v."""
+    masked).  ``softcap``: the logit cap c (None: none).  Differentiable in
+    q, k and v."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, with_lse=False)[0]
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, with_lse=False,
+                    softcap=softcap)[0]
 
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+# the launches of the capped instances
+flash_attention.softcap_launches = 0
+flash_attention_bwd.softcap_launches = 0

@@ -3,7 +3,7 @@
 A CUDA tensor launches the hand-written kernel
 (``csrc/paged_attention.cu``) or raises; only a CPU tensor takes the plain
 PyTorch version.  ``paged_attention.launches`` counts kernel launches, one a
-call.
+call, and ``paged_attention.softcap_launches`` those of them with a cap.
 
 The kernel splits each sequence's block-table columns across blocks
 (split-KV).  ``_split_plan`` picks the split from shapes alone, so the
@@ -14,7 +14,9 @@ combine); serving passes none and the kernel writes nothing.  With
 ``kv_heads=(first, count)`` the kernel attends over ``count`` kv heads of a
 contiguous slab that holds K, starting at ``first`` (a model shard's heads of
 the replicated slab): it strides over the slab's K heads a slot, and nothing
-is copied.
+is copied.  ``softcap`` = c caps the scaled scores, ``c * tanh(s / c)``
+(the reference's logit soft-cap), in a kernel instance of its own: the
+launch without a cap runs the instance it ran before.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from .. import _build
 from .ref import paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # the kernel's block shape and limits (csrc/paged_attention.cu, which
 # rejects a plan past MAX_SPLITS or MAX_COLS)
@@ -68,15 +70,17 @@ def _split_plan(B: int, K: int, G: int, MB: int, bt: int,
 
 @functools.lru_cache(maxsize=None)
 def _plan(index: int, dtype: int, B: int, H: int, K: int, hd: int, MB: int,
-          bt: int, window: Optional[int]) -> Tuple[int, int, int]:
+          bt: int, window: Optional[int], capped: bool = False
+          ) -> Tuple[int, int, int]:
     """``_split_plan`` for device ``index``: one wave is its SMs times the
-    blocks of the kernel for (hd, dtype) that one SM holds."""
+    blocks of the kernel for (hd, dtype, capped) that one SM holds."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
         fn = _build.load("paged_attention").paged_attention_blocks_per_sm
-        fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
         fn.restype = _I
-        _build.check_launch("paged_attention", fn(hd, dtype, ctypes.byref(blocks)))
+        _build.check_launch("paged_attention", fn(hd, dtype, int(capped),
+                                                  ctypes.byref(blocks)))
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     plan = _split_plan(B, K, H // K, MB, bt, window, sms * max(1, blocks.value))
     if B * K * plan[0] >= 2 ** 31 or plan[1] > MAX_SPLITS:
@@ -110,7 +114,7 @@ def _scratch(index: int, stream: int, n_counters: int,
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("paged_attention").paged_attention_launch
-    fn.argtypes = [_P] * 9 + [_I] * 13 + [_P]
+    fn.argtypes = [_P] * 9 + [_I] * 13 + [_F, _P]
     fn.restype = _I
     return fn
 
@@ -120,15 +124,20 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
                     seq_lens: torch.Tensor, *,
                     window: Optional[int] = None,
                     lse: Optional[torch.Tensor] = None,
-                    kv_heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                    kv_heads: Optional[Tuple[int, int]] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """q: [B,H,hd]; k/v_slabs: [N,bt,K,hd] (one layer's slabs); block_tables:
     [B,MB] int32 physical frames (-1 absent); seq_lens: [B] int32, including
     the newest token (a length <= 0 leaves the row with no live slot).
     Returns [B,H,hd] float32.  A row with no live block returns zeros.
     ``lse``: None, or a float32 [B,H] tensor into which each row's
     ln sum exp(scale q.k) over its live slots is written (``NEG_INF`` for a
-    row with none)."""
+    row with none).  ``softcap``: the logit cap c (None: none)."""
     B, H, hd = q.shape
+    if softcap is not None and softcap < 0:
+        raise ValueError(f"paged_attention: softcap {softcap}: a cap is "
+                         "positive")
+    cap = float(softcap or 0.0)
     if lse is not None and (lse.shape != (B, H) or lse.dtype != torch.float32
                             or not lse.is_contiguous()
                             or lse.device != q.device):
@@ -144,10 +153,11 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
         if lse is None:
             return paged_attention_ref(q, k_slabs, v_slabs, block_tables,
                                        seq_lens, window=window,
-                                       kv_heads=kv_heads)
+                                       kv_heads=kv_heads, softcap=cap)
         out, row_lse = paged_attention_ref(q, k_slabs, v_slabs, block_tables,
                                            seq_lens, window=window,
-                                           return_lse=True, kv_heads=kv_heads)
+                                           return_lse=True, kv_heads=kv_heads,
+                                           softcap=cap)
         lse.copy_(row_lse)
         return out
     N, bt, _, hd2 = k_slabs.shape
@@ -173,7 +183,8 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
     if B == 0:                      # no sequence: no launch, no count
         return torch.empty((0, H, hd), dtype=torch.float32, device=q.device)
     index, dtype = q.device.index, _DTYPES[q.dtype]
-    n_gc, n_splits, cps = _plan(index, dtype, B, H, K, hd, MB, bt, window)
+    n_gc, n_splits, cps = _plan(index, dtype, B, H, K, hd, MB, bt, window,
+                                cap > 0)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream().cuda_stream
@@ -187,10 +198,12 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
             partials, counters, None if lse is None else lse.data_ptr(),
             B, H, K, K_slab, kv0, hd, bt, MB,
             -1 if window is None else int(window), n_gc, n_splits, cps, dtype,
-            stream)
+            cap, stream)
     _build.check_launch("paged_attention", code)
     paged_attention.launches += 1
+    paged_attention.softcap_launches += cap > 0
     return out
 
 
 paged_attention.launches = 0
+paged_attention.softcap_launches = 0   # the launches of the capped instance

@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..flash_attention.ref import soft_cap
+
 NEG_INF = -2.0 ** 30
 
 
@@ -19,14 +21,16 @@ def paged_attention_ref(q: torch.Tensor, k_slabs: torch.Tensor,
                         seq_lens: torch.Tensor, *,
                         window: Optional[int] = None,
                         scale: Optional[float] = None, return_lse: bool = False,
-                        kv_heads: Optional[Tuple[int, int]] = None):
+                        kv_heads: Optional[Tuple[int, int]] = None,
+                        softcap: Optional[float] = None):
     """q: [B,H,hd]; k/v_slabs: [N,bt,K,hd]; block_tables: [B,MB];
     seq_lens: [B] (valid tokens per sequence).  Returns [B,H,hd] f32; with
-    ``return_lse`` also each row's ln sum exp(scale q.k) over its live slots
-    [B,H] f32 (``NEG_INF`` for a row with none).  ``kv_heads``: (first,
-    count) to attend over kv heads [first, first + count) of slabs that
-    hold more (a model shard's heads of a replicated slab); q's H heads
-    then map onto those ``count``."""
+    ``return_lse`` also each row's ln sum exp(s) of its scores s over its
+    live slots [B,H] f32 (``NEG_INF`` for a row with none).  ``kv_heads``:
+    (first, count) to attend over kv heads [first, first + count) of slabs
+    that hold more (a model shard's heads of a replicated slab); q's H heads
+    then map onto those ``count``.  ``softcap`` = c: s = c * tanh(scale q.k
+    / c) (the reference's ``_gqa_scores``), else s = scale q.k."""
     if kv_heads is not None:
         first, count = kv_heads
         k_slabs = k_slabs[:, :, first:first + count]
@@ -43,7 +47,7 @@ def paged_attention_ref(q: torch.Tensor, k_slabs: torch.Tensor,
     k = k_slabs[frames].reshape(B, MB * bt, K, hd).float()    # [B,T,K,hd]
     v = v_slabs[frames].reshape(B, MB * bt, K, hd).float()
     qg = q.reshape(B, K, G, hd).float()
-    scores = torch.einsum("bkgd,btkd->bkgt", qg, k) * scale
+    scores = soft_cap(torch.einsum("bkgd,btkd->bkgt", qg, k) * scale, softcap)
     t = torch.arange(MB * bt, device=q.device)
     valid = t[None, :] < lens[:, None]
     valid &= (tables >= 0).repeat_interleave(bt, dim=1)

@@ -152,7 +152,8 @@ def decode_attention_sp(q: torch.Tensor, k_slabs: torch.Tensor,
                         positions: torch.Tensor, seq_lens: torch.Tensor, *,
                         block_tokens: int, n_kv: int,
                         window: Optional[int] = None,
-                        pods: Optional[Pods] = None):
+                        pods: Optional[Pods] = None,
+                        softcap: Optional[float] = None):
     """Sequence-parallel paged decode attention (flash-decoding).
 
     The block table's COLUMNS are split over the shards: shard s owns
@@ -168,8 +169,9 @@ def decode_attention_sp(q: torch.Tensor, k_slabs: torch.Tensor,
     one paged-attention launch at its shard-local lengths ``seq_len - s *
     MBl * bt`` (a shard wholly past the row has no live slot: output 0, LSE
     ``NEG_INF``), and the partials combine by ``pmax`` / ``psum`` — the only
-    traffic between shards.  Returns (out [B,H,hd] f32, k_slabs,
-    v_slabs)."""
+    traffic between shards.  ``softcap``: the logit cap, applied by each
+    shard's launch (the LSE is of the capped scores, so the combine is the
+    same).  Returns (out [B,H,hd] f32, k_slabs, v_slabs)."""
     bt = block_tokens
     B, MB = phys_blocks.shape
     if pods is None:
@@ -177,7 +179,8 @@ def decode_attention_sp(q: torch.Tensor, k_slabs: torch.Tensor,
         glob = sp_tables(phys_blocks, n, F)
         kf, vf = _flat(k_slabs), _flat(v_slabs)
         write_token_plain(kf, vf, k_new, v_new, glob, positions, bt)
-        return (paged_attention(q, kf, vf, glob, seq_lens, window=window),
+        return (paged_attention(q, kf, vf, glob, seq_lens, window=window,
+                                softcap=softcap),
                 k_slabs, v_slabs)
     n, p = pods.n, k_slabs.shape[0]
     if MB % n:
@@ -202,7 +205,7 @@ def decode_attention_sp(q: torch.Tensor, k_slabs: torch.Tensor,
         lses.append(torch.empty((B, H), dtype=torch.float32, device=q.device))
         outs.append(paged_attention(q, k_slabs[i], v_slabs[i], cols[i].clone(),
                                     lens[i].clone(), window=window,
-                                    lse=lses[-1]))
+                                    lse=lses[-1], softcap=softcap))
     return (sp_combine(torch.stack(outs), torch.stack(lses), pods), k_slabs,
             v_slabs)
 

@@ -29,7 +29,12 @@ config, per device of the grid, and scales to the whole machine:
     them (each collective's per-shard slice received by t - 1 shards, on
     each of t; ``model_wire``); the data axis's gradient all-reduce at the
     ring factor 2 (d - 1) / d; the pod axis's gradient leg (float32 ring
-    or the int8 all-gather) and the coherence prologue's buffers.
+    or the int8 all-gather) and the coherence prologue's buffers.  Under
+    Megatron sequence parallelism (``cell.seq_split``) a block's psum
+    becomes a reduce-scatter and its input's ``copy_in`` an all-gather,
+    each moving 1/t of the block's rows a shard pair: the model axis then
+    moves 2/t of a psum's bytes a block by ``Pods``' count, where a ring's
+    reduce-scatter + all-gather move what its all-reduce does.
   * ``per_device_bytes``: summed from the cell's own tensors, each over the
     devices it is split over; ``device_bytes`` counts the same from the
     config's widths, and the two must agree.
@@ -432,7 +437,7 @@ def cell_bytes(cell) -> float:
                    head, g.t) // cfg.d_model
     resid = sum(2.0 * g.rows * cfg.d_model * el
                 * (g.enc_tokens if grp.kind == "enc_attn" else g.tokens)
-                for grp, _ in _layers(g))
+                / _seq_div(cell, grp) for grp, _ in _layers(g))
     if g.step == "train":
         passes = 3 if g.remat == "full" else 2          # forward(s) and dX
         logits = g.rows * g.tokens * V * (el + 4 + 4)
@@ -461,6 +466,13 @@ def cell_bytes(cell) -> float:
     return cell.chips * total
 
 
+def _seq_div(cell, grp) -> int:
+    """t where sequence parallelism splits the stack of ``grp``'s layers
+    (each shard holds 1/t of its residual rows), else 1."""
+    stack = "encoder" if grp.kind == "enc_attn" else "decoder"
+    return cell.grid.model.n if getattr(cell, "seq_split", {}).get(stack) else 1
+
+
 def _first_layer(g: _Geometry, grp):
     for group, gp in zip(layer_groups(g.cfg), g.params["groups"]):
         if group == grp:
@@ -476,8 +488,14 @@ def _state_div(leaf, grp, cell) -> int:
 
 
 # --------------------------------------------------------------------------- wire
+def _norm_bytes(lp) -> int:
+    """The bytes of a layer's norms' parameters (every block's)."""
+    return sum(_nbytes(leaf) for name in ("norm1", "norm_cross", "norm2")
+               if name in lp for leaf in lp[name].values())
+
+
 def _layer_wire(g: _Geometry, lp, kind: str, N: int, el: int,
-                ) -> Tuple[int, int, int]:
+                sp: bool = False) -> Tuple[int, int, int]:
     """One layer's model-axis slices at N tokens a device, as ``Pods``
     counts them: (forward bytes, backward bytes, the bytes of the layer's
     final psum, which a recomputation does not run again: its output only
@@ -490,11 +508,32 @@ def _layer_wire(g: _Geometry, lp, kind: str, N: int, el: int,
     block's input [N, D], the replicated leaves its shards read (``wk`` /
     ``wv`` where the kv heads stay whole, the qk-norm scales, the RG-LRU's
     ``w_r`` / ``w_i``, the SSD's norm scale and its variance [N] float32),
-    and a decoder's encoder output [Ne, D] float32 for its cross K/V."""
+    and a decoder's encoder output [Ne, D] float32 for its cross K/V.
+
+    ``sp`` (sequence parallelism splits this stack): each block's input is
+    an all-gather of the shards' rows, forward (1/t of [N, D] a shard),
+    whose backward is a reduce-scatter when the block is split and nothing
+    when it runs replicated; a split block's output a reduce-scatter
+    (backward an all-gather), a replicated one's a chunk (backward an
+    all-gather); the norms' scales sum their gradients (``_norm_bytes``);
+    the SSD's psum and the MoE's, FFN's and SSD's final ones become the
+    reduce-scatter."""
     cfg, t = g.cfg, g.t
     D = cfg.d_model
     row = N * D * el
+    chunk = row // t
     fwd = bwd = last = 0
+    if sp:
+        bwd += _norm_bytes(lp)
+
+    def io(split: bool, final: bool = False):
+        """A block's input and output: (fwd, bwd, last) of its psum and
+        copy_in, or under ``sp`` of its gather and reduce-scatter."""
+        if not sp:
+            return (row, row, row if final else 0) if split else (0, 0, 0)
+        if split:
+            return 2 * chunk, 2 * chunk, chunk if final else 0
+        return chunk, chunk, 0
 
     def shared_bytes(p):
         names = [n for n in ("q_norm", "k_norm") if n in p]
@@ -502,36 +541,54 @@ def _layer_wire(g: _Geometry, lp, kind: str, N: int, el: int,
             names += ["wk", "wv"]
         return sum(_nbytes(p[n]) for n in names)
 
+    def add(f, b, l_=None):
+        nonlocal fwd, bwd, last
+        fwd, bwd = fwd + f, bwd + b
+        if l_ is not None:
+            last = l_
+
     for block in ("attn", "cross"):
-        if block in lp and lp[block]["wq"].dim() == 3:
-            fwd += row              # the cross K/V's input: the frames
-            bwd += row + shared_bytes(lp[block]) + (
-                g.rows * g.enc_tokens * D * 4 if block == "cross" else 0)
-    if "ffn" in lp and lp["ffn"]["w_in"].dim() == 3:
-        fwd += row
-        bwd += row
-        last = row
+        if block in lp:
+            split = lp[block]["wq"].dim() == 3
+            add(*io(split)[:2])
+            if split:
+                bwd += shared_bytes(lp[block]) + (
+                    g.rows * g.enc_tokens * D * 4 if block == "cross" else 0)
+    if "ffn" in lp:
+        add(*io(lp["ffn"]["w_in"].dim() == 3, final=True))
     if "moe" in lp:
         p = lp["moe"]
+        whole_shared = "shared" in p and p["shared"]["w_in"].dim() == 2
         if p["we_in"].dim() == 4:
-            fwd += N * p["router"].shape[-1] * el + row
-            bwd += row
-            last = row
-        elif "shared" in p and p["shared"]["w_in"].dim() == 3:
-            fwd += row
-            bwd += row
-            last = row
-    if "ssd" in lp and lp["ssd"]["in_proj"].dim() == 3:
-        Q = cfg.ssm_chunk
-        Np = N if g.step == "decode" else g.rows * (-(-g.tokens // Q) * Q)
-        rowp = Np * D * el
-        fwd += Np * 2 * cfg.ssm_state // t * el + Np * 4 + rowp
-        bwd += rowp + _nbytes(lp["ssd"]["norm_scale"]) + Np * 4
-        last = rowp
-    if "rglru" in lp and lp["rglru"]["rg_in"].dim() == 3:
+            add(*io(True, final=True))
+            fwd += N * p["router"].shape[-1] * el
+            if sp and whole_shared:   # its output's chunk: an all-gather back
+                bwd += chunk
+        elif "shared" in p and not whole_shared:
+            # a replicated block whose shared expert splits: its psum and
+            # copy_in beside the block's gather and chunk
+            add(*io(False, final=True))
+            add(row, row, row)
+        else:
+            add(*io(False, final=True))
+    if "ssd" in lp:
+        if lp["ssd"]["in_proj"].dim() == 3:
+            Q = cfg.ssm_chunk
+            Np = N if g.step == "decode" else g.rows * (-(-g.tokens // Q) * Q)
+            f, b, l_ = io(True, final=True)
+            if not sp:               # the input's copy_in is of the padded rows
+                b = Np * D * el
+            add(f + Np * 2 * cfg.ssm_state // t * el + Np * 4,
+                b + _nbytes(lp["ssd"]["norm_scale"]) + Np * 4, l_)
+        else:
+            add(*io(False, final=True))
+    if "rglru" in lp:
         p = lp["rglru"]
-        fwd += N * p["rg_in"].shape[-1] * el + row
-        bwd += row + _nbytes(p["w_r"]) + _nbytes(p["w_i"])
+        split = p["rg_in"].dim() == 3
+        add(*io(split)[:2])
+        if split:
+            fwd += N * p["rg_in"].shape[-1] * el
+            bwd += _nbytes(p["w_r"]) + _nbytes(p["w_i"])
     return fwd, bwd, last
 
 
@@ -545,32 +602,57 @@ def model_wire(cell) -> int:
     forward of the layers with ``remat`` but for each layer's final psum,
     the head's input, the loss's max, sum of exponentials and target logit
     [N] float32, and the clip's sum of the split gradients' squares (one
-    float32)."""
+    float32).  Where sequence parallelism splits a stack
+    (``cell.seq_split``) its layers count as ``_layer_wire(sp=True)``, the
+    embedding's psum is a reduce-scatter (a whole embedding's rows a
+    chunk; either's backward an all-gather), the final norm's scale sums
+    its gradient and its rows are gathered for the head (backward a
+    reduce-scatter where the head splits), a prefill gathers each shard's
+    last row, and an encoder's final norm is gathered whole."""
     g = _Geometry(cell)
     t, cfg, p = g.t, g.cfg, g.params
     if t == 1:
         return 0
+    split = getattr(cell, "seq_split", {})
+    sp_dec, sp_enc = split.get("decoder", False), split.get("encoder", False)
     N = g.rows * g.tokens
-    el = g.el
+    el, D = g.el, cfg.d_model
     fwd = bwd = last = 0
     for grp, lp in _layers(g):
         enc = grp.kind == "enc_attn"
         f, b, l_ = _layer_wire(g, lp, grp.kind,
                                g.rows * g.enc_tokens if enc else N,
-                               4 if enc else el)
+                               4 if enc else el, sp_enc if enc else sp_dec)
         fwd, bwd, last = fwd + f, bwd + b, last + l_
+    train = g.step == "train"
     outer = 0
-    if "embedding" in p and p["embedding"].dim() == 3:
-        outer += N * cfg.d_model * el
+    emb_split = "embedding" in p and p["embedding"].dim() == 3
+    if sp_dec:      # the reduce-scatter forward, or the chunk; backward an all-gather
+        outer += N * D * el // t * (emb_split + train)
+    elif emb_split:
+        outer += N * D * el
+    if sp_enc and g.step != "decode":
+        outer += g.rows * g.enc_tokens * D * 4 // t   # the encoder's gather
+        if train:
+            outer += _nbytes(p["enc_norm"]["scale"]) + _nbytes(
+                p["enc_norm"]["bias"])
     head = p.get("lm_head", p.get("embedding"))
     head_split = head is not None and head.dim() == 3
-    if g.step == "train":
+    if train:
         layers = fwd + bwd + (fwd - last if g.remat else 0)
         if head_split:
-            outer += 3 * N * 4 + N * cfg.d_model * el
+            outer += 3 * N * 4
+        if sp_dec:
+            chunk = N * D * el // t
+            outer += (sum(_nbytes(leaf) for leaf in p["final_norm"].values())
+                      + chunk + (chunk if head_split else 0))
+        elif head_split:
+            outer += N * D * el
         if any(split_leaves(p)):
             outer += 4
         return t * (t - 1) * (layers + outer)
+    if sp_dec and g.step == "prefill":
+        outer += g.rows * D * el                     # the shards' last rows
     if head_split:
         outer += g.rows * el + g.rows * 8
     return t * (t - 1) * (fwd + outer)
@@ -709,12 +791,13 @@ def summary(r: Roofline) -> str:
 
 
 # --------------------------------------------------------------------------- peak
-def _widest(g: _Geometry, lp, N: int) -> float:
+def _widest(g: _Geometry, lp, N: int, sp: int = 1) -> float:
     """The most bytes a layer's forward holds at once at N tokens a device:
-    its input and the norm's output, and the attention's q, k, v, the
-    rotated q and k, K2's float32 output and its cast, or the FFN's two
-    input products, the activation's temporary and its output (the
-    experts': their capacity slots)."""
+    its input and the norm's output (``sp`` = t where sequence parallelism
+    splits them: 1/t of each, beside the gathered rows), and the
+    attention's q, k, v, the rotated q and k, K2's float32 output and its
+    cast, or the FFN's two input products, the activation's temporary and
+    its output (the experts': their capacity slots)."""
     cfg, el, hd = g.cfg, g.el, g.cfg.resolved_head_dim
     D = cfg.d_model
     attn = ffn = 0.0
@@ -735,7 +818,8 @@ def _widest(g: _Geometry, lp, N: int) -> float:
         name = "ssd" if "ssd" in lp else "rglru"
         leaf = lp[name]["in_proj" if name == "ssd" else "rg_in"]
         ffn = max(ffn, 3 * N * _dev_numel((name, "x"), leaf, g.t) // D * 4)
-    return 2 * N * D * el + max(attn, ffn)
+    rows = 2 * N * D * el if sp == 1 else 2 * N * D * el / sp + N * D * el
+    return rows + max(attn, ffn)
 
 
 def _saved_dots(g: _Geometry, lp, N: int) -> float:
@@ -757,8 +841,9 @@ def peak_bytes(cell) -> float:
     ``cfg.dtype`` and the widest layer (``_widest``); the head's logits
     (``cfg.dtype``, float32) of the positions it reads; and for a train
     step the gradients (the parameters' dtype), each layer's saved input
-    (``remat``; ``"dots"`` also its products' outputs; without remat every
-    layer holds about three widest points),
+    (``remat``, 1/t of it where sequence parallelism splits the stack;
+    ``"dots"`` also its products' outputs; without remat every layer holds
+    about three widest points),
     the head's logits, their float32 log-softmax and its gradient (14
     bytes a logit), or at the step's end every gradient with the last
     layer's recomputation and its backward (twice its widest point) or
@@ -773,15 +858,15 @@ def peak_bytes(cell) -> float:
     wmax = max(_dev_numel(path, leaf, g.t) for path, leaf in
                tree_leaves_with_path(g.params)) * el
     widest = max(_widest(g, lp, g.rows * (g.enc_tokens if grp.kind == "enc_attn"
-                                          else g.tokens))
+                                          else g.tokens), _seq_div(cell, grp))
                  for grp, lp in _layers(g))
     if g.step != "train":
         return resident + wmax + widest + g.rows * V * (el + 4)
     _, elems = _param_bytes(g)
     grads = elems * torch.tensor([], dtype=cfg.param_dtype).element_size()
-    saved = sum(N * cfg.d_model * el + (_saved_dots(g, lp, N)
-                                        if g.remat == "dots" else 0)
-                if g.remat else 3 * widest for _, lp in _layers(g))
+    saved = sum(N * cfg.d_model * el / _seq_div(cell, grp)
+                + (_saved_dots(g, lp, N) if g.remat == "dots" else 0)
+                if g.remat else 3 * widest for grp, lp in _layers(g))
     adamw = 4 * 4 * wmax / el
     return resident + saved + wmax + max(14.0 * N * V,
                                          grads + max(2 * widest, adamw))

@@ -5,6 +5,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi_6b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all            # 33 single-pod cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --seq-parallel
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --table [--shape train_4k]
 
 The grid is ``make_debug_mesh(pods, data=16, model=16, device="meta")``: one
 pod of 256 GPUs, or two.  Each cell prints the reference's one-line
@@ -13,15 +15,24 @@ summary and writes ``experiments/dryrun_h100/<arch>__<shape>__<mesh>.json``
 cell whose arguments exceed a device's 80 GB is reported as not fitting;
 that is a result, not a failure.  Nothing is allocated, nothing runs on a
 device, and nothing is written over the JAX package's ``BENCH_roofline.json``.
+
+``--table`` reads every cell file of the directory and prints the
+reference's roofline table (``benchmarks/roofline.py``'s columns: arch,
+shape, mesh with its option tag, compute / memory / collective ms, the
+dominant term, the roofline fraction, the useful-FLOP ratio, argument GB a
+device), one row a cell, and writes it beside them as ``roofline.csv``;
+with ``--all`` or ``--arch`` the cells are built first.  Nothing is written
+under ``benchmarks/``.
 """
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import pathlib
 import time
 import traceback
-from typing import Optional
+from typing import List, Optional
 
 from ..configs import ARCH_IDS, SHAPES, shape_cells
 from . import analysis
@@ -66,6 +77,47 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     return out
 
 
+TABLE_COLUMNS = ("arch", "shape", "mesh", "compute_ms", "memory_ms",
+                 "collective_ms", "dominant", "roofline_frac", "useful_flops",
+                 "arg_gb_per_dev")
+
+
+def table(directory: Optional[pathlib.Path] = None,
+          shapes: Optional[List[str]] = None) -> List[dict]:
+    """The roofline table of the cell files in ``directory`` (default
+    ``ART_DIR``; only ``shapes`` when given), in file-name order; writes
+    ``roofline.csv`` there."""
+    directory = directory or ART_DIR
+    rows = []
+    for path in sorted(directory.glob("*.json")):
+        d = json.loads(path.read_text())
+        if shapes and d["shape"] not in shapes:
+            continue
+        r = d["roofline"]
+        rows.append({"arch": d["arch"], "shape": d["shape"], "mesh": d["mesh"],
+                     "compute_ms": round(r["compute_s"] * 1e3, 2),
+                     "memory_ms": round(r["memory_s"] * 1e3, 2),
+                     "collective_ms": round(r["collective_s"] * 1e3, 2),
+                     "dominant": r["dominant"],
+                     "roofline_frac": round(r["roofline_fraction"], 4),
+                     "useful_flops": round(r["useful_flops_ratio"], 3),
+                     "arg_gb_per_dev": round(r["per_device_bytes"] / 1e9, 3)})
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / "roofline.csv", "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=TABLE_COLUMNS)
+        writer.writeheader()
+        writer.writerows(rows)
+    return rows
+
+
+def print_table(rows: List[dict]) -> None:
+    widths = {c: max([len(c)] + [len(str(r[c])) for r in rows])
+              for c in TABLE_COLUMNS}
+    print("  ".join(c.ljust(widths[c]) for c in TABLE_COLUMNS))
+    for r in rows:
+        print("  ".join(str(r[c]).ljust(widths[c]) for c in TABLE_COLUMNS))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
@@ -82,6 +134,9 @@ def main(argv=None) -> None:
     ap.add_argument("--compress-pod-grads", action="store_true")
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help=f"directory of the cells' files (default {ART_DIR})")
+    ap.add_argument("--table", action="store_true",
+                    help="print the roofline table of the directory's cells "
+                         "(after building any asked for) and write roofline.csv")
     args = ap.parse_args(argv)
     opts = PerfOptions(decode_kernel=args.decode_kernel,
                        bf16_grads=args.bf16_grads,
@@ -90,6 +145,9 @@ def main(argv=None) -> None:
                        compress_pod_grads=args.compress_pod_grads)
     require_options(opts)
 
+    if args.table and not (args.all or args.arch):
+        print_table(table(args.out, [args.shape] if args.shape else None))
+        return
     if args.all:
         cells = [(arch, shape) for arch in ARCH_IDS for shape in shape_cells(arch)]
     else:
@@ -118,6 +176,8 @@ def main(argv=None) -> None:
         raise SystemExit(1)
     print(f"\nall {len(cells)} cells built and counted "
           f"({len(too_big)} do not fit one device)")
+    if args.table:
+        print_table(table(args.out))
 
 
 if __name__ == "__main__":

@@ -28,10 +28,15 @@ reference's NamedShardings: ``param_shardings`` for the parameters and
 moments, ``kv_split`` / ``state_split`` and the rows of ``_row_shares`` for
 the decode state); ``launch/analysis.py`` reads them.  With
 ``device="cuda"`` the same function builds a cell the card runs.
-``PerfOptions`` are the reference's levers; Megatron sequence parallelism
-(``seq_parallel``) raises NotImplementedError naming ROADMAP queue 1 slice
-16.2b, and ``decode_kernel="fused_ref"`` (the reference's model of its
-Pallas kernel's streaming) a ValueError: the port decodes with K1.
+``PerfOptions`` are the reference's levers.  Megatron sequence parallelism
+(``seq_parallel``) is, as in the reference, a rule: ``make_rules`` puts
+``act_seq`` on ``model``, a cell's step runs under its rules, and the
+models then split the residual stream over the model axis between blocks
+in the train and prefill steps (``models/transformer.py``), each stack
+where t divides its length; a decode step (one row) never splits, and
+``CellSpec.seq_split`` records which stacks ran split.
+``decode_kernel="fused_ref"`` (the reference's model of its Pallas
+kernel's streaming) raises a ValueError: the port decodes with K1.
 """
 from __future__ import annotations
 
@@ -57,7 +62,8 @@ from ..configs import ShapeSpec, get_config
 from ..models import greedy_sample, init_decode_state, init_params, lm_loss
 from ..models.common import SHAPES_ONLY, ModelConfig
 from ..models.transformer import (DecodeState, decode_step, prefill,
-                                  prefill_encdec, remat_policy, vocab_split)
+                                  prefill_encdec, remat_policy, seq_splits,
+                                  vocab_split)
 from ..optim import adamw_init, adamw_update
 from ..optim.adamw import decays
 from ..pagedpt.coherence import eager_sync, numapte_prologue
@@ -71,14 +77,18 @@ def _axis_sizes(grid: Pods) -> Dict[str, int]:
     return {"pod": grid.n, "data": grid.data.n, "model": grid.model.n}
 
 
-def make_rules(cfg: ModelConfig, grid: Pods) -> ShardingRules:
+def make_rules(cfg: ModelConfig, grid: Pods,
+               opts: Optional["PerfOptions"] = None) -> ShardingRules:
     """The base table of the grid (multi-pod when its pod axis splits), the
-    config's ``rule_overrides`` on top.  (The reference's Megatron-SP
-    option, ``act_seq`` on ``model``, waits for ROADMAP queue 1 slice
-    16.2b: ``require_options``.)"""
+    config's ``rule_overrides`` on top, and, with ``opts.seq_parallel``,
+    ``act_seq`` on ``model``: Megatron sequence parallelism, which the
+    models read from the rules in force (``transformer.seq_shards``; where
+    a stack splits, ``seq_split`` says, as ``_divisible`` would)."""
     base = MULTI_POD_RULES if grid.n > 1 else SINGLE_POD_RULES
     table = dict(base.rules)
     table.update(dict(cfg.rule_overrides))
+    if opts is not None and opts.seq_parallel:
+        table["act_seq"] = "model"
     return ShardingRules(rules=tuple(table.items()))
 
 
@@ -457,9 +467,9 @@ def build_train_step(cfg: ModelConfig, compress_pod_grads: bool = False,
                      bf16_grads: bool = False) -> Callable:
     """``step(params, opt_state, batch, ef=None)``: gradients, then one
     ``adamw_update`` (in place).  ``remat`` (default ``"full"``: every
-    layer rematerialised) and ``bf16_grads`` (differentiate a bfloat16
-    copy of the float32 matrices) are the reference's options
-    (``_grads``).  Without ``pods`` the gradients are
+    layer rematerialised) and ``bf16_grads`` (differentiate a bfloat16 copy
+    of the float32 matrices) are the reference's options (``_grads``);
+    sequence parallelism comes from the rules in force (``make_rules``).  Without ``pods`` the gradients are
     ``lm_loss``'s; with ``pods`` (the grid: its pod axis, carrying
     ``.data`` and ``.model``) they are ``pod_gradients``' average, and
     ``params`` / ``opt_state`` are split over the model axis
@@ -668,15 +678,10 @@ class PerfOptions:
 def require_options(opts: PerfOptions) -> None:
     """Refuse the options the port does not run as the reference does:
     ``decode_kernel="fused_ref"`` models the Pallas kernel's streaming,
-    where the port always decodes with K1 (ValueError); Megatron sequence
-    parallelism waits for ROADMAP queue 1 slice 16.2b."""
+    where the port always decodes with K1 (ValueError)."""
     if opts.decode_kernel != "ref":
         raise ValueError(f"decode_kernel {opts.decode_kernel!r}: the port "
                          "decodes with K1 (paged_attention), only 'ref'")
-    if opts.seq_parallel:
-        raise NotImplementedError("Megatron sequence parallelism "
-                                  "(seq_parallel) waits for ROADMAP queue 1 "
-                                  "slice 16.2b")
     if opts.coherence not in ("none", "eager", "numapte"):
         raise ValueError(f"coherence {opts.coherence!r}")
     remat_policy(opts.remat)
@@ -714,7 +719,9 @@ class CellSpec:
     number of devices of the grid it is split over (1: every device holds
     it whole); ``rows``: the batch rows the cell holds (the shape's global
     batch unless cut); ``cuts``: what was cut from the shape or the config,
-    and why."""
+    and why; ``seq_split``: for each stack of the step (``decoder``, and an
+    encoder-decoder's ``encoder``) whether sequence parallelism splits it
+    (``seq_parallel`` on, a model axis, and t dividing its length)."""
     arch: str
     shape: ShapeSpec
     cfg: ModelConfig
@@ -726,10 +733,27 @@ class CellSpec:
     rows: int
     cuts: Dict[str, str] = dataclasses.field(default_factory=dict)
     donate: Tuple[int, ...] = ()
+    seq_split: Dict[str, bool] = dataclasses.field(default_factory=dict)
 
     @property
     def chips(self) -> int:
         return self.grid.n * self.grid.data.n * self.grid.model.n
+
+
+def seq_split(cfg: ModelConfig, shape: ShapeSpec, t: int,
+              seq_parallel: bool) -> Dict[str, bool]:
+    """Which stacks of a cell's step run split by sequence parallelism over
+    a model axis of ``t``: the decoder's rows (a train step's S, a prefill's
+    S, an encoder-decoder's ``max_decoder_len``; a decode step's one row
+    never) and an encoder-decoder's S frames, each where t divides it."""
+    on = lambda n: seq_splits(t, n, seq_parallel)
+    enc = cfg.family == "encdec"
+    rows = (1 if shape.step == "decode" else
+            cfg.max_decoder_len if enc else shape.seq_len)
+    out = {"decoder": on(rows)}
+    if enc:
+        out["encoder"] = on(shape.seq_len) and shape.step != "decode"
+    return out
 
 
 def _decode_geometry(cfg: ModelConfig, shape: ShapeSpec,
@@ -817,7 +841,9 @@ def build_cell(arch: str, shape: ShapeSpec, grid: Pods, *,
     arch's published config (a smoke config in the tests).  ``step_fn`` is
     the port's step over ``grid``: ``build_train_step``,
     ``build_prefill_step`` or ``build_serve_step``; where the port does not
-    run the grid yet it raises when called (ROADMAP queue 1 slice 16.1c)."""
+    run the grid yet it raises when called (ROADMAP queue 1 slice 16.1c).
+    With ``opts.seq_parallel`` the train and prefill steps run Megatron
+    sequence parallelism over the model axis (``seq_split`` says where)."""
     opts = opts or PerfOptions()
     require_options(opts)
     device = resolve_device(device)
@@ -840,6 +866,7 @@ def build_cell(arch: str, shape: ShapeSpec, grid: Pods, *,
     i32 = torch.int32
     step_fn = functools.partial(_cell_step, cfg, grid, opts, shape.step)
     enc = cfg.family == "encdec"
+    split = seq_split(cfg, shape, t, opts.seq_parallel)
 
     if shape.step == "train":
         opt = adamw_init(params)
@@ -860,7 +887,7 @@ def build_cell(arch: str, shape: ShapeSpec, grid: Pods, *,
             args = args + (ef,)
             shares += [grid.n * s for s in p_shares]
         return CellSpec(arch, shape, cfg, step_fn, args, grid, opts, shares,
-                        gb, cuts, donate=(0, 1))
+                        gb, cuts, donate=(0, 1), seq_split=split)
 
     n_frames, mb, n_pools = _decode_geometry(
         cfg, dataclasses.replace(shape, global_batch=gb), data_size)
@@ -892,7 +919,7 @@ def build_cell(arch: str, shape: ShapeSpec, grid: Pods, *,
             inputs = [row_share] * 2
         return CellSpec(arch, shape, cfg, step_fn, args, grid, opts,
                         p_shares + state_shares + inputs, gb, cuts,
-                        donate=(1,))
+                        donate=(1,), seq_split=split)
 
     if device.type != "meta":                 # a context of S tokens a row
         state.seq_lens.fill_(min(S, cfg.max_decoder_len) if enc else S)
@@ -911,7 +938,8 @@ def build_cell(arch: str, shape: ShapeSpec, grid: Pods, *,
         inputs += [P, 1, 1, P, P, P, P, P]
     return CellSpec(arch, shape, cfg,
                     functools.partial(step_fn, sp=sp), args, grid, opts,
-                    p_shares + state_shares + inputs, gb, cuts, donate=(1,))
+                    p_shares + state_shares + inputs, gb, cuts, donate=(1,),
+                    seq_split=split)
 
 
 @functools.lru_cache(maxsize=8)
@@ -927,14 +955,17 @@ def _cell_step(cfg: ModelConfig, grid: Pods, opts: PerfOptions, step: str,
                *args, sp: bool = False):
     """A cell's step: the port's step builder over ``grid``, called (a
     train step on a grid of one device runs without one: the pod and data
-    legs would only copy its gradients)."""
-    if step == "train":
-        one = grid.n * grid.data.n * grid.model.n == 1
-        return build_train_step(cfg, opts.compress_pod_grads,
-                                pods=None if one else grid,
-                                remat=opts.remat,
-                                bf16_grads=opts.bf16_grads)(*args)
-    if step == "prefill":
-        return build_prefill_step(cfg, pods=grid)(*args)
-    return build_serve_step(cfg, sp=sp, coherence=opts.coherence,
-                            pods=grid)(*args)
+    legs would only copy its gradients), under the rules of ``opts``
+    (``make_rules``: ``seq_parallel`` reaches the train and prefill steps;
+    a decode step's one row never splits)."""
+    with use_rules(make_rules(cfg, grid, opts)):
+        if step == "train":
+            one = grid.n * grid.data.n * grid.model.n == 1
+            return build_train_step(cfg, opts.compress_pod_grads,
+                                    pods=None if one else grid,
+                                    remat=opts.remat,
+                                    bf16_grads=opts.bf16_grads)(*args)
+        if step == "prefill":
+            return build_prefill_step(cfg, pods=grid)(*args)
+        return build_serve_step(cfg, sp=sp, coherence=opts.coherence,
+                                pods=grid)(*args)

@@ -23,6 +23,12 @@ layer's cross K/V, follow the paged slabs: split by kv head ``[p, B, ...,
 Ks, hd]`` (one a local shard) or held once ``[B, ..., K, hd]``, each shard
 reading and writing its kv heads of it; the ring decode and the
 cross-attention then run per shard on its heads.
+
+The logit soft-cap (``cfg.attn_logit_softcap`` = c) caps every path's
+scaled scores, ``c * tanh(s / c)``, before the mask, as the reference's
+plain ``_gqa_scores`` does: K2 and K1 take it as an argument (a kernel
+instance of its own), the plain ring decode and cross-attention apply it
+themselves, and sequence-parallel decode passes it to each shard's K1.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch
 
 from ..distributed.pods import Pods
 from ..kernels.flash_attention.ops import flash_attention
-from ..kernels.flash_attention.ref import NEG_INF
+from ..kernels.flash_attention.ref import NEG_INF, soft_cap
 from ..kernels.paged_attention.ops import paged_attention
 from ..kvcache.gather import (decode_attention_sp, pooled_tables,
                               write_token_plain)
@@ -100,7 +106,8 @@ def attend(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     (it reads through strides, no copy is made)."""
     B, S = q.shape[:2]
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=window)
+                          v.transpose(1, 2), causal=causal, window=window,
+                          softcap=cfg.attn_logit_softcap)
     out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, -1)
     return out @ p["wo"].to(cfg.dtype)
 
@@ -125,7 +132,8 @@ def _cross(cfg: ModelConfig, q: torch.Tensor, ck: torch.Tensor,
     B, Sq, H, hd = q.shape
     K = ck.shape[2]
     q = q.reshape(B, Sq, K, H // K, hd)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), ck.float()) * hd ** -0.5
+    scores = soft_cap(torch.einsum("bqkgd,bskd->bkgqs", q.float(), ck.float())
+                      * hd ** -0.5, cfg.attn_logit_softcap)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, cv.float())
     return out.reshape(B, Sq, H * hd).to(cfg.dtype)
@@ -173,7 +181,8 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         out, k_slabs, v_slabs = decode_attention_sp(
             q[:, 0].contiguous(), kv[0], kv[1], k_new[:, 0], v_new[:, 0],
             phys_blocks, positions, seq_lens, block_tokens=bt,
-            n_kv=cfg.n_kv_heads, window=window, pods=pods)
+            n_kv=cfg.n_kv_heads, window=window, pods=pods,
+            softcap=cfg.attn_logit_softcap)
     else:
         k_slabs, v_slabs, tables = kv[0], kv[1], phys_blocks
         if k_slabs.dim() == 5:
@@ -185,7 +194,8 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         write_token_plain(k_slabs, v_slabs, k_new[:, 0], v_new[:, 0], tables,
                           positions, bt)
         out = paged_attention(q[:, 0].contiguous(), k_slabs, v_slabs, tables,
-                              seq_lens, window=window)
+                              seq_lens, window=window,
+                              softcap=cfg.attn_logit_softcap)
         k_slabs, v_slabs = kv
     out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.dtype)
     out = out @ p["wo"].to(cfg.dtype)
@@ -266,20 +276,23 @@ def attend_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     launch a shard, on strided [B,Hs,S,hd] views), hands its k, v [B,S,Ks,hd]
     to ``store(i, heads, k, v)`` when given (the prefill's cache writes),
     and multiplies by its rows of ``wo``; the partials are summed over the
-    axis in ``cfg.dtype``.  Returns the replicated output [B,S,D]."""
+    axis in ``cfg.dtype`` (``tp.block_in`` / ``block_out``).  Returns the
+    replicated output [B,S,D], or each shard's rows of it under sequence
+    parallelism."""
     B, S, _ = x.shape
-    xin, shared = tp.copy_in(x), _shared(p, tp)
+    xin, shared = tp.block_in(x), _shared(p, tp)
     parts: List[torch.Tensor] = []
     for i, shard in enumerate(tp.local_indices()):
         heads = ShardHeads(cfg, p, shard)
         q, k, v = _project_shard(cfg, p, i, heads, xin[i], shared, rope)
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal, window=window)
+                              v.transpose(1, 2), causal=causal, window=window,
+                              softcap=cfg.attn_logit_softcap)
         if store is not None:
             store(i, heads, k, v)
         out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, -1)
         parts.append(out @ p["wo"][i].to(cfg.dtype))
-    return tp.psum(torch.stack(parts))[0]
+    return tp.block_out(torch.stack(parts))
 
 
 def attn_decode_paged_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -313,7 +326,8 @@ def attn_decode_paged_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         write_token_plain(ks_mine, vs_mine, k_new[:, 0], v_new[:, 0],
                           phys_blocks, positions, bt)
         out = paged_attention(q[:, 0].contiguous(), ks, vs, phys_blocks,
-                              seq_lens, window=window, kv_heads=kv_heads)
+                              seq_lens, window=window, kv_heads=kv_heads,
+                              softcap=cfg.attn_logit_softcap)
         out = out.reshape(B, 1, -1).to(cfg.dtype)
         parts.append(out @ p["wo"][i].to(cfg.dtype))
     return tp.psum(torch.stack(parts))[0]
@@ -350,31 +364,32 @@ def cross_attention_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     or replicated [B, Se, K, hd]), then its rows of ``wo``, summed over the
     axis."""
     B, Sq, _ = x.shape
-    xin = tp.copy_in(x)
+    xin = tp.block_in(x)
     parts = []
     for i, shard in enumerate(tp.local_indices()):
         heads = ShardHeads(cfg, p, shard)
         q = (xin[i] @ p["wq"][i].to(cfg.dtype)).reshape(B, Sq, heads.Hs, -1)
         out = _cross(cfg, q, _kv_of(ck, i, heads), _kv_of(cv, i, heads))
         parts.append(out @ p["wo"][i].to(cfg.dtype))
-    return tp.psum(torch.stack(parts))[0]
+    return tp.block_out(torch.stack(parts))
 
 
 def _ring_step(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                ring_k: torch.Tensor, ring_v: torch.Tensor,
-               positions: torch.Tensor, window: int) -> torch.Tensor:
+               positions: torch.Tensor, window: int,
+               softcap: Optional[float] = None) -> torch.Tensor:
     """The ring decode of one step: q [B,H,hd] on rings [B,window,K,hd]
     (written in place: the new k, v [B,K,hd] go to slot positions %
-    window) -> [B, H*hd] float32."""
+    window) -> [B, H*hd] float32.  ``softcap``: the logit cap."""
     B, H, hd = q.shape
     K = ring_k.shape[2]
     pos = positions.long()
     rows = torch.arange(B, device=q.device)
     ring_k[rows, pos % window] = k_new.to(ring_k.dtype)
     ring_v[rows, pos % window] = v_new.to(ring_v.dtype)
-    scores = torch.einsum("bkgd,bskd->bkgs",
-                          q.reshape(B, K, H // K, hd).float(),
-                          ring_k.float()) * hd ** -0.5
+    scores = soft_cap(torch.einsum("bkgd,bskd->bkgs",
+                                   q.reshape(B, K, H // K, hd).float(),
+                                   ring_k.float()) * hd ** -0.5, softcap)
     idx = torch.arange(window, device=q.device)[None, :]
     pos = pos[:, None]
     pos_in_slot = pos - (pos - idx) % window
@@ -403,7 +418,7 @@ def attn_decode_ring(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     B = x.shape[0]
     q, k_new, v_new = project_qk_rope_v(cfg, p, x, rope)
     out = _ring_step(q[:, 0], k_new[:, 0], v_new[:, 0], ring_k, ring_v,
-                     positions, window)
+                     positions, window, cfg.attn_logit_softcap)
     out = out.reshape(B, 1, -1).to(cfg.dtype)
     return out @ p["wo"].to(cfg.dtype), ring_k, ring_v
 
@@ -427,7 +442,7 @@ def attn_decode_ring_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                                          rope)
         out = _ring_step(q[:, 0], k_new[:, 0], v_new[:, 0],
                          _kv_of(rings[0], i, heads), _kv_of(rings[1], i, heads),
-                         positions, window)
+                         positions, window, cfg.attn_logit_softcap)
         parts.append(out.reshape(B, 1, -1).to(cfg.dtype)
                      @ p["wo"][i].to(cfg.dtype))
     return tp.psum(torch.stack(parts))[0]

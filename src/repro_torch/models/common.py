@@ -137,16 +137,15 @@ def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
 
 
 def require_ported(cfg: ModelConfig) -> List[LayerGroup]:
-    """The layer groups of ``cfg``, or NotImplementedError naming the ROADMAP
-    item when the config needs a part that is not ported yet.  Every family
-    of the reference is ported (attention with global, windowed or no
-    RoPE; dense and mixture-of-experts FFNs; SSD; RG-LRU; the
-    encoder-decoder); only the logit soft-cap, which no config sets, is
-    not."""
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: attn_logit_softcap is not ported yet "
-            "(ROADMAP queue 1 item 11)")
+    """The layer groups of ``cfg``.  Every part of the reference's configs
+    is ported: attention with global, windowed or no RoPE and the logit
+    soft-cap (``attn_logit_softcap``, on every attention path: K1, K2 and
+    its backward, the ring decode, cross-attention, sequence-parallel
+    decode); dense and mixture-of-experts FFNs; SSD; RG-LRU; the
+    encoder-decoder.  A negative cap raises a ValueError."""
+    if cfg.attn_logit_softcap is not None and cfg.attn_logit_softcap < 0:
+        raise ValueError(f"{cfg.name}: attn_logit_softcap "
+                         f"{cfg.attn_logit_softcap}: a cap is positive")
     return layer_groups(cfg)
 
 

@@ -4,7 +4,9 @@ The products are plain ``torch.matmul`` (cuBLAS), as the reference leaves
 them to its compiler.  Over the grid's ``model`` axis (``tp``) ``w_in`` and
 ``w_gate`` are column-parallel ([p, D, F/t]) and ``w_out`` row-parallel
 ([p, F/t, D]): each local shard computes its slice of the hidden layer, and
-the partial products are summed over the axis in ``cfg.dtype``."""
+the partial products are summed over the axis in ``cfg.dtype``
+(``tp.block_in`` / ``tp.block_out``: a reduce-scatter along the sequence
+under sequence parallelism)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -31,10 +33,10 @@ def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype, d_ff: int = 0
 def ffn_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 tp: Optional[Pods] = None) -> torch.Tensor:
     if tp is not None and p["w_in"].dim() == 3:
-        xin = tp.copy_in(x)
+        xin = tp.block_in(x)
         parts = [ffn_forward(cfg, {k: w[i] for k, w in p.items()}, xin[i])
                  for i in range(tp.local)]
-        return tp.psum(torch.stack(parts))[0]
+        return tp.block_out(torch.stack(parts))
     h = x @ p["w_in"].to(cfg.dtype)
     gate = (x @ p["w_gate"].to(cfg.dtype)) if "w_gate" in p else None
     h = activation(cfg.ffn_act, h, gate)

@@ -206,8 +206,7 @@ def moe_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     xf = x.reshape(N, D)
     C = expert_capacity(N, E, K, cfg.moe_capacity_factor)
     if tp is not None and p["we_in"].dim() == 4:
-        out, aux = _moe_tp(cfg, p, xf, C, tp)
-        return out.reshape(B, S, D), aux
+        return _moe_tp(cfg, p, x, C, tp)
     routes = route(cfg, p, xf)
     aux = _aux_loss(routes, E)
     out = _experts(cfg, p, xf, dispatch(routes, E, C), routes)
@@ -216,15 +215,18 @@ def moe_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     return out.reshape(B, S, D), aux
 
 
-def _moe_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
+def _moe_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
             C: int, tp: Pods) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The expert-parallel layer over ``tp`` (module doc): the combined
-    output [N, D], replicated, and the aux loss.  The aux loss is taken
-    once, on shard 0's routes: on a rank without shard 0 it is that rank's
-    equal value, detached, so that the all-gather's backward (a sum over
-    the shards) counts its gradient once."""
+    """The expert-parallel layer over ``tp`` (module doc) of x [B,S,D]: the
+    combined output [B,S,D], replicated (each shard's rows of it under
+    sequence parallelism: ``tp.block_out``), and the aux loss.  The aux
+    loss is taken once, on shard 0's routes: on a rank without shard 0 it
+    is that rank's equal value, detached, so that the all-gather's backward
+    (a sum over the shards) counts its gradient once."""
     E = cfg.n_experts
-    xin = tp.copy_in(xf)
+    B, S, D = x.shape
+    xf = x.reshape(B * S, D)
+    xin = tp.block_in(xf)
     local = torch.stack([xin[i] @ p["router"][i].to(cfg.dtype)
                          for i in range(tp.local)])          # [p, N, E/t]
     gathered = tp.all_gather(local)                           # [p, t, N, E/t]
@@ -245,7 +247,8 @@ def _moe_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
             part = part + ffn_forward(cfg, {k: w[i] for k, w in shared.items()},
                                       xin[i][None])[0]
         parts.append(part)
-    out = tp.psum(torch.stack(parts))[0]
+    out = tp.block_out(torch.stack(parts).unflatten(1, (B, S)))
     if shared is not None and not split_shared:
-        out = out + ffn_forward(cfg, shared, xf[None])[0]
+        out = out + tp.block_extra(
+            ffn_forward(cfg, shared, xf[None])[0].reshape(B, S, D))
     return out, aux

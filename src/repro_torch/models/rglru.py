@@ -106,7 +106,7 @@ def _per_shard(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     """Each local shard's leaves (with its channels' columns of the
     replicated ``w_r`` / ``w_i``), its ``_conv_in``, and the whole ``xb``
     [..., w] it reads."""
-    xin, shared = tp.copy_in(x), {n: tp.copy_in(p[n]) for n in ("w_r", "w_i")}
+    xin, shared = tp.block_in(x), {n: tp.copy_in(p[n]) for n in ("w_r", "w_i")}
     ws = p["rg_in"].shape[-1]
     shards, convs = [], []
     for i, shard in enumerate(tp.local_indices()):
@@ -139,7 +139,7 @@ def rglru_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
             parts.append((h * gate.float()).to(cfg.dtype)
                          @ sp["out_proj"].to(cfg.dtype))
             states.append((h[:, -1], _conv_tail(cfg, xin)))
-        out = tp.psum(torch.stack(parts))[0]
+        out = tp.block_out(torch.stack(parts))
         if not return_state:
             return out
         return out, {"h": torch.stack([h for h, _ in states]),

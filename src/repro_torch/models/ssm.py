@@ -147,14 +147,15 @@ def _gather_bc(xBCs: List[torch.Tensor], d: int, n: int, tp: Pods
 def _norm_tp(cfg: ModelConfig, shards: List[_Shard], ys: List[torch.Tensor],
              zs: List[torch.Tensor], tp: Pods) -> torch.Tensor:
     """The gated RMSNorm over the whole d_inner (each shard's sum of
-    squares summed over the axis) and ``out_proj``, row-parallel."""
+    squares summed over the axis) and ``out_proj``, row-parallel: the local
+    shards' partial outputs [p, ...]."""
     gated = [_gate(y, z) for y, z in zip(ys, zs)]
     ss = tp.psum(torch.stack([torch.sum(torch.square(g), dim=-1, keepdim=True)
                               for g in gated]))[0]
     var = tp.copy_in(ss / cfg.d_inner)
-    return tp.psum(torch.stack([
+    return torch.stack([
         _norm_out(cfg, g, var[i], sp["norm_scale"], sp["out_proj"])
-        for i, (g, sp) in enumerate(zip(gated, shards))]))[0]
+        for i, (g, sp) in enumerate(zip(gated, shards))])
 
 
 def ssd_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -168,7 +169,7 @@ def ssd_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     if orig_S % Q:                  # pad the tail chunk; the padded rows'
         x = F.pad(x, (0, 0, 0, Q - orig_S % Q))   # outputs are sliced off
     if tp is not None and p["in_proj"].dim() == 3:
-        xin = tp.copy_in(x)
+        xin = tp.block_in(x)
         shards = _shards(cfg, p, tp)
         conv = [_conv_in(cfg, sp, xin[i], sp.d, sp.n)
                 for i, sp in enumerate(shards)]
@@ -176,8 +177,9 @@ def ssd_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         scans = [_scan(cfg, sp, xBC[..., :sp.d], Bm, Cm, dt, orig_S,
                        return_state)
                  for sp, (_, _, xBC, dt), (Bm, Cm) in zip(shards, conv, bcs)]
-        out = _norm_tp(cfg, shards, [y for y, _ in scans],
-                       [c[0] for c in conv], tp)
+        # the padded rows' partials are dropped before the sum
+        out = tp.block_out(_norm_tp(cfg, shards, [y for y, _ in scans],
+                                    [c[0] for c in conv], tp)[:, :, :orig_S])
         states = [_state(cfg, h, c[1], orig_S)
                   for (_, h), c in zip(scans, conv)] if return_state else None
         state = (None if states is None else
@@ -189,7 +191,7 @@ def ssd_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
                      xBC[..., d_inner + n:], dt, orig_S, return_state)
         out = _gated_norm_out(cfg, p, y, z)
         state = _state(cfg, h, xBC_pre, orig_S) if return_state else None
-    out = out[:, :orig_S]
+        out = out[:, :orig_S]
     return out if state is None else (out, state)
 
 
@@ -313,8 +315,8 @@ def ssd_decode(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
                        dt[:, 0], h[i])
                  for i, (sp, (_, _, xBC, dt), (Bm, Cm))
                  in enumerate(zip(shards, conv, bcs))]
-        out = _norm_tp(cfg, shards, [y for y, _ in steps],
-                       [c[0] for c in conv], tp)
+        out = tp.psum(_norm_tp(cfg, shards, [y for y, _ in steps],
+                               [c[0] for c in conv], tp))[0]
         new_conv = torch.stack([torch.cat([conv_state[i].to(x.dtype), c[1]],
                                           dim=1)[:, 1:]
                                 for i, c in enumerate(conv)])

@@ -18,8 +18,8 @@ holds its cross K/V ``[L, B, Se, K, hd]`` beside its slabs.  ``prefill``,
 a state that shares them; every prefill rewrites a ring or a recurrent
 state whole.
 
-Every arch of the reference is ported; only ``attn_logit_softcap``, which no
-config sets, raises NotImplementedError naming its ROADMAP item.
+Every arch of the reference is ported, and so is its logit soft-cap
+(``attn_logit_softcap``, on every attention path: ``attention.py``).
 
 Training rematerialises each layer by default, as the reference does
 (``forward_lm`` / ``forward_encdec`` / ``lm_loss(remat=True)``; ``"full"`` or
@@ -49,6 +49,28 @@ recurrent states per shard (``state_split=t``).  Pool-partitioned KV and
 sequence-parallel decode over the model axis raise NotImplementedError
 naming ROADMAP queue 1 slice 16.1c.  Without ``tp``, or with an axis of
 size 1, every path is the one above.
+
+Megatron sequence parallelism (the rules in force put ``act_seq`` on
+``model``, as ``specs.make_rules`` does for ``PerfOptions(seq_parallel=True)``
+and the reference's option does; a model axis of t > 1; ``SeqParallel``):
+between blocks the residual stream is each shard's
+S / t rows, stacked ``[p, B, S/t, D]``, and every residual block
+(``_block``: a layer's attention or recurrent mixer, cross-attention, FFN
+or experts, each behind its own norm) runs its norm on the shard's rows,
+gathers them along the sequence (``all_gather_dim``) in place of
+``tp.copy_in`` and reduce-scatters its output (``SeqParallel.block_out``)
+in place of the block's ``tp.psum``; inside a block
+nothing changes (the MoE routes the gathered tokens).  A block whose
+leaves are whole runs replicated on the gathered rows and keeps its
+shard's chunk of the output.  The vocab-parallel embedding's psum becomes
+a reduce-scatter (a whole embedding: its chunk), the head gathers the
+final norm's rows (a prefill: only each shard's last row), and the norms'
+scales sum their gradients over the axis (``sum_grads``).  A stack whose
+length t does not divide (a decode step, Whisper's 1 500 frames at t = 16)
+runs without it, as the reference's ``_divisible`` drops such a split; the
+same kernels launch either way.  On ``LoopPods`` the shards' rows are
+chunks of one buffer and the norms run over all of them at once, so the
+forward, the loss and every gradient are bit for bit those without.
 """
 from __future__ import annotations
 
@@ -65,6 +87,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves
 from ..distributed.pods import Pods
+from ..distributed.sharding import current_rules
 from ..kvcache.gather import scatter_prefill_plain, scatter_prefill_pooled
 from .attention import (ShardHeads, _kv_of, attend, attend_tp,
                         attn_decode_paged, attn_decode_paged_tp,
@@ -194,8 +217,98 @@ def model_axis(tp: Optional[Pods]) -> Optional[Pods]:
     return None if tp is None or tp.n == 1 else tp
 
 
+class SeqParallel:
+    """Megatron sequence parallelism over the model axis ``tp`` for one
+    stack of rows (module doc): the residual stream is each local shard's
+    chunk of the sequence, ``[p, B, S/t, D]``.  It is also the axis as a
+    split block sees it: the block's input arrives gathered (``gather``),
+    so ``block_in`` hands each local shard a copy without a collective,
+    ``block_out`` reduce-scatters the partial outputs along the sequence
+    and ``block_extra`` takes each shard's chunk of a replicated term;
+    every other collective is ``tp``'s."""
+
+    def __init__(self, tp: Pods):
+        self.tp = tp
+
+    def __getattr__(self, name):
+        return getattr(self.tp, name)
+
+    def block_in(self, x: torch.Tensor) -> torch.Tensor:
+        return x.unsqueeze(0).expand(self.tp.local, *x.shape)
+
+    def block_out(self, parts: torch.Tensor) -> torch.Tensor:
+        return self.tp.reduce_scatter(parts, 1)
+
+    def block_extra(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tp.scatter_dim(x, 1)
+
+    def norm(self, cfg: ModelConfig, x: torch.Tensor,
+             p: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm of the shards' rows x [p, B, S/t, D], all of this
+        process's at once; the scales' gradients summed over the axis.  The
+        RMSNorm runs on the stack as it is (its composite backward adds its
+        terms into x's gradient as it does without the split); the
+        LayerNorm's native kernel reads contiguous rows, so it gets them
+        joined in sequence order (its scale's and bias's gradients then sum
+        the rows in the order they do without the split)."""
+        w = {k: self.tp.sum_grads(v) for k, v in p.items()}
+        if cfg.norm != "layernorm":
+            return apply_norm(cfg, x, w)
+        return Pods._chunks(apply_norm(cfg, Pods._joined(x, 1), w),
+                            self.tp.local, 1)
+
+    def gather(self, h: torch.Tensor, partial: bool = True) -> torch.Tensor:
+        """The whole stack [B, S, D] from the shards' rows (``partial``: the
+        readers are the shards' own work, whose gradients sum)."""
+        return self.tp.all_gather_dim(h, 1, partial=partial)
+
+    def last_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """x[:, -1] of the whole stack [B, D]: each shard's last row
+        gathered, the last shard's kept."""
+        return self.tp.all_gather_dim(x[:, :, -1:], 1, partial=False)[:, -1]
+
+
+def seq_splits(t: int, length: int, seq_parallel: bool) -> bool:
+    """Whether sequence parallelism splits a stack of ``length`` rows over
+    a model axis of t: on, t > 1 and t dividing the rows."""
+    return seq_parallel and t > 1 and length % t == 0
+
+
+def seq_shards(tp: Optional[Pods], length: int) -> Optional[SeqParallel]:
+    """Sequence parallelism for a stack of ``length`` rows over ``tp``, or
+    None where it does not split: the rules in force keep ``act_seq`` off
+    the model axis, or ``seq_splits`` says no."""
+    on = current_rules().lookup("act_seq") == "model"
+    if tp is None or not seq_splits(tp.n, length, on):
+        return None
+    return SeqParallel(tp)
+
+
+def _block(cfg: ModelConfig, x: torch.Tensor, norm: Dict[str, torch.Tensor],
+           fn, tp: Optional[Pods], seq: Optional[SeqParallel], split: bool):
+    """One residual block, ``x + fn(norm(x), axis)``: (x, fn's second
+    output).  Without ``seq`` as the layers always ran; with it the rows are
+    gathered for ``fn``, and a ``split`` block (whose leaves are split over
+    the axis, so ``fn`` ends in ``block_out``) reduce-scatters its output
+    through ``seq``, a replicated one keeps its shard's chunk."""
+    if seq is None:
+        out, extra = fn(apply_norm(cfg, x, norm), tp)
+        return x + out, extra
+    h = seq.norm(cfg, x, norm)
+    if split:
+        out, extra = fn(seq.gather(h), seq)
+    else:
+        out, extra = fn(seq.gather(h, partial=False), seq.tp)
+        out = seq.tp.scatter_dim(out, 1)
+    if out.shape != x.shape:
+        raise RuntimeError(f"a sequence-parallel block returned "
+                           f"{tuple(out.shape)} for rows {tuple(x.shape)}")
+    return x + out, extra
+
+
 def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
-           tp: Optional[Pods] = None) -> torch.Tensor:
+           tp: Optional[Pods] = None,
+           seq: Optional[SeqParallel] = None) -> torch.Tensor:
     if cfg.family == "encdec":
         raise ValueError(f"{cfg.name}: an encoder-decoder config runs through "
                          "forward_encdec / prefill_encdec")
@@ -209,9 +322,12 @@ def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
             rows = emb[i][local.clamp(0, Vs - 1)].to(cfg.dtype)
             inside = ((local >= 0) & (local < Vs))[..., None]
             parts.append(torch.where(inside, rows, torch.zeros_like(rows)))
-        x = tp.psum(torch.stack(parts))[0]
+        x = (tp.psum(torch.stack(parts))[0] if seq is None
+             else tp.reduce_scatter(torch.stack(parts), 1))
     else:
         x = emb[tokens.long()].to(cfg.dtype)
+        if seq is not None:
+            x = seq.tp.scatter_dim(x, 1)
     # gemma-style scale, rounded to the working dtype as the reference does
     # (for every decoder-only family, Mamba-2's included)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
@@ -227,17 +343,24 @@ def _dec_embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
 
 
 def _lm_head(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
-             tp: Optional[Pods] = None) -> torch.Tensor:
+             tp: Optional[Pods] = None,
+             seq: Optional[SeqParallel] = None) -> torch.Tensor:
     """Logits [..., V]; over a vocab-split model axis each local shard's
-    [p, ..., V/t]."""
-    x = apply_norm(cfg, x, params["final_norm"])
+    [p, ..., V/t].  ``seq``: x is the shards' rows, gathered after the
+    final norm."""
     if "lm_head" in params:
         head = params["lm_head"]
     else:
         head = params["dec_embedding" if cfg.family == "encdec"
                       else "embedding"].transpose(-1, -2)
-    if tp is not None and head.dim() == 3:
-        xin = tp.copy_in(x)
+    split = tp is not None and head.dim() == 3
+    if seq is None:
+        x = apply_norm(cfg, x, params["final_norm"])
+        xin = tp.copy_in(x) if split else None
+    else:
+        x = seq.gather(seq.norm(cfg, x, params["final_norm"]), partial=split)
+        xin = seq.block_in(x) if split else None
+    if split:
         return torch.stack([xin[i] @ head[i].to(cfg.dtype)
                             for i in range(tp.local)])
     return x @ head.to(cfg.dtype)
@@ -258,15 +381,19 @@ def gather_vocab(logits: torch.Tensor, tp: Pods) -> torch.Tensor:
 
 
 def _ffn_block(cfg: ModelConfig, lp: PyTree, x: torch.Tensor,
-               tp: Optional[Pods] = None
+               tp: Optional[Pods] = None, seq: Optional[SeqParallel] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x + the layer's FFN (dense, or the experts when the layer has
     ``moe``), and the MoE auxiliary loss (None for a dense layer)."""
-    h = apply_norm(cfg, x, lp["norm2"])
     if "moe" in lp:
-        f, aux = moe_forward(cfg, lp["moe"], h, tp)
-        return x + f, aux
-    return x + ffn_forward(cfg, lp["ffn"], h, tp), None
+        split = tp is not None and lp["moe"]["we_in"].dim() == 4
+        return _block(cfg, x, lp["norm2"],
+                      lambda h, ax: moe_forward(cfg, lp["moe"], h, ax),
+                      tp, seq, split)
+    split = tp is not None and lp["ffn"]["w_in"].dim() == 3
+    return _block(cfg, x, lp["norm2"],
+                  lambda h, ax: (ffn_forward(cfg, lp["ffn"], h, ax), None),
+                  tp, seq, split)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -336,41 +463,54 @@ def _layer(cfg: ModelConfig, g: LayerGroup, li: int, lp: PyTree,
            cache: Optional[Dict[str, torch.Tensor]] = None,
            phys_blocks: Optional[torch.Tensor] = None,
            enc_out: Optional[torch.Tensor] = None,
-           tp: Optional[Pods] = None
+           tp: Optional[Pods] = None, seq: Optional[SeqParallel] = None
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Layer ``li`` of group ``g`` over a whole sequence x [B,S,D]: (x, its
-    MoE aux loss or None).  With ``cache`` it also fills its part of the
-    group's decode state (``_run_group``)."""
+    """Layer ``li`` of group ``g`` over a whole sequence x [B,S,D] (with
+    ``seq``: the shards' rows [p, B, S/t, D]): (x, its MoE aux loss or
+    None).  With ``cache`` it also fills its part of the group's decode
+    state (``_run_group``).  Each residual block goes through ``_block``."""
     causal = g.kind != "enc_attn"
-    h = apply_norm(cfg, x, lp["norm1"])
     if g.kind in ("ssd", "rglru"):
         fwd = ssd_forward if g.kind == "ssd" else rglru_forward
-        if cache is None:
-            out = fwd(cfg, lp[g.kind], h, tp=tp)
-        else:
-            out, state = fwd(cfg, lp[g.kind], h, return_state=True, tp=tp)
+        split = tp is not None and lp[g.kind][
+            "in_proj" if g.kind == "ssd" else "rg_in"].dim() == 3
+
+        def mixer(h, ax):
+            if cache is None:
+                return fwd(cfg, lp[g.kind], h, tp=ax), None
+            out, state = fwd(cfg, lp[g.kind], h, return_state=True, tp=ax)
             _store_state(cache, li, state)
-        x = x + out
-        if g.kind == "ssd":             # an SSD layer has no FFN
-            return x, None
+            return out, None
     elif tp is not None and heads_sharded(lp["attn"]):
+        split = True
         store = (None if cache is None else
                  _store_kv_shard(cfg, g, cache, li, positions, phys_blocks))
-        x = x + attend_tp(cfg, lp["attn"], h, rope, tp, causal=causal,
-                          window=g.window, store=store)
+
+        def mixer(h, ax):
+            return attend_tp(cfg, lp["attn"], h, rope, ax, causal=causal,
+                             window=g.window, store=store), None
     else:
-        q, k, v = project_qk_rope_v(cfg, lp["attn"], h, rope)
-        a = attend(cfg, lp["attn"], q, k, v, causal=causal, window=g.window)
-        if cache is not None:
-            _store_kv(cfg, g, cache, li, k, v, positions, phys_blocks)
-        x = x + a
+        split = False
+
+        def mixer(h, ax):
+            q, k, v = project_qk_rope_v(cfg, lp["attn"], h, rope)
+            a = attend(cfg, lp["attn"], q, k, v, causal=causal,
+                       window=g.window)
+            if cache is not None:
+                _store_kv(cfg, g, cache, li, k, v, positions, phys_blocks)
+            return a, None
+    x, _ = _block(cfg, x, lp["norm1"], mixer, tp, seq, split)
+    if g.kind == "ssd":                 # an SSD layer has no FFN
+        return x, None
     if g.kind == "dec_attn":
         ck, cv = ((cache["cross_k"][li], cache["cross_v"][li])
                   if cache is not None
                   else _cross_kv(cfg, lp["cross"], enc_out, tp))
-        h = apply_norm(cfg, x, lp["norm_cross"])
-        x = x + _cross_attend(cfg, lp["cross"], h, ck, cv, tp)
-    return _ffn_block(cfg, lp, x, tp)
+        x, _ = _block(cfg, x, lp["norm_cross"],
+                      lambda h, ax: (_cross_attend(cfg, lp["cross"], h, ck,
+                                                   cv, ax), None),
+                      tp, seq, tp is not None and heads_sharded(lp["cross"]))
+    return _ffn_block(cfg, lp, x, tp, seq)
 
 
 #: the values ``remat`` takes, as in the reference's ``_run_groups``
@@ -428,10 +568,11 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                phys_blocks: Optional[torch.Tensor] = None,
                enc_out: Optional[torch.Tensor] = None,
-               tp: Optional[Pods] = None, remat=False
+               tp: Optional[Pods] = None, remat=False,
+               seq: Optional[SeqParallel] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One layer group over a whole sequence x [B,S,D]: (x, the summed MoE
-    aux loss or None).  With ``cache`` (the group's decode state) every
+    """One layer group over a whole sequence x [B,S,D] (with ``seq``: the
+    shards' rows): (x, the summed MoE aux loss or None).  With ``cache`` (the group's decode state) every
     layer also fills its part of it, in place: self-attention K/V
     (``_store_kv``), the SSD / RG-LRU state, and a decoder layer reads its
     cross K/V from it; without, a decoder layer projects ``enc_out``.
@@ -443,7 +584,8 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
     aux: Optional[torch.Tensor] = None
     for li, lp in enumerate(gp):
         args = (cfg, g, li, lp, x, positions, rope)
-        kw = dict(cache=cache, phys_blocks=phys_blocks, enc_out=enc_out, tp=tp)
+        kw = dict(cache=cache, phys_blocks=phys_blocks, enc_out=enc_out, tp=tp,
+                  seq=seq)
         if policy is not None and cache is None and _recording(x, lp):
             x, a = _rematerialised(_layer, policy, *args, **kw)
         else:
@@ -477,17 +619,21 @@ def forward_lm(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     aux is the sum of the MoE layers' auxiliary losses, zero for a dense
     config.  Over a vocab-split model axis ``tp`` the logits are the local
     shards' [p,B,S,V/t] (``gather_vocab`` joins them).  ``remat``: each
-    layer rematerialised when autograd records (``_run_group``)."""
+    layer rematerialised when autograd records (``_run_group``).  Under
+    rules that put ``act_seq`` on ``model``, Megatron sequence parallelism
+    over ``tp`` (module doc)."""
     groups = require_ported(cfg)
     tp = model_axis(tp)
-    x = _embed(cfg, params, tokens, tp)
+    seq = seq_shards(tp, tokens.shape[1])
+    x = _embed(cfg, params, tokens, tp, seq)
     positions = _positions(*tokens.shape, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for g, gp in zip(groups, params["groups"]):
-        x, a = _run_group(cfg, g, gp, x, positions, tp=tp, remat=remat)
+        x, a = _run_group(cfg, g, gp, x, positions, tp=tp, remat=remat,
+                          seq=seq)
         if a is not None:
             aux = aux + a
-    return _lm_head(cfg, params, x, tp), aux
+    return _lm_head(cfg, params, x, tp, seq), aux
 
 
 # --------------------------------------------------------------------------- enc-dec
@@ -519,15 +665,23 @@ def _encode(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
     its type promotion then carries the whole encoder in float32, each
     product on weights rounded to ``cfg.dtype``.  The port computes the
     same: the encoder's layers under a float32 config, on its matrices
-    rounded once.  ``tp``: the model axis; ``remat``: as ``_run_group``'s."""
+    rounded once.  ``tp``: the model axis; ``remat``: as ``_run_group``'s.
+    Under sequence parallelism the frames split over ``tp`` between blocks
+    where t divides them, gathered whole after the final norm."""
     B, Se, _ = enc_feats.shape
     g = require_ported(cfg)[0]
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     x = (enc_feats.to(cfg.dtype).float()
          + _sinusoids(Se, cfg.d_model, enc_feats.device)[None])
+    seq = seq_shards(model_axis(tp), Se)
+    if seq is not None:
+        x = seq.tp.scatter_dim(x, 1)
     x, _ = _run_group(cfg32, g, _round_weights(params["groups"][0], cfg.dtype),
-                      x, _positions(B, Se, x.device), tp=tp, remat=remat)
-    return apply_norm(cfg32, x, params["enc_norm"])
+                      x, _positions(B, Se, x.device), tp=tp, remat=remat,
+                      seq=seq)
+    if seq is None:
+        return apply_norm(cfg32, x, params["enc_norm"])
+    return seq.gather(seq.norm(cfg32, x, params["enc_norm"]), partial=False)
 
 
 def forward_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
@@ -536,15 +690,19 @@ def forward_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
     """Whisper-style: enc_feats [B,Se,D] (frontend stub), dec_tokens [B,Sd]
     -> (logits [B,Sd,V], aux (zero: no MoE)).  ``tp``: the model axis;
     ``remat``: the encoder's and the decoder's layers rematerialised when
-    autograd records, as the reference wraps both groups."""
+    autograd records, as the reference wraps both groups.  Under sequence
+    parallelism each stack splits where t divides its length."""
     dec_g = require_ported(cfg)[1]
     tp = model_axis(tp)
     enc_out = _encode(cfg, params, enc_feats, tp, remat)
     positions = _positions(*dec_tokens.shape, dec_tokens.device)
+    seq = seq_shards(tp, dec_tokens.shape[1])
     y = _dec_embed(cfg, params, dec_tokens, positions)
+    if seq is not None:
+        y = seq.tp.scatter_dim(y, 1)
     y, _ = _run_group(cfg, dec_g, params["groups"][1], y, positions,
-                      enc_out=enc_out, tp=tp, remat=remat)
-    return (_lm_head(cfg, params, y),
+                      enc_out=enc_out, tp=tp, remat=remat, seq=seq)
+    return (_lm_head(cfg, params, y, seq=seq),
             torch.zeros((), dtype=torch.float32, device=y.device))
 
 
@@ -557,8 +715,9 @@ def prefill_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
     self-attention K/V scattered into the paged slabs through the block
     table).  The caches of ``state`` (made with ``enc_len`` = Se) are
     written in place.  ``tp``: the model axis (each shard's cross K/V into
-    its split cache, or into its kv heads of the replicated one).  Returns
-    (logits of the last position [B,V], state)."""
+    its split cache, or into its kv heads of the replicated one); sequence parallelism
+    as ``forward_encdec``'s.  Returns (logits of the last position [B,V],
+    state)."""
     dec_g = require_ported(cfg)[1]
     tp = model_axis(tp)
     dec_cache, dp = state.caches[1], params["groups"][1]
@@ -574,10 +733,14 @@ def prefill_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
                 _kv_of(cache, i, ShardHeads(cfg, lp["cross"], shard)).copy_(kv[i])
     B, Sd = dec_tokens.shape
     positions = _positions(B, Sd, dec_tokens.device)
+    seq = seq_shards(tp, Sd)
     y = _dec_embed(cfg, params, dec_tokens, positions)
+    if seq is not None:
+        y = seq.tp.scatter_dim(y, 1)
     y, _ = _run_group(cfg, dec_g, dp, y, positions, cache=dec_cache,
-                      phys_blocks=phys_blocks, tp=tp)
-    logits = _lm_head(cfg, params, y[:, -1])
+                      phys_blocks=phys_blocks, tp=tp, seq=seq)
+    logits = _lm_head(cfg, params, y[:, -1] if seq is None
+                      else seq.last_rows(y))
     seq_lens = torch.full((B,), Sd, dtype=torch.int32, device=y.device)
     return logits, DecodeState(state.caches, seq_lens)
 
@@ -607,8 +770,8 @@ def lm_loss(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor],
     for an encoder-decoder), optionally ``mask`` [B,S+1] (position 0 is
     dropped with the inputs).  ``tp``: the model axis (the log-softmax over
     vocab shards, never gathered); ``remat``: each layer rematerialised
-    (``_run_group``; the reference's default).  Returns (total, {loss, aux,
-    tokens})."""
+    (``_run_group``; the reference's default); sequence parallelism as
+    ``forward_lm``'s.  Returns (total, {loss, aux, tokens})."""
     tokens = batch["tokens"]
     tp = model_axis(tp)
     if cfg.family == "encdec":
@@ -787,17 +950,20 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     the caches of ``state`` (in place): K/V scattered into the slabs through
     the block table, or the last ``min(S, W)`` tokens into a ring rebuilt
     from zeros, or the SSD / RG-LRU state after the prompt.  ``tp``: the
-    model axis, as for ``decode_step``.  Returns (logits of the last
-    position [B,V], new state)."""
+    model axis, as for ``decode_step``; sequence parallelism as
+    ``forward_lm``'s (the caches and the logits are the same).
+    Returns (logits of the last position [B,V], new state)."""
     B, S = tokens.shape
     tp = model_axis(tp)
-    x = _embed(cfg, params, tokens, tp)
+    seq = seq_shards(tp, S)
+    x = _embed(cfg, params, tokens, tp, seq)
     positions = _positions(B, S, tokens.device)
     for g, gp, cache in zip(require_ported(cfg), params["groups"],
                             state.caches):
         x, _ = _run_group(cfg, g, gp, x, positions, cache=cache,
-                          phys_blocks=phys_blocks, tp=tp)
-    logits = _lm_head(cfg, params, x[:, -1], tp)
+                          phys_blocks=phys_blocks, tp=tp, seq=seq)
+    logits = _lm_head(cfg, params, x[:, -1] if seq is None
+                      else seq.last_rows(x), tp)
     seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return logits, DecodeState(state.caches, seq_lens)
 

@@ -12,8 +12,10 @@ of the same step (products exactly, attention by its dense formula, as the
 plain versions compute it on the CPU), the model axis's wire bytes against
 ``LoopPods``' counters; per-device bytes summed from each meta cell's
 tensors against the count from the config's widths, for all 33 cells on
-one pod and on two; the dry run's command line, one device's cut of a
-cell, and the refusals of ``fused_ref`` and ``seq_parallel``.
+one pod and on two; the dry run's command line and its table, one
+device's cut of a cell, the refusal of ``fused_ref``, and the cells of
+every option case (``seq_parallel`` among them), whose smoke cells count
+what they move.
 """
 from __future__ import annotations
 
@@ -284,23 +286,61 @@ def test_torch_dryrun_command_writes_the_cell(tmp_path, capsys):
     assert saved["device_bytes"] == pytest.approx(roof["per_device_bytes"])
 
 
-def test_torch_dryrun_refusals():
+def test_torch_dryrun_refusals(tmp_path, capsys):
     """``fused_ref`` models the Pallas kernel's streaming (the port decodes
-    with K1); Megatron sequence parallelism is ROADMAP slice 16.2b."""
+    with K1).  Megatron sequence parallelism builds: its cell on the meta
+    device, the dry run's cell file tagged ``sp``, and a smoke cell whose
+    model axis counts on the CPU what ``model_wire`` says; ``--table``
+    prints the cells' roofline rows and writes them as ``roofline.csv``."""
     grid = make_debug_mesh(1, device="meta")
     shape = tconfigs.SHAPES["decode_32k"]
     with pytest.raises(ValueError, match="K1"):
         specs.build_cell("yi_6b", shape, grid,
                          opts=specs.PerfOptions(decode_kernel="fused_ref"))
-    with pytest.raises(NotImplementedError, match="16.2b"):
-        specs.build_cell("yi_6b", shape, grid,
-                         opts=specs.PerfOptions(seq_parallel=True))
-    with pytest.raises(NotImplementedError, match="16.2b"):
-        dryrun.main(["--arch", "yi_6b", "--shape", "train_4k",
-                     "--seq-parallel"])
+    cell = specs.build_cell("yi_6b", shape, grid,
+                            opts=specs.PerfOptions(seq_parallel=True))
+    assert cell.seq_split == {"decoder": False}
+    dryrun.main(["--arch", "yi_6b", "--shape", "train_4k", "--seq-parallel",
+                 "--out", str(tmp_path)])
+    saved = json.loads((tmp_path / "yi_6b__train_4k__pod16x16__sp.json")
+                       .read_text())
+    assert saved["mesh"] == "pod16x16__sp"
+    dryrun.main(["--table", "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "pod16x16__sp" in out and "roofline_frac" in out
+    assert (tmp_path / "roofline.csv").read_text().count("\n") == 2
+    grid, cell = _smoke_cell("yi_6b", "train", 2, seq_parallel=True)
+    assert cell.seq_split == {"decoder": True}
+    grid.model.reset_counters()
+    cell.step_fn(*cell.args)
+    assert grid.model.calls["reduce_scatter"] > 0
+    assert grid.model.wire_bytes == analysis.model_wire(cell)
     with pytest.raises(ValueError, match="K1"):
         dryrun.main(["--arch", "yi_6b", "--shape", "decode_32k",
                      "--decode-kernel", "fused_ref"])
+
+
+@pytest.mark.parametrize("kw", OPTIONS)
+def test_torch_option_cells_build(kw):
+    """Every option case builds its cells on the production grid (one pod
+    and two), but ``fused_ref``, which the port refuses; the SP cells split
+    their train and prefill stacks, never a decode step's."""
+    opts = specs.PerfOptions(**kw)
+    for pods in (1, 2):
+        grid = dryrun.production_grid(multi_pod=pods == 2)
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            if kw.get("decode_kernel") == "fused_ref":
+                with pytest.raises(ValueError, match="K1"):
+                    specs.build_cell("yi_6b", tconfigs.SHAPES[shape], grid,
+                                     opts=opts)
+                continue
+            cell = specs.build_cell("yi_6b", tconfigs.SHAPES[shape], grid,
+                                    opts=opts)
+            assert cell.seq_split == {"decoder": bool(
+                opts.seq_parallel and shape != "decode_32k")}
+            r = analysis.roofline(cell)
+            assert r.mesh.endswith(opts.tag()) or opts.tag() == "base"
+            assert r.bound_s > 0
 
 
 def test_torch_card_cell_names_its_cuts():

@@ -258,17 +258,6 @@ def test_torch_init_params_shapes_types_and_statistics():
     assert torch.equal(bf16["embedding"], params["embedding"].to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(attn_logit_softcap=30.0), "item 11"),
-])
-def test_torch_unported_configs_raise(change, item):
-    cfg = dataclasses.replace(tconfigs.get_smoke_config("yi_6b"), **change)
-    with pytest.raises(NotImplementedError, match=item):
-        require_ported(cfg)
-    with pytest.raises(NotImplementedError):
-        tm.init_params(cfg, torch.Generator(device="cpu"))
-
-
 def test_torch_windowed_config_is_ported():
     """Local-window attention (ROADMAP item 10) no longer raises: a
     local : global pattern passes ``require_ported``, and its parameters and

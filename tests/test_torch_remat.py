@@ -256,9 +256,9 @@ def test_torch_remat_recomputes_k2_forward_with_its_lse(monkeypatch):
     calls = []
     forward = flash_ops._forward
 
-    def counted(q, k, v, causal, window, with_lse):
+    def counted(q, k, v, causal, window, with_lse, **kw):
         calls.append(with_lse)
-        return forward(q, k, v, causal, window, with_lse)
+        return forward(q, k, v, causal, window, with_lse, **kw)
 
     monkeypatch.setattr(flash_ops, "_forward", counted)
     for m, per_layer in ((False, 1), ("full", 2), ("dots", 2)):
