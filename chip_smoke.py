@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases cap     # the logit soft-cap at full width
     python3 chip_smoke.py --phases kernels,multipod   # the pod axis
     python3 chip_smoke.py --phases kernels,model_axis # the in-pod model axis
+    python3 chip_smoke.py --phases model_axis_options # its part F alone
     python3 chip_smoke.py --phases kernels,numa_sim   # the NUMA simulator
     python3 chip_smoke.py --phases kernels,cells      # the dry run's cells
     python3 chip_smoke.py --phases profile # where a decode step's time goes
@@ -60,7 +61,11 @@ and the script exits non-zero):
             K1's per-row log-sum-exp (``lse``) against the plain version's
             (within 1e-5, both dtypes, a dead row, shard-local lengths past
             either end of a shard, with and without a window, one split and
-            many), timed at the sequence-parallel shard shape.  K3 in its
+            many), timed at the sequence-parallel shard shape; and with
+            ``kv_heads`` as well (a model shard's SP launch at model 2: q
+            [1,20,128] on kv heads 4-7 of a pool, timed), and K1 on a
+            shard's kv heads of 4 pools flattened through pool-global tables
+            (Qwen3-14B at model 2 over 4 pools, timed).  K3 in its
             three coherence roles (eager's gathered drain, numaPTE's
             sharer-filtered drain, the owners' window walk and the install
             of the fetched windows) at the serving geometry (64 tables x 512,
@@ -168,7 +173,19 @@ and the script exits non-zero):
             the path implies and its model-axis bytes equal to
             ``analysis.model_wire`` of its cell, and at 2 layers the first
             gradients equal but for the norm scales' (within
-            SP_GRAD_TOL_REL)
+            SP_GRAD_TOL_REL).  F (slice 16.1c; ``--phases
+            model_axis_options`` runs it alone): F1 part A over 4 KV pools
+            on 4 pods (the model axis's bytes a step equal to
+            ``analysis.model_wire``); F2 part B's 32 768-token context
+            decoded SP over 4 pools at model 2 (each shard's heads, K1 with
+            kv_heads and the LSE), held to model 1's SP decode (0.03) and
+            to the one-pool decode (SP2_REL, at most SP["max_flips"] flips
+            at near-ties); F3 data 2 x model 2 beside data 1 x model 2
+            (Gemma-3-4B, RecurrentGemma-2B, Mamba-2 in float32, Whisper-base;
+            part D's bounds, bit-equality read); F4 the families' train
+            cells at model 2 beside model 1 (FAMILY_TRAIN: losses within
+            MODEL_TRAIN_LOSS_TOL, step ms, peak GB, K2 / K2-backward
+            launches; the MoE config follows model 1's expert ids)
   numa_sim  the NUMA simulator (``repro_torch.core``, host protocol in numpy)
             with pass 1 of its batch engine on the fifo_miss kernel: fig08's
             five apps x three policies at its full settings with --scale 16
@@ -268,7 +285,7 @@ from repro_torch.models import (active_param_count,  # noqa: E402
                                 decode_step, forward_lm, greedy_sample,
                                 init_decode_state, init_params, layer_groups,
                                 lm_loss, param_count, prefill, prefill_encdec)
-from repro_torch.models.transformer import DecodeState, gather_vocab  # noqa: E402
+from repro_torch.models.transformer import gather_vocab  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.pagedpt import coherence  # noqa: E402
 from repro_torch.pagedpt.blocktable import (CoherenceMode,  # noqa: E402
@@ -1217,12 +1234,12 @@ def walk_device_ops():
 # ------------------------------------------------------ K1's log-sum-exp
 def paged_lse(fn):
     """``fn`` (the kernel's wrapper or the plain version) returning (out,
-    lse [B,H])."""
-    def run(q, ks, vs, tables, lens, *, window):
+    lse [B,H]); keywords (``window``, ``kv_heads``) passed on."""
+    def run(q, ks, vs, tables, lens, **kw):
         if fn is paged_attention:
             lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-            return fn(q, ks, vs, tables, lens, window=window, lse=lse), lse
-        return fn(q, ks, vs, tables, lens, window=window, return_lse=True)
+            return fn(q, ks, vs, tables, lens, lse=lse, **kw), lse
+        return fn(q, ks, vs, tables, lens, return_lse=True, **kw)
     return run
 
 
@@ -1385,6 +1402,90 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+# sequence-parallel decode at model 2 (part F2): shard 1's 20 query heads
+# on kv heads 4-7 of one pool's 512 columns of the 32 768-token context
+SP_SHARD_MODEL = (1, 20, 8, 128, 16, 512, 512)
+
+
+def lse_shard_cases():
+    """K1 with ``kv_heads`` and ``lse`` together, as a model shard's
+    sequence-parallel decode launches it: the shard shape at a whole pool's
+    length, past its end, before its start and within it under a window,
+    both head ranges, and Qwen3-14B's serving shape at model 2 with a dead
+    row, both dtypes."""
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for heads in ((4, 4), (0, 4)):
+            for lens, window in (([8192], None), ([8192 + 3000], None),
+                                 ([-77], None), ([900], 4096)):
+                (q, ks, vs, tables, _), kw = paged_case(
+                    *SP_SHARD_MODEL, window, dt, lens=[8192], kv_heads=heads)
+                lens = torch.tensor(lens, dtype=torch.int32, device=DEV)
+                cases.append(((q, ks, vs, tables, lens), kw))
+        cases.append(paged_case(16, 20, 8, 128, 16, 69, 4416, None, dt,
+                                lens=np.full(16, 1057), dead_row=True,
+                                kv_heads=(4, 4)))
+    return cases
+
+
+def check_lse_shard() -> dict:
+    """``lse_shard_cases`` against the plain version: the output within
+    K1's bound, the LSE within ``LSE_TOL``, dead rows alike."""
+    kern, ref = paged_lse(paged_attention), paged_lse(paged_attention_ref)
+    errs = {"out": 0.0, "lse": 0.0}
+    for args, kw in lse_shard_cases():
+        (out, lse), (want, want_lse) = kern(*args, **kw), ref(*args, **kw)
+        torch.cuda.synchronize()
+        e_out, e_lse = max_err(out, want), max_err(lse, want_lse)
+        check(e_out <= TOL["paged_attention"] and e_lse <= LSE_TOL,
+              f"K1 with kv_heads {kw['kv_heads']} and lse {tuple(args[0].shape)} "
+              f"lens {args[4].tolist()[:4]} {args[0].dtype}: out {e_out}, "
+              f"lse {e_lse}")
+        check(bool(((want_lse == NEG_INF) == (lse == NEG_INF)).all()),
+              "K1's lse with kv_heads marks other rows dead")
+        errs = {"out": max(errs["out"], e_out), "lse": max(errs["lse"], e_lse)}
+    return {"cases": len(lse_shard_cases()), "max_abs_err_out": errs["out"],
+            "max_abs_err_lse": errs["lse"], "tolerance_lse": LSE_TOL}
+
+
+def phase_kernels_lse_shard() -> dict:
+    """``check_lse_shard``, then timed at the SP model-shard shape."""
+    out = check_lse_shard()
+    args, kw = paged_case(*SP_SHARD_MODEL, None, torch.bfloat16, lens=[8192],
+                          kv_heads=(4, 4))
+    return {**out, **timed(paged_lse(paged_attention),
+                           paged_lse(paged_attention_ref), paged_lse_bound,
+                           paged_library, args, kw)}
+
+
+# Qwen3-14B at model 2 over 4 KV pools (part F1): 16 rows, 4 a pool, each
+# row's 69 frames in its pool of 1 104, the pools flattened
+POOLED_SHARD = (16, 20, 8, 128, 16, 69, 4416)
+POOLS = 4
+
+
+def pooled_shard_case(dtype, dead_row=False):
+    """Shard 1's 20 query heads on kv heads 4-7 of the replicated pooled
+    slab, flattened [4 x 1 104, 16, 8, 128]: tables of pool-local frames
+    made global by ``kvcache.gather.pooled_tables``, as
+    ``attn_decode_paged_tp`` makes them."""
+    (q, ks, vs, _, lens), kw = paged_case(*POOLED_SHARD, None, dtype,
+                                          lens=np.full(16, 1057),
+                                          kv_heads=(4, 4))
+    B, _, _, _, _, MB, N = POOLED_SHARD
+    f_local, per = N // POOLS, B // POOLS
+    local = np.full((B, MB), -1, np.int32)
+    for pool in range(POOLS):
+        frames = RNG.permutation(f_local)
+        for j in range(per):
+            local[pool * per + j] = frames[j * MB:(j + 1) * MB]
+    if dead_row:
+        local[-1] = -1
+    tables = kv_gather.pooled_tables(torch.from_numpy(local).to(DEV), POOLS,
+                                     f_local)
+    return (q, ks, vs, tables, lens), kw
+
+
 def phase_kernels():
     f32, bf16 = torch.float32, torch.bfloat16
     both = (f32, bf16)
@@ -1502,6 +1603,10 @@ def phase_kernels():
     paged += [paged_case(16, 20, 8, 128, 16, 69, 4416, None, dt,
                          lens=np.full(16, 1057), kv_heads=(4, 4)) for dt in both]
     flash += [flash_case(4, 20, 4, 1024, 128, True, None, dt) for dt in both]
+    # the model axis over 4 KV pools: a shard's kv heads of the flattened
+    # pools through pool-global tables, with and without a dead row
+    paged += [pooled_shard_case(dt, dead_row=dead) for dt in both
+              for dead in (False, True)]
     # RecurrentGemma-2B's local layers (10 query heads on one kv head, G =
     # 10, head_dim 256, window 2 048, prompt 4 096)
     flash += [flash_case(4, 10, 1, 4096, 256, True, 2048, dt) for dt in both]
@@ -1547,6 +1652,9 @@ def phase_kernels():
             kv_heads=(2, 2)),
         "flash_attention/qwen3_moe_model_shard": flash_case(
             16, 32, 2, 1024, 128, True, None, bf16),
+        # Qwen3-14B at model = 2 over 4 KV pools (part F1): shard 1's kv
+        # heads 4-7 of the pools flattened
+        "paged_attention/qwen3_14b_pooled_model_shard": pooled_shard_case(bf16),
         "pte_gather": pte_case(64, 512, 16 * 69, 3, logical=np.where(
             np.arange(16 * 69) % 69 < 67,
             (np.arange(16 * 69) // 69) * 512 + np.arange(16 * 69) % 69, -1)),
@@ -1560,7 +1668,8 @@ def phase_kernels():
     # timed sub-dicts of a row, each also checked as a case
     subs = {"paged_attention": ["long_context", "gemma3_4b", "qwen3_moe",
                                 "kimi_k2", "whisper_decoder",
-                                "qwen3_14b_model_shard", "qwen3_moe_model_shard"],
+                                "qwen3_14b_model_shard", "qwen3_moe_model_shard",
+                                "qwen3_14b_pooled_model_shard"],
             "flash_attention": ["gemma3_4b_local", "gemma3_4b_global",
                                 "qwen3_moe", "kimi_k2", "whisper_encoder",
                                 "recurrentgemma_local", "qwen3_14b_model_shard",
@@ -1610,6 +1719,7 @@ def phase_kernels():
             row[sub] = timed(fn, ref, bound, library, *main[f"{name}/{sub}"])
         if name == "paged_attention":
             row["lse"] = phase_kernels_lse()
+            row["lse_model_shard"] = phase_kernels_lse_shard()
         if name == "pte_gather":
             row["coherence"] = coherence_roles()
             # the list applied again leaves the table as it is: timing the
@@ -1812,8 +1922,10 @@ def whisper_serve(cfg, params, *, batch, enc_len, prompt_len, gen_len,
     the prefill's greedy token.  No warm-up: the kernels are built and the
     GEMM library warm by the time this runs.  ``grid``: its model axis runs
     the model (``params`` split over it, the caches as its rules place
-    them); ``keep_logits`` adds every step's logits (``logits``, a list on
-    the card)."""
+    them) and its data axis the rows (``prefill_encdec_on_grid`` /
+    ``decode_on_grid``: each shard's cross K/V rows its own);
+    ``keep_logits`` adds every step's logits (``logits``, a list on the
+    card)."""
     tp = None if grid is None or grid.model.n == 1 else grid.model
     bt = cfg.kv_block_tokens
     max_blocks = -(-(prompt_len + gen_len) // bt) + 1
@@ -1840,8 +1952,11 @@ def whisper_serve(cfg, params, *, batch, enc_len, prompt_len, gen_len,
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (batch, prompt_len))).to(DEV)
         t_wave = time.perf_counter()
-        logits, st = prefill_encdec(cfg, params, feats, prompts, state,
-                                    kv.physical_tables(active), tp=tp)
+        phys = kv.physical_tables(active)
+        logits, st = (prefill_encdec(cfg, params, feats, prompts, state, phys,
+                                     tp=tp) if grid is None else
+                      specs.prefill_encdec_on_grid(cfg, params, feats, prompts,
+                                                   state, phys, grid))
         torch.cuda.synchronize()
         t_prefilled = time.perf_counter()
         finite &= torch.isfinite(logits[:len(wave)]).all()
@@ -1851,7 +1966,10 @@ def whisper_serve(cfg, params, *, batch, enc_len, prompt_len, gen_len,
             for sid in wave:
                 kv.maybe_extend(sid, prompt_len + t + 1)
             phys = kv.physical_tables(active, record=(t % 4 == 0))
-            logits, st = decode_step(cfg, params, st, tokens, phys, tp=tp)
+            logits, st = (decode_step(cfg, params, st, tokens, phys, tp=tp)
+                          if grid is None else
+                          specs.decode_on_grid(cfg, params, st, tokens, phys,
+                                               grid))
             if keep_logits:
                 kept.append(logits)
             finite &= torch.isfinite(logits[:len(wave)]).all()
@@ -2745,7 +2863,7 @@ def multipod_sp(params) -> dict:
             sp.caches[0][name][:, s] = \
                 one.caches[0][name][:, phys[0, s * MBl:(s + 1) * MBl].long()]
     local = (torch.arange(MB, device=DEV) % MBl).to(torch.int32)[None]
-    sp = DecodeState(sp.caches, one.seq_lens.clone())
+    sp = sp._replace(seq_lens=one.seq_lens.clone())
     pods = LoopPods(n, DEV)
     fed, sp_logits = [], []
 
@@ -3016,18 +3134,25 @@ def first_flips(ids1, ids2, top1, top2):
     return flips
 
 
-def model_axis_serve() -> dict:
+def model_axis_serve(pools: int = 1) -> dict:
     """A: ``serve()`` of Qwen3-14B at model = 1 and at model = 2 (the same
     seeded bf16 weights, split by ``shard_params`` after the first run has
     let its copy go: both at once would need 59 GB beside the slabs), the
     same prompts.  The first decode step's logits within 0.03, tokens equal
     but for first flips at near-ties (model = 1's margin no larger than
     the first step's largest logit difference), K1 and K2 once a shard a
-    layer, K3 as at model = 1."""
+    layer, K3 as at model = 1.  F1 (``pools`` = 4): both runs over 4 KV
+    pools on 4 pods (each row's frames in its pod's pool; at model 2 each
+    shard's kv heads of the pooled slab), the model axis's bytes a step
+    against ``analysis.model_wire`` of the decode cell."""
     t_part = time.perf_counter()
     cfg = get_config("qwen3_14b")
     traffic = {k: MODEL_SERVE[k] for k in ("batch", "prompt_len", "gen_len",
                                            "n_requests", "n_pods", "mode")}
+    tag = "model_axis_serve"
+    if pools > 1:
+        traffic.update(n_pods=pools, n_pools=pools)
+        tag = "model_axis_pooled"
     t = MODEL_SERVE["model"]
     runs, rows = {}, {}
     for model in (1, t):
@@ -3056,9 +3181,20 @@ def model_axis_serve() -> dict:
               f"{want}; LSE writes {lse}")
         check(r["logits_finite"] and r["tokens"] == traffic["n_requests"]
               * traffic["gen_len"], f"model {model}: {r['tokens']} tokens")
-        runs[f"model_axis_serve_{model}"] = (counts, want)
+        runs[f"{tag}_{model}"] = (counts, want)
         rows[model] = r
     one, two = rows[1], rows[t]
+    extra = {}
+    if pools > 1:
+        cell = specs.build_cell("qwen3_14b", tconfigs.ShapeSpec(
+            "decode_f1", traffic["prompt_len"], traffic["batch"], "decode"),
+            make_debug_mesh(1, model=t, device="meta"), cfg=cfg)
+        wire = analysis.model_wire(cell)
+        check(two["model_wire_bytes_per_step"] == wire,
+              f"F1: {two['model_wire_bytes_per_step']} model-axis bytes a "
+              f"step, analysis.model_wire {wire}")
+        extra = {"model_wire_bytes_per_step_analytic": wire,
+                 "n_pools": pools, "kv_layout_model_2": two["kv_layout"]}
     first_err = float(np.abs(two["first_logits"] - one["first_logits"]).max())
     first_rel = first_err / float(np.abs(one["first_logits"]).max())
     flips = first_flips(one["token_ids"], two["token_ids"],
@@ -3078,9 +3214,9 @@ def model_axis_serve() -> dict:
     keep = ("prefill_ms", "decode_step_ms", "tok_per_s", "peak_mem_gb",
             "model_wire_bytes_per_step", "model_calls", "kv_layout",
             "fetches", "invalidations_sent")
-    emit({"phase": "model_axis_serve", "arch": "qwen3_14b",
+    emit({"phase": tag, "arch": "qwen3_14b",
           "widths": "published", "layers": cfg.n_layers, **MODEL_SERVE,
-          "grid": {"pod": 1, "data": 1, "model": t},
+          **traffic, **extra, "grid": {"pod": 1, "data": 1, "model": t},
           "logits_traced": "every step's top-k is gathered for the flip "
                            "check; its bytes are not counted as the step's",
           "first_step_logits_rel_err": first_rel,
@@ -3089,7 +3225,7 @@ def model_axis_serve() -> dict:
           "decisions_compared": compared, "flips": len(flips),
           "flip_share": len(flips) / compared,
           "flip_margins_model1": sorted(f["margin_model1"] for f in flips),
-          "first_flips": flips, "launches": {m: runs[f"model_axis_serve_{m}"][0]
+          "first_flips": flips, "launches": {m: runs[f"{tag}_{m}"][0]
                                              for m in (1, t)},
           "model_1": {k: one.get(k) for k in keep},
           f"model_{t}": {k: two.get(k) for k in keep},
@@ -3364,13 +3500,14 @@ def serve_models(arch, cfg, params, traffic, t, routes, tag=""):
     return rows, runs, params
 
 
-def held_to_model_one(arch, one, two, t, gen_len) -> dict:
+def held_to_model_one(arch, one, two, t, gen_len, what=None) -> dict:
     """The first decode step's logits of model = t against model = 1's, and
     the first flip of each row whose tokens differ: each must be at a
     near-tie, model = 1's margin between the two tokens no larger than
     twice the first step's largest logit difference (each of the two logits
     moves by up to it), and the flips at most ``max_flip_share`` of the
-    compared decisions."""
+    compared decisions.  ``what`` names the run held (default model t)."""
+    what = what or f"model {t}"
     first_err = float(np.abs(two["first_logits"] - one["first_logits"]).max())
     first_rel = first_err / float(np.abs(one["first_logits"]).max())
     noise = 2 * first_err
@@ -3381,9 +3518,9 @@ def held_to_model_one(arch, one, two, t, gen_len) -> dict:
               for f in flips]
     equal_rows = int((one["token_ids"] == two["token_ids"]).all(axis=1).sum())
     compared = int(sum(f["step"] + 1 for f in flips) + equal_rows * gen_len)
-    check(first_rel <= 0.03, f"{arch} model {t}: first-step logits rel {first_rel}")
+    check(first_rel <= 0.03, f"{arch} {what}: first-step logits rel {first_rel}")
     check(all(at_tie) and len(flips) <= FAMILIES["max_flip_share"] * compared,
-          f"{arch} model {t}: token flips {flips} in {compared} compared "
+          f"{arch} {what}: token flips {flips} in {compared} compared "
           f"decisions (at most a share {FAMILIES['max_flip_share']}, each at "
           f"a margin <= {noise})")
     return {"first_step_logits_rel_err": first_rel,
@@ -3705,12 +3842,436 @@ def model_axis_sp() -> dict:
     return runs
 
 
+# F: the grid's options of slice 16.1c at published widths.  F1 is part A
+# over 4 KV pools (``model_axis_serve(pools=POOLS)``).  F2: part B's context
+# decoded sequence-parallel at model 2.  F3: the data axis over the caches
+# held a row, data 2 x model 2 beside data 1 x model 2, part D's archs,
+# depths and bounds (Mamba-2 held in float32, as in D), one wave of part D's
+# traffic (cut from two: both runs serve the same rows).  F4: the other
+# families' train steps at model 2 beside model 1, each a train cell on the
+# card (float32 weights and AdamW from seed 0, remat "full" as the
+# reference's step), 4 steps on one batch of 4 x 1 024 (Whisper: 1 500
+# frames); depth cut where the float32 weights, their gradients and AdamW's
+# moments would not fit the card: Gemma-3-4B 8 of 34, Qwen3-235B-A22B 1 of 94
+# (one MoE layer: 9.7 GB of float32 experts; it fits only with AdamW's
+# update in chunks, read 74.5 GB at model 2), Kimi-K2 1 of 61 (its dense
+# first layer: one MoE layer's 17 B float32 parameters need 68 GB before
+# AdamW), RecurrentGemma-2B 13 of 26.  Mamba-2 is held in float32 (read in
+# bf16: 5.5e-3 at the 4th step, its random-weight model amplifying the order
+# of the roundings, as in part D)
+# F2's model 2 against the one-pool decode carries both of its differences,
+# the model axis's (part A's bound 0.03) and SP's (part B's 0.03; part B
+# reads 0.0266): their sum, set after the first reading, 0.0302
+SP2_REL = 0.06
+DATA_AXIS = dict(archs={"gemma3_4b": None, "recurrentgemma_2b": None,
+                        "mamba2_370m": None},
+                 data=2, model=2, n_requests=16,
+                 held_in_float32=("mamba2_370m",))
+FAMILY_TRAIN = dict(archs={"gemma3_4b": 8, "qwen3_moe_235b_a22b": 1,
+                           "kimi_k2_1t_a32b": 1, "mamba2_370m": None,
+                           "recurrentgemma_2b": 13, "whisper_base": None},
+                    batch=4, seq=1024, enc_frames=1500, steps=4, model=2,
+                    remat="full", loss_tol=MODEL_TRAIN_LOSS_TOL,
+                    held_in_float32=("mamba2_370m",))
+
+
+@torch.no_grad()
+def model_axis_sp_decode() -> dict:
+    """F2: part B's context (Qwen3-14B, 32 768 tokens, one row) prefilled
+    into one pool and moved into the SP column layout over 4 pools, then
+    decoded sequence-parallel over ``make_debug_mesh(4)`` at model 1 (its
+    own greedy tokens), the one-pool decode fed the same tokens, and at
+    model 2 (the weights split in place; each shard's heads over the pools,
+    K1 with ``kv_heads`` and the LSE, each shard's partials combined) fed
+    them too, each SP run from a copy of the moved state.  Model 2 is held
+    to model 1's SP decode within part A's rel 0.03, and to the one-pool
+    decode as part B holds model 1 (at most ``SP["max_flips"]`` flips, each
+    at a near-tie) within ``SP2_REL`` (both differences at once); one
+    layer's SP attention at model 2 timed beside model 1's."""
+    t_part = time.perf_counter()
+    cfg = get_config("qwen3_14b")
+    t = FAMILIES["model"]
+    bt, n, steps = cfg.kv_block_tokens, SP["shards"], SP["steps"]
+    MB = SP["context"] // bt
+    MBl = MB // n
+    release()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         param_dtype=cfg.dtype)
+    torch.cuda.reset_peak_memory_stats()
+    kv = PagedKVManager(n_frames=MB, block_tokens=bt, max_blocks_per_seq=MB,
+                        n_pods=n, device=DEV)
+    kv.start_sequence(0, SP["context"])
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, SP["context"] - steps))).to(DEV, torch.int32)
+    reset_counters()
+    phys = kv.physical_tables([0])
+    one = init_decode_state(cfg, 1, MB, MB)
+    logits, one = prefill(cfg, params, prompt, one, phys)
+    moved = init_decode_state(cfg, 1, MB, MB, n_pools=n)
+    for name in ("k_slabs", "v_slabs"):
+        for s_ in range(n):
+            moved.caches[0][name][:, s_] = \
+                one.caches[0][name][:, phys[0, s_ * MBl:(s_ + 1) * MBl].long()]
+    moved = moved._replace(seq_lens=one.seq_lens.clone())
+    local = (torch.arange(MB, device=DEV) % MBl).to(torch.int32)[None]
+    first = greedy_sample(logits)
+
+    def sp_decode(grid, feed=None):
+        """SP decode over ``grid`` from a copy of the moved state, fed
+        ``feed`` (or its own greedy tokens): its logits, whole, and the
+        tokens fed."""
+        st = moved._replace(caches=tuple({k: v.clone() for k, v in c.items()}
+                                         for c in moved.caches))
+        kept = []
+
+        def keep(lg):
+            whole = gather_vocab(lg, grid.model) if lg.dim() == 3 else lg
+            kept.append(whole.float())
+            return greedy_sample(whole)
+
+        step = specs.build_serve_step(cfg, sp=True, pods=grid, sample=keep)
+        tok, fed = first, []
+        for i in range(steps):
+            tok = tok if feed is None else feed[i]
+            fed.append(tok)
+            tok, st = step(params, st, tok, local)
+        torch.cuda.synchronize()
+        return kept, fed
+
+    runs = {}
+    grid1 = make_debug_mesh(n, device=DEV)
+    l1, fed = sp_decode(grid1)
+    counts = counts_now()
+    want = uncapped({"paged_attention": cfg.n_layers * n * steps,
+                     "flash_attention": cfg.n_layers, "flash_attention_bwd": 0,
+                     "pte_gather": 1, "fifo_miss": 0})
+    check(counts == want, f"F2 model 1: launches {counts}, not {want}")
+    runs["model_axis_sp_decode_1"] = (counts, want)
+    reset_counters()
+    l0 = []
+    for tok in fed:
+        lg, one = decode_step(cfg, params, one, tok, phys)
+        l0.append(lg.float())
+    torch.cuda.synchronize()
+    counts = counts_now()
+    want = uncapped({"paged_attention": cfg.n_layers * steps,
+                     "flash_attention": 0, "flash_attention_bwd": 0,
+                     "pte_gather": 0, "fifo_miss": 0})
+    check(counts == want, f"F2 one pool: launches {counts}, not {want}")
+    runs["model_axis_sp_one_pool"] = (counts, want)
+    del one
+    release()
+    grid2 = make_debug_mesh(n, model=t, device=DEV)
+    shard_in_place(params, grid2, cfg)
+    release()
+    reset_counters()
+    l2, _ = sp_decode(grid2, fed)
+    counts = counts_now()
+    want = uncapped({"paged_attention": cfg.n_layers * n * t * steps,
+                     "flash_attention": 0, "flash_attention_bwd": 0,
+                     "pte_gather": 0, "fifo_miss": 0})
+    check(counts == want, f"F2 model {t}: launches {counts}, not {want}")
+    runs[f"model_axis_sp_decode_{t}"] = (counts, want)
+    rels, rels_1, flips = [], [], []
+    for i, (a, b, c) in enumerate(zip(l2, l0, l1)):
+        err = float((a - b).abs().max())
+        rels.append(err / float(b.abs().max()))
+        rels_1.append(float((a - c).abs().max() / c.abs().max()))
+        x, y = int(b.argmax()), int(a.argmax())
+        if x != y:
+            flips.append({"step": i, "gap": float(b[0, x] - b[0, y]),
+                          "logit_err": err})
+    check(max(rels_1) <= 0.03, f"F2: SP decode at model {t} against model "
+          f"1's: rel {max(rels_1)}")
+    check(max(rels) < SP2_REL and len(flips) <= SP["max_flips"]
+          and all(f["gap"] <= f["logit_err"] for f in flips),
+          f"F2: SP decode at model {t} against the one-pool decode: rel "
+          f"{max(rels)}, flips {flips} (at most {SP['max_flips']})")
+    # one layer's SP attention: model t's shards (K1 with kv_heads and the
+    # LSE a pool, each shard's combine) against model 1's, the same slabs
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = randn((1, H, hd), torch.bfloat16)
+    kn, vn = (randn((1, K, hd), torch.bfloat16) for _ in range(2))
+    ks, vs = moved.caches[0]["k_slabs"][0], moved.caches[0]["v_slabs"][0]
+    pos, lens = moved.seq_lens - 1, moved.seq_lens
+    pods = LoopPods(n, DEV)
+
+    def layer(tt):
+        Hs, Ks = H // tt, K // tt
+        parts = [(q[:, i * Hs:(i + 1) * Hs].contiguous(),
+                  kn[:, i * Ks:(i + 1) * Ks], vn[:, i * Ks:(i + 1) * Ks],
+                  None if tt == 1 else (i * Ks, Ks)) for i in range(tt)]
+        return lambda: [kv_gather.decode_attention_sp(
+            qi, ks, vs, ki, vi, local, pos, lens, block_tokens=bt, n_kv=Ks,
+            pods=pods, kv_heads=heads)[0] for qi, ki, vi, heads in parts]
+
+    layer_err = max_err(torch.cat(layer(t)(), dim=1), layer(1)()[0])
+    check(layer_err <= TOL["paged_attention"], f"F2: one layer's SP attention "
+          f"at model {t} is {layer_err} off model 1's")
+    ms = {m: time_ms(layer(m)) for m in (1, t)}
+    emit({"phase": "model_axis_sp_decode", "arch": "qwen3_14b",
+          "widths": "published", "layers": cfg.n_layers, "context": SP["context"],
+          "pools": n, "decode_steps": steps, "model": t,
+          "grid": {"pod": n, "data": 1, "model": t},
+          "kv_layout": "replicated (Qwen3-14B's rules keep kv heads whole)",
+          "logits_rel_err_max": max(rels),
+          "logits_rel_err_median": float(np.median(rels)),
+          "logits_rel_err_vs_model_1_sp_max": max(rels_1),
+          "flips_at_near_ties": flips, "layer_sp_model_vs_model_1_err": layer_err,
+          "sp_attention_layer_ms": {f"model_{m}": v for m, v in ms.items()},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": {k: v[0] for k, v in runs.items()},
+          "wall_s": time.perf_counter() - t_part})
+    del params, moved, kv, l0, l1, l2
+    release()
+    return runs
+
+
+def data_axis_family(arch: str, n_layers) -> dict:
+    """F3, one decoder-only arch: ``serve()`` at data 1 and at data 2 over
+    a model axis of 2, the same seeded weights (split once, in place) and
+    prompts, each traced; data 2 held to data 1 by part D's bounds
+    (``held_to_model_one``), and whether the two are bit-equal."""
+    t_arch = time.perf_counter()
+    t, d = DATA_AXIS["model"], DATA_AXIS["data"]
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    f32 = arch in DATA_AXIS["held_in_float32"]
+    traffic = {k: MODEL_SERVE[k] for k in ("batch", "prompt_len", "gen_len",
+                                           "n_pods", "mode")}
+    traffic["n_requests"] = DATA_AXIS["n_requests"]
+    release()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         param_dtype=torch.bfloat16)
+    if f32:                       # the seeded bf16 weights, cast once
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        params = tree_map(lambda p: p.float(), params)
+    params = shard_in_place(params, make_debug_mesh(1, model=t, device=DEV), cfg)
+    release()
+    shards = heads_shards(params, t)
+    runs, rows = {}, {}
+    for data in (1, d):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        r = serve(arch, full_width=True, cfg=cfg, params=params, verbose=False,
+                  data=data, model=t, trace_logits=FAMILIES["top_k"], **traffic)
+        counts = counts_now()
+        r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        waves = -(-traffic["n_requests"] // traffic["batch"])
+        want = expected_launches(cfg, waves=waves, gen_len=traffic["gen_len"],
+                                 warm_up=True, shards=shards)
+        for name in ("paged_attention", "flash_attention"):
+            want[name] *= data               # a launch a data shard
+        check(counts == want, f"F3 {arch} data {data}: launch counts {counts}, "
+              f"the path implies {want}")
+        check(r["logits_finite"] and r["tokens"] == traffic["n_requests"]
+              * traffic["gen_len"], f"F3 {arch} data {data}: {r['tokens']} tokens")
+        runs[f"model_axis_data_{arch}_{data}"] = (counts, want)
+        r["launches"] = counts
+        rows[data] = r
+    one, two = rows[1], rows[d]
+    held = held_to_model_one(arch, one, two, t, traffic["gen_len"],
+                             what=f"data {d} x model {t}")
+    bit_equal = bool(np.array_equal(one["first_logits"], two["first_logits"])
+                     and np.array_equal(one["token_ids"], two["token_ids"]))
+    keep = SERVE_KEEP + ("n_pods",)
+    emit({"phase": "model_axis_data", "arch": arch, "widths": "published",
+          "layers": cfg.n_layers, "reduced": ["one wave of part D's traffic "
+                                              "(16 of 32 requests)"],
+          **traffic, "grid": {"pod": 1, "data": d, "model": t},
+          "held_in": "float32" if f32 else "bfloat16",
+          "caches_held_a_row": sorted({n for c in init_decode_state(
+              cfg, 1, 4, 2, device="meta").caches for n in c
+              if n in ("ring_k", "h", "conv", "cross_k")}),
+          "bit_equal": bit_equal, **held,
+          "data_1": {k: one.get(k) for k in keep},
+          f"data_{d}": {k: two.get(k) for k in keep},
+          "wall_s": time.perf_counter() - t_arch})
+    del params, rows, one, two
+    release()
+    return runs
+
+
+def data_axis_whisper() -> dict:
+    """F3, Whisper-base: ``whisper_serve`` at data 1 and data 2 over a model
+    axis of 2 (its rules split nothing; each data shard's rows of the cross
+    K/V its own), one wave: each step's logits of the rows whose tokens so
+    far are equal within part D's 0.03 of the largest, the tokens equal but
+    for first flips at near-ties (data 1's margin within twice that step's
+    largest difference); after its first flip a row decodes from another
+    token, so it is compared no further.  Bit-equality read."""
+    t_arch = time.perf_counter()
+    arch, t, d = "whisper_base", DATA_AXIS["model"], DATA_AXIS["data"]
+    spec = dict(WHISPER, n_requests=WHISPER["batch"])
+    cfg = get_config(arch)
+    release()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         param_dtype=cfg.dtype)
+    runs, rows = {}, {}
+    for data in (1, d):
+        grid = make_debug_mesh(1, data=data, model=t, device=DEV)
+        reset_counters()
+        r = whisper_serve(cfg, specs.shard_params(params, grid, cfg), **spec,
+                          grid=grid, keep_logits=True)
+        counts = counts_now()
+        want = expected_launches(cfg, 1, spec["gen_len"], warm_up=False)
+        for name in ("paged_attention", "flash_attention"):
+            want[name] *= data               # a launch a data shard
+        check(counts == want, f"F3 {arch} data {data}: launch counts {counts}, "
+              f"the path implies {want}")
+        runs[f"model_axis_data_{arch}_{data}"] = (counts, want)
+        r["launches"] = counts
+        rows[data] = r
+    one, two = rows[1], rows[d]
+    ids1, ids2 = one["token_ids"], two["token_ids"]
+    same = np.cumprod(ids1 == ids2, axis=1)        # rows equal through step s
+    errs, rels = [], []
+    for s_, (a, b) in enumerate(zip(one["logits"], two["logits"])):
+        live = np.ones(len(ids1), bool) if s_ == 0 else same[:, s_ - 1] == 1
+        live = torch.from_numpy(np.concatenate(
+            [live, np.zeros(a.shape[0] - len(live), bool)])).to(a.device)
+        err = float((a.float() - b.float()).abs()[live].max()) if live.any() else 0.0
+        errs.append(err)
+        rels.append(err / float(a.float().abs()[live].max()) if live.any() else 0.0)
+    rel = max(rels)
+    flips = []
+    for r_ in np.nonzero((ids1 != ids2).any(axis=1))[0]:
+        s_ = int(np.argmax(ids1[r_] != ids2[r_]))
+        lg = one["logits"][s_][r_].float()
+        gap = float(lg[int(ids1[r_, s_])] - lg[int(ids2[r_, s_])])
+        flips.append({"row": int(r_), "step": s_, "margin_data_1": gap,
+                      "noise": 2 * errs[s_]})
+    check(rel <= 0.03 and all(f["margin_data_1"] <= f["noise"] for f in flips),
+          f"F3 {arch}: data {d} logits rel {rel}, flips {flips}")
+    bit_equal = bool(np.array_equal(ids1, ids2) and all(e == 0.0 for e in errs))
+    keep = ("prefill_ms", "decode_step_ms", "tok_per_s", "launches")
+    emit({"phase": "model_axis_data", "arch": arch, "widths": "published",
+          "layers": cfg.n_layers, "reduced": ["one wave of 16 (32 in part D)"],
+          **spec, "grid": {"pod": 1, "data": d, "model": t},
+          "caches_held_a_row": ["cross_k", "cross_v"],
+          "logits_rel_err_max": rel, "first_step_logits_rel_err": rels[0],
+          "rows_token_equal": int(same[:, -1].sum()), "first_flips": flips,
+          "bit_equal": bit_equal,
+          "data_1": {k: one.get(k) for k in keep},
+          f"data_{d}": {k: two.get(k) for k in keep},
+          "wall_s": time.perf_counter() - t_arch})
+    del params, rows, one, two
+    release()
+    return runs
+
+
+def family_train(arch: str, n_layers, f32: bool = False,
+                 held: bool = True) -> dict:
+    """F4, one family: its train cell (``specs.build_cell``) on a grid of
+    model 1 and of model 2, each from seed 0's weights and batch, 4 steps:
+    losses within ``loss_tol`` of model 1's, step ms, peak GB of the steps,
+    K2's forward (twice a layer a step under remat "full") and backward
+    launches, once a shard where the heads split.  A MoE config's model 2
+    takes model 1's expert ids, as part D's serve does (a route that flips
+    at a near-tie moves a token's output past any loss bound); its own
+    picks' agreement is read.  ``f32``: the config's compute in float32;
+    ``held``: the losses checked (an arch of ``held_in_float32`` is held in
+    float32 and its bf16 run read, as part D holds Mamba-2's serve)."""
+    t_arch = time.perf_counter()
+    t, steps = FAMILY_TRAIN["model"], FAMILY_TRAIN["steps"]
+    S = FAMILY_TRAIN["enc_frames"] if arch == "whisper_base" else FAMILY_TRAIN["seq"]
+    shape = tconfigs.ShapeSpec("train_f4", S, FAMILY_TRAIN["batch"], "train")
+    cfg = get_config(arch)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    tag = "_f32" if f32 else ""
+    out, runs, routes = {}, {}, {1: [], t: []}
+    cut = get_config(arch)
+    if n_layers is not None:
+        cut = dataclasses.replace(cut, n_layers=n_layers)
+    moe_cfg = any(g.moe for g in layer_groups(cut))   # Kimi-K2's 1 layer: dense
+    for model in (1, t):
+        release()
+        grid = make_debug_mesh(1, model=model, device=DEV)
+        cell = specs.build_cell(arch, shape, grid, device=DEV, n_layers=n_layers,
+                                cfg=cfg,
+                                opts=specs.PerfOptions(remat=FAMILY_TRAIN["remat"]))
+        params, opt, batch = cell.args
+        shards = heads_shards(params, model)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        losses, step_s = [], []
+        recorded = (routes_recorded(routes[model], per_call=model,
+                                    follow=routes[1] if model > 1 else None)
+                    if moe_cfg else contextlib.nullcontext())
+        with recorded:
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = cell.step_fn(params, opt, batch)
+                losses.append(float(m["loss"]))
+                step_s.append(time.perf_counter() - t0)
+        counts = counts_now()
+        n_attn = attention_layers(cell.cfg)[1]
+        want = uncapped({"paged_attention": 0,
+                         "flash_attention": 2 * n_attn * steps * shards,
+                         "flash_attention_bwd": n_attn * steps * shards,
+                         "pte_gather": 0, "fifo_miss": 0})
+        check(counts == want, f"F4 {arch} model {model}: launches {counts}, "
+              f"not {want}")
+        check(all(np.isfinite(losses)), f"F4 {arch} model {model}: {losses}")
+        runs[f"model_axis_train_{arch}{tag}_{model}"] = (counts, want)
+        out[model] = {"losses": losses, "step_ms": [1e3 * x for x in step_s],
+                      "step_ms_median": 1e3 * float(np.median(step_s)),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "heads_shards": shards, "launches": counts}
+        layers, cuts = cell.cfg.n_layers, dict(cell.cuts)
+        del cell, params, opt, batch
+    diff = max(abs(a - b) for a, b in zip(out[1]["losses"], out[t]["losses"]))
+    check(diff <= FAMILY_TRAIN["loss_tol"] or not held, f"F4 {arch}: losses at "
+          f"model {t} {out[t]['losses']}, at model 1 {out[1]['losses']}")
+    extra = {}
+    if moe_cfg:
+        check(len(routes[t]) == t * len(routes[1]), f"F4 {arch}: {len(routes[t])} "
+              f"routes at model {t} for {len(routes[1])} at model 1")
+        extra = dict(route_agreement(routes[1], routes[t][::t]),
+                     routes="model 2 follows model 1's expert ids; "
+                            "route_agreement is its own picks'")
+    del routes
+    emit({"phase": "model_axis_train_family", "arch": arch, "widths": "published",
+          "layers": layers, "layers_published": get_config(arch).n_layers,
+          "reduced": [f"depth {v}" for v in cuts.values()],
+          "batch": FAMILY_TRAIN["batch"], "seq": S, "remat": FAMILY_TRAIN["remat"],
+          "steps": steps, "param_dtype": "float32",
+          "dtype": str(cfg.dtype).replace("torch.", ""),
+          "held": held, "loss_max_abs_diff": diff,
+          "loss_tol": FAMILY_TRAIN["loss_tol"], **extra, "model_1": out[1],
+          f"model_{t}": out[t], "step_ratio": out[t]["step_ms_median"]
+          / out[1]["step_ms_median"], "wall_s": time.perf_counter() - t_arch})
+    release()
+    return runs
+
+
+def model_axis_options() -> dict:
+    """Part F (F1-F4, above)."""
+    t_part = time.perf_counter()
+    runs = model_axis_serve(pools=POOLS)
+    runs.update(model_axis_sp_decode())
+    for arch, depth in DATA_AXIS["archs"].items():
+        runs.update(data_axis_family(arch, depth))
+    runs.update(data_axis_whisper())
+    for arch, depth in FAMILY_TRAIN["archs"].items():
+        f32 = arch in FAMILY_TRAIN["held_in_float32"]
+        if f32:                       # its bf16 run read, not held
+            runs.update(family_train(arch, depth, held=False))
+        runs.update(family_train(arch, depth, f32=f32))
+    emit({"phase": "model_axis_options", "wall_s": time.perf_counter() - t_part})
+    return runs
+
+
 def phase_model_axis() -> dict:
     runs = model_axis_serve()
     runs.update(model_axis_train())
     runs.update(model_axis_elastic())
     runs.update(model_axis_families())
     runs.update(model_axis_sp())
+    runs.update(model_axis_options())
     return runs
 
 
@@ -4336,6 +4897,8 @@ def main() -> None:
         runs.update(timed_phase("multipod", phase_multipod))
     if "model_axis" in phases:
         runs.update(timed_phase("model_axis", phase_model_axis))
+    elif "model_axis_options" in phases:      # part F alone
+        runs.update(timed_phase("model_axis_options", model_axis_options))
     if "numa_sim" in phases:
         fifo_row, *runs["numa_sim"] = timed_phase("numa_sim", phase_numa_sim)
         rows.append(fifo_row)

@@ -153,7 +153,8 @@ def decode_attention_sp(q: torch.Tensor, k_slabs: torch.Tensor,
                         block_tokens: int, n_kv: int,
                         window: Optional[int] = None,
                         pods: Optional[Pods] = None,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None,
+                        kv_heads: Optional[Tuple[int, int]] = None):
     """Sequence-parallel paged decode attention (flash-decoding).
 
     The block table's COLUMNS are split over the shards: shard s owns
@@ -171,16 +172,22 @@ def decode_attention_sp(q: torch.Tensor, k_slabs: torch.Tensor,
     ``NEG_INF``), and the partials combine by ``pmax`` / ``psum`` — the only
     traffic between shards.  ``softcap``: the logit cap, applied by each
     shard's launch (the LSE is of the capped scores, so the combine is the
-    same).  Returns (out [B,H,hd] f32, k_slabs, v_slabs)."""
+    same).  ``kv_heads`` = (first, count): a model shard's kv heads of
+    slabs that hold more; the new token is written into those heads only
+    and every launch reads them (K1's head range), q holding the shard's
+    query heads.  Returns (out [B,H,hd] f32, k_slabs, v_slabs)."""
     bt = block_tokens
     B, MB = phys_blocks.shape
+    heads = (slice(None) if kv_heads is None
+             else slice(kv_heads[0], kv_heads[0] + kv_heads[1]))
     if pods is None:
         n, F = k_slabs.shape[:2]
         glob = sp_tables(phys_blocks, n, F)
         kf, vf = _flat(k_slabs), _flat(v_slabs)
-        write_token_plain(kf, vf, k_new, v_new, glob, positions, bt)
+        write_token_plain(kf[..., heads, :], vf[..., heads, :], k_new, v_new,
+                          glob, positions, bt)
         return (paged_attention(q, kf, vf, glob, seq_lens, window=window,
-                                softcap=softcap),
+                                softcap=softcap, kv_heads=kv_heads),
                 k_slabs, v_slabs)
     n, p = pods.n, k_slabs.shape[0]
     if MB % n:
@@ -198,14 +205,17 @@ def decode_attention_sp(q: torch.Tensor, k_slabs: torch.Tensor,
     H, hd = q.shape[1:]
     outs, lses = [], []
     for i in range(p):
-        _masked_row_store((k_slabs[i], v_slabs[i]), frame[i] * bt + pos % bt,
-                          (k_new, v_new), mine[i] & (frame[i] >= 0))
+        _masked_row_store((k_slabs[i][..., heads, :],
+                           v_slabs[i][..., heads, :]),
+                          frame[i] * bt + pos % bt, (k_new, v_new),
+                          mine[i] & (frame[i] >= 0))
         # the kernel takes operands of their own (16-byte aligned), not
         # slices of a stack
         lses.append(torch.empty((B, H), dtype=torch.float32, device=q.device))
         outs.append(paged_attention(q, k_slabs[i], v_slabs[i], cols[i].clone(),
                                     lens[i].clone(), window=window,
-                                    lse=lses[-1], softcap=softcap))
+                                    lse=lses[-1], softcap=softcap,
+                                    kv_heads=kv_heads))
     return (sp_combine(torch.stack(outs), torch.stack(lses), pods), k_slabs,
             v_slabs)
 

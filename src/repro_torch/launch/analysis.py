@@ -29,7 +29,10 @@ config, per device of the grid, and scales to the whole machine:
     them (each collective's per-shard slice received by t - 1 shards, on
     each of t; ``model_wire``); the data axis's gradient all-reduce at the
     ring factor 2 (d - 1) / d; the pod axis's gradient leg (float32 ring
-    or the int8 all-gather) and the coherence prologue's buffers.  Under
+    or the int8 all-gather; over a split model axis each split leaf's scale
+    adds one model-axis ``pmax`` of a float32 a line), the coherence
+    prologue's buffers, and a sequence-parallel decode's combine of each
+    device's heads over the pods (``sp_combine_wire``).  Under
     Megatron sequence parallelism (``cell.seq_split``) a block's psum
     becomes a reduce-scatter and its input's ``copy_in`` an all-gather,
     each moving 1/t of the block's rows a shard pair: the model axis then
@@ -461,8 +464,7 @@ def cell_bytes(cell) -> float:
             if name in cache:
                 moved = 2 if name in ("h", "conv") else 1     # read + write
                 total += moved * _nbytes(cache[name]) / (
-                    _row_share(cell.rows, g.data) * _state_div(cache[name], grp,
-                                                             cell))
+                    _row_share(cell.rows, g.data) * _state_div(state, name))
     return cell.chips * total
 
 
@@ -480,11 +482,12 @@ def _first_layer(g: _Geometry, grp):
     raise KeyError(grp)
 
 
-def _state_div(leaf, grp, cell) -> int:
-    """The model-axis split of a cache held a row (its [L, t, ...] form)."""
-    t = cell.grid.model.n
-    return t if t > 1 and leaf.dim() >= 3 and leaf.shape[1] == t and \
-        grp.kind in ("ssd", "rglru") else 1
+def _state_div(state, name: str) -> int:
+    """The model-axis split of a cache held a row, from the decode state's
+    layout: the recurrent layers' for ``h`` / ``conv``, the kv heads' for
+    rings and cross K/V."""
+    lay = state.layout
+    return lay.state_split if name in ("h", "conv") else lay.kv_split
 
 
 # --------------------------------------------------------------------------- wire
@@ -650,6 +653,8 @@ def model_wire(cell) -> int:
             outer += N * D * el
         if any(split_leaves(p)):
             outer += 4
+        if cell.opts.compress_pod_grads and cell.grid.n > 1:
+            outer += 4 * sum(split_leaves(p))    # the int8 leg's scales' pmax
         return t * (t - 1) * (layers + outer)
     if sp_dec and g.step == "prefill":
         outer += g.rows * D * el                     # the shards' last rows
@@ -679,7 +684,36 @@ def cell_wire_bytes(cell) -> Dict[str, float]:
         if cell.opts.coherence == "numapte":
             buf += 4 * MISS_BUDGET * (1 + 2 ** PREFETCH_DEGREE)
         out["pod"] = float(P * (P - 1) * buf * d * t)
+    if _sp_decode(cell):
+        out["pod"] = out.get("pod", 0.0) + float(sp_combine_wire(cell) * d * t)
     return out
+
+
+def _sp_decode(cell) -> bool:
+    """Whether the cell's decode step is sequence-parallel over the pods
+    (``build_cell``: fewer rows than pools)."""
+    data_size = cell.grid.n * cell.grid.data.n
+    return cell.shape.step == "decode" and cell.rows < data_size \
+        and cell.grid.n > 1
+
+
+def sp_combine_wire(cell) -> int:
+    """The pod axis's bytes of one sequence-parallel decode step of one
+    device's line of it, ``Pods``' count: in each global attention layer
+    ``sp_combine`` of the device's heads over the P pods, a ``pmax`` of the
+    partials' log-sum-exps [B, Hs] and two ``psum``s, of the weights
+    [B, Hs] and the weighted outputs [B, Hs, hd], all float32 (Hs: the
+    device's query heads, H / t where the model axis splits them)."""
+    if not _sp_decode(cell):
+        return 0
+    g = _Geometry(cell)
+    P, hd = cell.grid.n, g.cfg.resolved_head_dim
+    total = 0
+    for grp, lp in _layers(g):
+        if grp.kind in ("attn", "dec_attn") and grp.window is None:
+            H, _ = _attn_heads(g, lp["attn"])
+            total += g.rows * H * (4 + 4 + 4 * hd)
+    return P * (P - 1) * total
 
 
 # --------------------------------------------------------------------------- resident bytes

@@ -68,8 +68,8 @@ from ..pagedpt.blocktable import (CoherenceMode, eager_sync_bytes,
 from .mesh import make_debug_mesh
 from .specs import (_coherence_prologue, build_serve_step, decode_on_grid,
                     grid_sampler, kv_split, make_rules, prefill_on_grid,
-                    require_model_axis, shard_params, split_leaves,
-                    state_split, timed, elapsed_ms)
+                    shard_params, split_leaves, state_split, timed,
+                    elapsed_ms)
 
 
 def _sync(device: torch.device) -> None:
@@ -78,14 +78,13 @@ def _sync(device: torch.device) -> None:
 
 
 def _kv_layout(state) -> str:
-    """How the model axis holds the attention caches: "split" by kv head,
-    "replicated", or "none" (no attention layer)."""
-    for cache in state.caches:
-        for name, split_dim in (("k_slabs", 6), ("ring_k", 6)):
-            if name in cache:
-                return ("split" if cache[name].dim() == split_dim
-                        else "replicated")
-    return "none"
+    """How the model axis holds the attention caches (the state's
+    ``layout``): "split" by kv head, "replicated", or "none" (no attention
+    layer)."""
+    if not any(name in cache for cache in state.caches
+               for name in ("k_slabs", "ring_k")):
+        return "none"
+    return "split" if state.layout.split else "replicated"
 
 
 @torch.no_grad()
@@ -125,11 +124,12 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
     entry; numapte: where ``host.present`` holds one).
 
     ``data`` and ``model`` build the grid's in-pod axes (``LoopPods`` on
-    this device): each wave's rows split over ``data`` shards, and the
+    this device): each wave's rows split over ``data`` shards (each shard's
+    rows of the rings, recurrent states and pools its own), and the
     weights over ``model`` tensor-parallel shards (``params`` may come whole
-    or already split by ``shard_params``); the KV slabs and rings follow the
-    rules table (every config's own keeps them replicated over ``model``),
-    the recurrent states the split of their layers, and
+    or already split by ``shard_params``); the KV slabs (pooled or not) and
+    rings follow the rules table (every config's own keeps them replicated
+    over ``model``), the recurrent states the split of their layers, and
     the model axis's collective bytes a decode step come back as
     ``model_wire_bytes_per_step``.  ``trace_logits`` = k > 0 adds the first
     decode step's logits of the first wave (``first_logits`` [batch, V]
@@ -148,7 +148,6 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     grid = make_debug_mesh(n_pods if replicas else 1, data=data, model=model,
                            device=device)
-    require_model_axis(grid, pooled=n_pools > 1)
     if cfg.family == "encdec":
         # the reference's serve() calls prefill(), which reads the decoder-only
         # embedding an encoder-decoder lacks (ROADMAP queue 3)

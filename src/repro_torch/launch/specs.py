@@ -14,10 +14,15 @@ chunk i of each of ``in_proj``'s ``[z | x | B | C | dt]`` and of the conv's
 ``[x | B | C]``), where GSPMD splits their columns contiguously, across the
 sections.  ``shard_params`` splits each sharded leaf over the model axis
 into a leading local-shard dimension ``[p, ...]``, as the pod axis does;
-``gather_params`` is its inverse.  Pool-partitioned KV, sequence-parallel
-decode and the int8 pod leg of a model axis split across processes raise
-NotImplementedError naming ROADMAP queue 1 slice 16.1c
-(``require_model_axis``).
+``gather_params`` is its inverse.  Every option of the reference's grid
+runs over the model axis: pool-partitioned KV (each shard's kv heads of
+the pools, or its own split pools), sequence-parallel decode (each shard's
+heads over the pods, ``decode_attention_sp``), and the int8 pod leg, whose
+scale of a leaf split over the model axis is the ``pmax`` of the shards'
+maxima, the whole leaf's, on ``LoopPods`` and across processes alike.
+Over the data axis each local shard serves its rows through a decode state
+of views (``_data_share``): the caches held a row (rings, recurrent states,
+cross K/V) are its rows' views, pooled slabs the pools its rows live in.
 
 The dry run's cells (``build_cell``): each (arch x shape) of
 ``configs.all_cells`` on the production grid, ``make_debug_mesh(pods,
@@ -60,6 +65,7 @@ from ..distributed.sharding import (MULTI_POD_RULES, SINGLE_POD_RULES,
 from .._device import DeviceLike, resolve_device
 from ..configs import ShapeSpec, get_config
 from ..models import greedy_sample, init_decode_state, init_params, lm_loss
+from ..kvcache.gather import pool_of_rows
 from ..models.common import SHAPES_ONLY, ModelConfig
 from ..models.transformer import (DecodeState, decode_step, prefill,
                                   prefill_encdec, remat_policy, seq_splits,
@@ -176,25 +182,6 @@ def _shard_of(spec: Spec) -> Optional[Shard]:
                                       "the model axis splits parameters")
         return Shard(dim, "model")
     return None
-
-
-def require_model_axis(grid: Optional[Pods], *, pooled: bool = False,
-                       sp: bool = False, int8_leg: bool = False) -> None:
-    """NotImplementedError naming ROADMAP queue 1 slice 16.1c for what the
-    model axis does not run yet: pool-partitioned KV (``pooled``),
-    sequence-parallel decode (``sp``), and the int8 pod leg with the model
-    axis split across processes (``int8_leg``).  Every family runs over
-    the model axis otherwise."""
-    if grid is None or grid.model.n == 1:
-        return
-    model = grid.model
-    what = ("pool-partitioned KV" if pooled else
-            "sequence-parallel decode" if sp else
-            "the int8 pod leg with the model axis split across processes"
-            if int8_leg and model.local != model.n else None)
-    if what is not None:
-        raise NotImplementedError(
-            f"{what} over the model axis waits for ROADMAP queue 1 slice 16.1c")
 
 
 def param_shardings(params: PyTree, grid: Pods, cfg: ModelConfig,
@@ -437,9 +424,14 @@ def pod_gradients(cfg: ModelConfig, params: PyTree,
     ``pods`` carries them.  Returns (the averaged gradient of each leaf, as
     the step hands it to AdamW; metrics: ``loss`` and ``aux`` the pods'
     mean, ``tokens`` their sum; the new error buffers, ``ef`` itself for the
-    float32 leg).  ``remat`` / ``bf16_grads``: as ``_grads``'."""
+    float32 leg).  Over a split model axis the int8 leg takes each split
+    leaf's scale over the whole leaf (``compress_allreduce_pods``' ``model``
+    and ``split``).  ``remat`` / ``bf16_grads``: as ``_grads``'."""
     p, n = pods.local, pods.n
-    require_model_axis(pods, int8_leg=compress_pod_grads)
+    if n == 1 and not compress_pod_grads:     # one pod's average: its own
+        g, m = data_gradients(cfg, params, batch, pods, remat=remat,
+                              bf16_grads=bf16_grads)
+        return g, m, ef
     stacked, pod_metrics = None, []
     for i, share in enumerate(_split_rows(batch, p)):
         g, m = data_gradients(cfg, params, share, pods, remat=remat,
@@ -453,7 +445,9 @@ def pod_gradients(cfg: ModelConfig, params: PyTree,
         pod_metrics.append(m)
     new_ef = ef
     if compress_pod_grads:
-        avg, new_ef = compress_allreduce_pods(stacked, ef, pods)
+        avg, new_ef = compress_allreduce_pods(stacked, ef, pods,
+                                              model=pods.model,
+                                              split=split_leaves(params))
         grads = [a[0] for a in avg]
         metrics = _averaged(pods, [], pod_metrics)[1]
     else:
@@ -477,7 +471,6 @@ def build_train_step(cfg: ModelConfig, compress_pod_grads: bool = False,
     decay is decided on each leaf's unsharded rank.  Returns (params,
     opt_state, metrics), and the new error buffers as a fourth item when the
     leg is compressed or ``ef`` is given."""
-    require_model_axis(pods, int8_leg=compress_pod_grads)
     remat_policy(remat)
     how = dict(remat=remat, bf16_grads=bf16_grads)
 
@@ -526,19 +519,77 @@ def elapsed_ms(pair) -> float:
     return start.elapsed_time(end)
 
 
-def _row_shares(data: Pods, B: int, state: DecodeState) -> List[slice]:
-    """The rows of a batch of B that each local data shard serves.  The
-    paged slabs are shared (each row's frames its own); a cache held a row
-    (a ring, a recurrent state, cross K/V) is not split over the data axis
-    yet (ROADMAP queue 1 slice 16.1c)."""
-    if any(name in cache for cache in state.caches
-           for name in ("ring_k", "h", "cross_k")):
-        raise NotImplementedError("per-row caches over the data axis wait "
-                                  "for ROADMAP queue 1 slice 16.1c")
+def _row_shares(data: Pods, B: int) -> List[slice]:
+    """The rows of a batch of B that each local data shard serves."""
     if B % data.local:
         raise ValueError(f"{B} rows do not split over {data.local} data shards")
     n = B // data.local
     return [slice(i * n, (i + 1) * n) for i in range(data.local)]
+
+
+def _pool_share(pools: int, B: int, rows: slice) -> Optional[slice]:
+    """The pools that ``rows`` of a batch of B live in (row b in pool ``b //
+    max(B // pools, 1)``, ``kvcache.gather.pool_of_rows``), None for one
+    pool.  The rows must hold whole pools, or lie in one pool, so that the
+    shard's own rows map onto its pools as the whole batch's do."""
+    if pools == 1:
+        return None
+    per, n = max(B // pools, 1), rows.stop - rows.start
+    if rows.start % per == 0 and n % per == 0:
+        return slice(rows.start // per, rows.start // per + n // per)
+    if per % n == 0:
+        return slice(rows.start // per, rows.start // per + 1)
+    raise ValueError(f"rows {rows.start}:{rows.stop} of {B} do not fall on "
+                     f"whole pools of {per} rows")
+
+
+def _data_share(state: DecodeState, rows: slice, B: int,
+                pooled: bool = True) -> DecodeState:
+    """The decode state that a local data shard serves ``rows`` of a batch
+    of B through, all views of ``state`` (its writes land there): each
+    cache held a row (rings, ``h`` / ``conv``, cross K/V) its rows, along
+    the batch dimension after any model-shard lead (``CacheLayout.row_dim``);
+    the paged slabs shared, each row's frames its own, and with ``pooled``
+    pool-partitioned slabs the pools the rows live in (``_pool_share``;
+    sequence-parallel decode reads every pool for every row instead)."""
+    layout = state.layout
+    pools = _pool_share(layout.pools, B, rows) if pooled else None
+    n_pools = layout.pools if pools is None else pools.stop - pools.start
+    caches = []
+    for cache in state.caches:
+        view = {}
+        for name, t in cache.items():
+            if name not in ("k_slabs", "v_slabs"):
+                view[name] = t[(slice(None),) * (1 + layout.row_dim(name))
+                               + (rows,)]
+            elif pools is None:
+                view[name] = t
+            else:                   # one pool left: no pool dimension
+                at = (slice(None),) * (1 + layout.pool_dim())
+                view[name] = t[at + ((pools,) if n_pools > 1
+                                     else (pools.start,))]
+        caches.append(view)
+    return DecodeState(tuple(caches), state.seq_lens[rows],
+                       dataclasses.replace(layout, pools=n_pools))
+
+
+def _over_data(grid: Optional[Pods], B: int, state: DecodeState, run,
+               *, pooled: bool = True) -> Tuple[torch.Tensor, DecodeState]:
+    """``run(state, rows) -> (logits, state)`` once for each local data
+    shard of the grid, on its rows (``_row_shares``) and its decode state
+    of views (``_data_share``); once on the whole batch without a data
+    axis.  Returns the shards' logits joined in row order and ``state``
+    with their lengths."""
+    data = None if grid is None else grid.data
+    if data is None or data.local == 1:
+        return run(state, slice(None))
+    logits, lens = [], []
+    for rows in _row_shares(data, B):
+        lg, st = run(_data_share(state, rows, B, pooled), rows)
+        logits.append(lg)
+        lens.append(st.seq_lens)
+    return (torch.cat(logits, dim=-2),
+            state._replace(seq_lens=torch.cat(lens)))
 
 
 def decode_on_grid(cfg: ModelConfig, params: PyTree, state: DecodeState,
@@ -546,24 +597,15 @@ def decode_on_grid(cfg: ModelConfig, params: PyTree, state: DecodeState,
                    grid: Optional[Pods], *, sp: bool = False
                    ) -> Tuple[torch.Tensor, DecodeState]:
     """``decode_step`` over the grid: the rows split over the data axis (a
-    call a local data shard; the paged slabs are shared, each row's frames
-    its own), the model axis as ``tp``, sequence parallelism over the pod
+    call a local data shard, ``_over_data``: its rows of every cache held a
+    row, its pools of pooled slabs; shared slabs through each row's own
+    frames), the model axis as ``tp``, sequence parallelism over the pod
     axis with ``sp``.  Logits come as ``decode_step`` gives them (vocab
     shards over a split model axis), rows in order."""
     tp = None if grid is None else grid.model
-    data = None if grid is None else grid.data
-    if data is None or data.local == 1:
-        return decode_step(cfg, params, state, tokens, phys_blocks, sp=sp,
-                           pods=grid, tp=tp)
-    logits, lens = [], []
-    for rows in _row_shares(data, tokens.shape[0], state):
-        lg, st = decode_step(cfg, params,
-                             DecodeState(state.caches, state.seq_lens[rows]),
-                             tokens[rows], phys_blocks[rows], sp=sp,
-                             pods=grid, tp=tp)
-        logits.append(lg)
-        lens.append(st.seq_lens)
-    return torch.cat(logits, dim=-2), DecodeState(state.caches, torch.cat(lens))
+    return _over_data(grid, tokens.shape[0], state, lambda st, rows: decode_step(
+        cfg, params, st, tokens[rows], phys_blocks[rows], sp=sp, pods=grid,
+        tp=tp), pooled=not sp)
 
 
 def prefill_on_grid(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
@@ -571,16 +613,22 @@ def prefill_on_grid(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
                     grid: Optional[Pods]) -> Tuple[torch.Tensor, DecodeState]:
     """``prefill`` over the grid, split as ``decode_on_grid`` splits."""
     tp = None if grid is None else grid.model
-    data = None if grid is None else grid.data
-    if data is None or data.local == 1:
-        return prefill(cfg, params, tokens, state, phys_blocks, tp=tp)
-    logits, lens = [], []
-    for rows in _row_shares(data, tokens.shape[0], state):
-        lg, st = prefill(cfg, params, tokens[rows], state, phys_blocks[rows],
-                         tp=tp)
-        logits.append(lg)
-        lens.append(st.seq_lens)
-    return torch.cat(logits, dim=-2), DecodeState(state.caches, torch.cat(lens))
+    return _over_data(grid, tokens.shape[0], state, lambda st, rows: prefill(
+        cfg, params, tokens[rows], st, phys_blocks[rows], tp=tp))
+
+
+def prefill_encdec_on_grid(cfg: ModelConfig, params: PyTree,
+                           enc_feats: torch.Tensor, dec_tokens: torch.Tensor,
+                           state: DecodeState, phys_blocks: torch.Tensor,
+                           grid: Optional[Pods]
+                           ) -> Tuple[torch.Tensor, DecodeState]:
+    """``prefill_encdec`` over the grid, split as ``decode_on_grid``
+    splits (each data shard's clips, prompts and cross K/V rows)."""
+    tp = None if grid is None else grid.model
+    return _over_data(grid, dec_tokens.shape[0], state,
+                      lambda st, rows: prefill_encdec(
+                          cfg, params, enc_feats[rows], dec_tokens[rows], st,
+                          phys_blocks[rows], tp=tp))
 
 
 def grid_sampler(params: PyTree, grid: Optional[Pods]) -> Callable:
@@ -609,7 +657,6 @@ def build_serve_step(cfg: ModelConfig, sp: bool = False,
     prologue."""
     if coherence not in ("none", "eager", "numapte"):
         raise ValueError(f"coherence {coherence!r}")
-    require_model_axis(pods, sp=sp)
 
     def step(params, state, tokens, phys_blocks, *coh_args):
         coh_out = None
@@ -691,17 +738,14 @@ def build_prefill_step(cfg: ModelConfig, pods: Optional[Pods] = None
                        ) -> Callable:
     """``step(params, state, tokens, phys_blocks)`` (an encoder-decoder:
     ``step(params, state, enc_feats, dec_tokens, phys_blocks)``): a prefill
-    over the grid ``pods`` (``prefill_on_grid``; the encoder-decoder's
-    ``prefill_encdec`` over the model axis), then greedy sampling of the
-    last position's logits.  Returns (tokens [B] int32, state)."""
+    over the grid ``pods`` (``prefill_on_grid``, or
+    ``prefill_encdec_on_grid``), then greedy sampling of the last
+    position's logits.  Returns (tokens [B] int32, state)."""
     sample = lambda params, logits: grid_sampler(params, pods)(logits)
     if cfg.family == "encdec":
         def step(params, state, enc_feats, dec_tokens, phys_blocks):
-            tp = None if pods is None else pods.model
-            if pods is not None and pods.data.local > 1:
-                _row_shares(pods.data, dec_tokens.shape[0], state)
-            logits, state = prefill_encdec(cfg, params, enc_feats, dec_tokens,
-                                           state, phys_blocks, tp=tp)
+            logits, state = prefill_encdec_on_grid(
+                cfg, params, enc_feats, dec_tokens, state, phys_blocks, pods)
             return sample(params, logits), state
         return step
 
@@ -779,22 +823,23 @@ def _row_share(rows: int, data_size: int) -> int:
     return data_size if rows % data_size == 0 else 1
 
 
-def _state_shares(state: DecodeState, row_share: int, n_pools: int,
-                  kv: int, rec: int) -> List[int]:
-    """The ``shares`` of a decode state's leaves: the paged slabs over their
-    pools (``[L, P, N/P, ...]``: one pool a device of the pod and data axes)
-    and their kv heads (``kv``), the caches held a row over the rows and
-    over their split (``kv`` for rings and cross K/V, ``rec`` for the
-    recurrent ``h`` / ``conv``), ``seq_lens`` over the rows."""
+def _state_shares(state: DecodeState, row_share: int) -> List[int]:
+    """The ``shares`` of a decode state's leaves, from its ``layout``: the
+    paged slabs over their pools (one pool a device of the pod and data
+    axes) and their kv heads' split, the caches held a row over the rows
+    and over their split (the kv heads' for rings and cross K/V, the
+    recurrent layers' for ``h`` / ``conv``) and ``seq_lens`` over the rows
+    (the layout record is the state's structure, not a leaf)."""
+    lay = state.layout
     shares = []
     for cache in state.caches:
         for name in cache:
             if name in ("k_slabs", "v_slabs"):
-                shares.append((n_pools if cache[name].dim() == 6 else 1) * kv)
+                shares.append(lay.pools * lay.kv_split)
             elif name in ("h", "conv"):
-                shares.append(row_share * rec)
+                shares.append(row_share * lay.state_split)
             else:                       # rings, cross K/V
-                shares.append(row_share * kv)
+                shares.append(row_share * lay.kv_split)
     return shares + [row_share]
 
 
@@ -836,14 +881,17 @@ def build_cell(arch: str, shape: ShapeSpec, grid: Pods, *,
     fewer than the pools.  On a real ``device`` the arguments are drawn
     from seed 0 (weights as ``init_params``; a decode state holding
     ``seq_len`` tokens a row, an encoder-decoder's decoder at most
-    ``max_decoder_len``, each row its own frames), ``rows`` cuts the batch
-    and ``n_layers`` the depth (named in ``cuts``); ``cfg`` replaces the
-    arch's published config (a smoke config in the tests).  ``step_fn`` is
-    the port's step over ``grid``: ``build_train_step``,
-    ``build_prefill_step`` or ``build_serve_step``; where the port does not
-    run the grid yet it raises when called (ROADMAP queue 1 slice 16.1c).
-    With ``opts.seq_parallel`` the train and prefill steps run Megatron
-    sequence parallelism over the model axis (``seq_split`` says where)."""
+    ``max_decoder_len``, each row its own frames in its pool,
+    ``_cell_tables``), ``rows`` cuts the batch and ``n_layers`` the depth
+    (named in ``cuts``); ``cfg`` replaces the arch's published config (a
+    smoke config in the tests).  ``step_fn`` is the port's step over
+    ``grid``: ``build_train_step``, ``build_prefill_step`` or
+    ``build_serve_step``, which run every option of the grid; a decode or
+    prefill step raises a ValueError where its rows do not split over the
+    data axis (``_row_shares``) or a data shard's rows over whole pools
+    (``_pool_share``).  With ``opts.seq_parallel`` the train and prefill
+    steps run Megatron sequence parallelism over the model axis
+    (``seq_split`` says where)."""
     opts = opts or PerfOptions()
     require_options(opts)
     device = resolve_device(device)
@@ -892,19 +940,14 @@ def build_cell(arch: str, shape: ShapeSpec, grid: Pods, *,
     n_frames, mb, n_pools = _decode_geometry(
         cfg, dataclasses.replace(shape, global_batch=gb), data_size)
     sp = shape.step == "decode" and gb < data_size
-    kv, rec = kv_split(cfg, grid), state_split(params, grid)
     state = init_decode_state(cfg, gb, n_frames, mb, enc_len=S if enc else 0,
-                              n_pools=n_pools, kv_split=kv, state_split=rec,
+                              n_pools=n_pools, kv_split=kv_split(cfg, grid),
+                              state_split=state_split(params, grid),
                               device=device)
-    state_shares = _state_shares(state, row_share, n_pools, kv, rec)
-    if device.type == "meta":
-        tables = torch.empty((gb, mb), dtype=i32, device=device)
-    elif n_pools == 1:                        # each row its own frames
-        tables = torch.arange(n_frames, dtype=i32, device=device)[
-            :gb * mb].view(gb, mb)
-    else:
-        raise ValueError("a cell on a real device holds one KV pool: build "
-                         "it on a grid without pod and data axes")
+    state_shares = _state_shares(state, row_share)
+    tables = (torch.empty((gb, mb), dtype=i32, device=device)
+              if device.type == "meta"
+              else _cell_tables(gb, mb, n_frames, n_pools, sp, device))
 
     if shape.step == "prefill":
         if enc:
@@ -940,6 +983,32 @@ def build_cell(arch: str, shape: ShapeSpec, grid: Pods, *,
                     functools.partial(step_fn, sp=sp), args, grid, opts,
                     p_shares + state_shares + inputs, gb, cuts, donate=(1,),
                     seq_split=split)
+
+
+def _cell_tables(rows: int, mb: int, n_frames: int, n_pools: int, sp: bool,
+                 device: torch.device) -> torch.Tensor:
+    """A cell's block tables [rows, mb] on a real device, each row its own
+    frames, local to the pool that holds them: a row's frames in its pool
+    (``kvcache.gather.pool_of_rows``) one after another, or under
+    sequence parallelism column c of every row in pool ``c // (mb /
+    n_pools)`` (``sp_tables``).  Flattened to global ids the rows' layout
+    gives row b frames ``b * mb .. b * mb + mb - 1`` when the pools hold
+    ``rows * mb`` frames, as one pool does."""
+    f_local = n_frames // n_pools
+    b = torch.arange(rows, device=device)[:, None]
+    c = torch.arange(mb, device=device)[None, :]
+    if sp:
+        mbl = mb // n_pools
+        local = b * mbl + c % mbl
+    else:
+        per = max(rows // n_pools, 1)
+        local = (b % per) * mb + c
+        if n_pools > 1:
+            pool_of_rows(rows, n_pools)          # rows past the pools raise
+    if int(local.max()) >= f_local:
+        raise ValueError(f"{rows} rows of {mb} frames do not fit {n_pools} "
+                         f"pools of {f_local}")
+    return local.to(torch.int32)
 
 
 @functools.lru_cache(maxsize=8)

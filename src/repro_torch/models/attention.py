@@ -42,7 +42,8 @@ from ..kernels.flash_attention.ref import NEG_INF, soft_cap
 from ..kernels.paged_attention.ops import paged_attention
 from ..kvcache.gather import (decode_attention_sp, pooled_tables,
                               write_token_plain)
-from .common import ModelConfig, _dense, rms_norm, rope_tables, rotate
+from .common import (CacheLayout, ModelConfig, _dense, rms_norm, rope_tables,
+                     rotate)
 
 
 def init_attn(cfg: ModelConfig, gen: torch.Generator, dtype, cross: bool = False
@@ -157,15 +158,17 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       kv: Tuple[torch.Tensor, torch.Tensor],
                       phys_blocks: torch.Tensor, seq_lens: torch.Tensor, *,
                       rope: Rope, window: Optional[int] = None,
-                      sp: bool = False, pods: Optional[Pods] = None
+                      sp: bool = False, pods: Optional[Pods] = None,
+                      pools: int = 1
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step (one new token per sequence) with paged KV.
 
     x: [B, 1, D]; positions: [B]; kv: (k_slabs, v_slabs) for THIS layer,
-    each [n_blocks, bt, K, hd], or pool-partitioned [P, F_local, bt, K, hd],
-    and UPDATED IN PLACE; phys_blocks: [B, max_blocks] physical frame ids
-    from the block-table translation (-1 = absent; local to the row's pool
-    when pooled); seq_lens: [B] length INCLUDING the new token; rope: the
+    each [n_blocks, bt, K, hd], or with ``pools`` = P > 1 pool-partitioned
+    [P, F_local, bt, K, hd], and UPDATED IN PLACE; phys_blocks: [B,
+    max_blocks] physical frame ids from the block-table translation (-1 =
+    absent; local to the row's pool when pooled); seq_lens: [B] length
+    INCLUDING the new token; rope: the
     step's (cos, sin) tables of ``rope_for(cfg, positions[:, None], ...)``
     (None without RoPE), made once by the caller because every layer of a
     group shares them.  ``sp``: sequence-parallel decode over the pools
@@ -185,7 +188,7 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
             softcap=cfg.attn_logit_softcap)
     else:
         k_slabs, v_slabs, tables = kv[0], kv[1], phys_blocks
-        if k_slabs.dim() == 5:
+        if pools > 1:
             # pools flattened, rows' frames made global: one launch
             tables = pooled_tables(phys_blocks, *k_slabs.shape[:2])
             k_slabs = k_slabs.flatten(0, 1)
@@ -251,11 +254,12 @@ def _project_shard(cfg: ModelConfig, p: Dict[str, torch.Tensor], i: int,
     return q, k, v
 
 
-def _kv_of(kv: torch.Tensor, i: int, heads: ShardHeads) -> torch.Tensor:
+def _kv_of(kv: torch.Tensor, i: int, heads: ShardHeads, split: bool
+           ) -> torch.Tensor:
     """A local shard's part of a layer's ring or cross K/V: its own when
-    split ``[p, B, ..., Ks, hd]``, its kv heads of the one held replicated
-    ``[B, ..., K, hd]`` (a view)."""
-    if kv.dim() == 5:
+    ``split`` ``[p, B, ..., Ks, hd]``, its kv heads of the one held
+    replicated ``[B, ..., K, hd]`` (a view)."""
+    if split:
         return kv[i]
     return kv[..., heads.kv0:heads.kv0 + heads.Ks, :]
 
@@ -299,35 +303,51 @@ def attn_decode_paged_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                          x: torch.Tensor, positions: torch.Tensor,
                          kv: Tuple[torch.Tensor, torch.Tensor],
                          phys_blocks: torch.Tensor, seq_lens: torch.Tensor, *,
-                         rope: Optional[Rope], tp: Pods,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """One decode step over the model axis.  kv: this layer's slabs, either
-    replicated [N, bt, K, hd] (held once; each shard writes and reads its
-    own kv heads of it, K1 taking the head range of the contiguous slab) or
-    split [p, N, bt, Ks, hd] (one contiguous K1 operand a local shard).
-    Returns the replicated attention output [B,1,D]."""
+                         rope: Optional[Rope], tp: Pods, layout: CacheLayout,
+                         window: Optional[int] = None, sp: bool = False,
+                         pods: Optional[Pods] = None) -> torch.Tensor:
+    """One decode step over the model axis.  kv: this layer's slabs, as
+    ``layout`` holds them: replicated [(P,) N, bt, K, hd] (held once; each
+    shard writes and reads its own kv heads of it, K1 taking the head range
+    of the contiguous slab) or split [p, (P,) N, bt, Ks, hd] (one contiguous
+    K1 operand a local shard).  Pooled slabs are read through the rows'
+    global frames (``pooled_tables``), one K1 launch a shard over the
+    flattened pools; with ``sp`` each shard instead decodes its heads
+    sequence-parallel over the pools (``decode_attention_sp``: its kv heads
+    of each pool written, one K1 launch with ``kv_heads`` and ``lse`` a
+    pool, the pools' partials of its heads combined).  Returns the
+    replicated attention output [B,1,D]: the shards' row-parallel ``wo``
+    products summed over the axis."""
     B = x.shape[0]
     bt = kv[0].shape[-3]
-    split = kv[0].dim() == 5
+    tables = phys_blocks
+    if layout.pools > 1 and not sp:
+        tables = pooled_tables(phys_blocks, layout.pools, kv[0].shape[-4])
     xin, shared = tp.copy_in(x), _shared(p, tp)
     parts: List[torch.Tensor] = []
     for i, shard in enumerate(tp.local_indices()):
         heads = ShardHeads(cfg, p, shard)
         q, k_new, v_new = _project_shard(cfg, p, i, heads, xin[i], shared,
                                          rope)
-        if split:                       # this shard's own slabs
-            ks, vs, kv_heads = kv[0][i], kv[1][i], None
-            ks_mine, vs_mine = ks, vs
-        else:                           # its kv heads of the shared slabs
-            ks, vs = kv
-            kv_heads = (heads.kv0, heads.Ks)
-            mine = slice(heads.kv0, heads.kv0 + heads.Ks)
-            ks_mine, vs_mine = ks[:, :, mine], vs[:, :, mine]
-        write_token_plain(ks_mine, vs_mine, k_new[:, 0], v_new[:, 0],
-                          phys_blocks, positions, bt)
-        out = paged_attention(q[:, 0].contiguous(), ks, vs, phys_blocks,
-                              seq_lens, window=window, kv_heads=kv_heads,
-                              softcap=cfg.attn_logit_softcap)
+        # this shard's own slabs, or its kv heads of the shared ones
+        kv_heads = None if layout.split else (heads.kv0, heads.Ks)
+        mine = (slice(None) if layout.split
+                else slice(heads.kv0, heads.kv0 + heads.Ks))
+        q = q[:, 0].contiguous()
+        if sp:
+            ks, vs = (kv[0][i], kv[1][i]) if layout.split else kv
+            out = decode_attention_sp(
+                q, ks, vs, k_new[:, 0], v_new[:, 0], phys_blocks, positions,
+                seq_lens, block_tokens=bt, n_kv=heads.Ks, window=window,
+                pods=pods, softcap=cfg.attn_logit_softcap,
+                kv_heads=kv_heads)[0]
+        else:
+            ks, vs = layout.shard_slab(kv[0], i), layout.shard_slab(kv[1], i)
+            write_token_plain(ks[..., mine, :], vs[..., mine, :], k_new[:, 0],
+                              v_new[:, 0], tables, positions, bt)
+            out = paged_attention(q, ks, vs, tables, seq_lens, window=window,
+                                  kv_heads=kv_heads,
+                                  softcap=cfg.attn_logit_softcap)
         out = out.reshape(B, 1, -1).to(cfg.dtype)
         parts.append(out @ p["wo"][i].to(cfg.dtype))
     return tp.psum(torch.stack(parts))[0]
@@ -358,18 +378,19 @@ def cross_kv_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 def cross_attention_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                        x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                       tp: Pods) -> torch.Tensor:
+                       tp: Pods, *, split: bool) -> torch.Tensor:
     """``cross_attention`` over the model axis: each local shard's query
-    heads on its kv heads of ck / cv (``_kv_of``: split [p, B, Se, Ks, hd]
-    or replicated [B, Se, K, hd]), then its rows of ``wo``, summed over the
-    axis."""
+    heads on its kv heads of ck / cv (``_kv_of``: ``split`` [p, B, Se, Ks,
+    hd] or replicated [B, Se, K, hd]), then its rows of ``wo``, summed over
+    the axis."""
     B, Sq, _ = x.shape
     xin = tp.block_in(x)
     parts = []
     for i, shard in enumerate(tp.local_indices()):
         heads = ShardHeads(cfg, p, shard)
         q = (xin[i] @ p["wq"][i].to(cfg.dtype)).reshape(B, Sq, heads.Hs, -1)
-        out = _cross(cfg, q, _kv_of(ck, i, heads), _kv_of(cv, i, heads))
+        out = _cross(cfg, q, _kv_of(ck, i, heads, split),
+                     _kv_of(cv, i, heads, split))
         parts.append(out @ p["wo"][i].to(cfg.dtype))
     return tp.block_out(torch.stack(parts))
 
@@ -426,11 +447,11 @@ def attn_decode_ring(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 def attn_decode_ring_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                         x: torch.Tensor, positions: torch.Tensor,
                         rings: Tuple[torch.Tensor, torch.Tensor], *,
-                        rope: Optional[Rope], tp: Pods, window: int
-                        ) -> torch.Tensor:
+                        rope: Optional[Rope], tp: Pods, window: int,
+                        split: bool) -> torch.Tensor:
     """``attn_decode_ring`` over the model axis: each local shard projects
     its heads and decodes them from its kv heads of this layer's rings
-    (split [p, B, W, Ks, hd] or replicated [B, W, K, hd], ``_kv_of``; written
+    (``split`` [p, B, W, Ks, hd] or replicated [B, W, K, hd], ``_kv_of``; written
     in place), then its rows of ``wo``, summed over the axis.  Returns the
     replicated attention output [B,1,D]."""
     B = x.shape[0]
@@ -441,7 +462,8 @@ def attn_decode_ring_tp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         q, k_new, v_new = _project_shard(cfg, p, i, heads, xin[i], shared,
                                          rope)
         out = _ring_step(q[:, 0], k_new[:, 0], v_new[:, 0],
-                         _kv_of(rings[0], i, heads), _kv_of(rings[1], i, heads),
+                         _kv_of(rings[0], i, heads, split),
+                         _kv_of(rings[1], i, heads, split),
                          positions, window, cfg.attn_logit_softcap)
         parts.append(out.reshape(B, 1, -1).to(cfg.dtype)
                      @ p["wo"][i].to(cfg.dtype))

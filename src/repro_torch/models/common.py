@@ -149,6 +149,50 @@ def require_ported(cfg: ModelConfig) -> List[LayerGroup]:
     return layer_groups(cfg)
 
 
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """How a decode state holds its caches, recorded once where
+    ``init_decode_state`` makes them (no cache's layout is read off its
+    rank): ``pools`` P KV pools of the paged slabs, ``kv_split`` t model
+    shards splitting the kv heads of the slabs, rings and cross K/V (1:
+    held once, replicated over the model axis), ``state_split`` model
+    shards splitting the recurrent states.  One layer's paged slab is
+    ``[N, bt, K, hd]``, pooled ``[P, N/P, bt, K, hd]``, split ``[t, N, bt,
+    K/t, hd]``, or both ``[t, P, N/P, bt, K/t, hd]`` (shard i's pools one
+    contiguous K1 operand once flattened); a ring or cross K/V ``[B, ...,
+    K, hd]`` or ``[t, B, ..., K/t, hd]``; ``h`` and ``conv`` ``[B, ...]``
+    or ``[t, B, ...]``.  A tree of the port holds it as structure, not as
+    a leaf (``_tree``)."""
+    _tree_static = True
+
+    pools: int = 1
+    kv_split: int = 1
+    state_split: int = 1
+
+    @property
+    def split(self) -> bool:
+        """Whether the kv heads are split over the model axis."""
+        return self.kv_split > 1
+
+    def shard_slab(self, slab: torch.Tensor, i: int) -> torch.Tensor:
+        """Local shard ``i``'s operand of one layer's paged slab (the whole
+        slab where the kv heads are not split), its pools flattened:
+        ``[N, bt, K or K/t, hd]``, a view."""
+        if self.split:
+            slab = slab[i]
+        return slab.flatten(0, 1) if self.pools > 1 else slab
+
+    def row_dim(self, name: str) -> int:
+        """The batch dimension of one layer's cache held a row (``ring_*``,
+        ``cross_*``, ``h``, ``conv``), after any model-shard lead."""
+        split = self.state_split if name in ("h", "conv") else self.kv_split
+        return int(split > 1)
+
+    def pool_dim(self) -> int:
+        """The pool dimension of one layer's pooled slab."""
+        return int(self.split)
+
+
 # --------------------------------------------------------------------------- prims
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:

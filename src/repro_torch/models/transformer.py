@@ -43,12 +43,12 @@ shard's logits ``[p, ..., V/t]``; ``lm_loss`` builds the log-softmax from
 ``pmax`` and ``psum`` of the local logits, and ``greedy_sample`` picks
 across the shards, so the whole ``[.., V]`` is never gathered); the
 encoder-decoder's ``dec_embedding`` stays whole.  Decode reads the paged
-slabs, the rings and the cross K/V replicated (each shard its kv heads) or
-split ``[L, t, ..., K/t, hd]`` (``init_decode_state(kv_split=t)``), and the
-recurrent states per shard (``state_split=t``).  Pool-partitioned KV and
-sequence-parallel decode over the model axis raise NotImplementedError
-naming ROADMAP queue 1 slice 16.1c.  Without ``tp``, or with an axis of
-size 1, every path is the one above.
+slabs (pooled or not), the rings and the cross K/V replicated (each shard
+its kv heads) or split ``[L, t, ..., K/t, hd]``
+(``init_decode_state(kv_split=t)``), and the recurrent states per shard
+(``state_split=t``), as the state's ``CacheLayout`` records; under
+sequence-parallel decode each shard attends its heads over the pools.
+Without ``tp``, or with an axis of size 1, every path is the one above.
 
 Megatron sequence parallelism (the rules in force put ``act_seq`` on
 ``model``, as ``specs.make_rules`` does for ``PerfOptions(seq_parallel=True)``
@@ -94,8 +94,8 @@ from .attention import (ShardHeads, _kv_of, attend, attend_tp,
                         attn_decode_ring, attn_decode_ring_tp, cross_attention,
                         cross_attention_tp, cross_kv, cross_kv_tp,
                         heads_sharded, init_attn, project_qk_rope_v, rope_for)
-from .common import (SHAPES_ONLY, LayerGroup, ModelConfig, _dense, apply_norm,
-                     init_norm, require_ported)
+from .common import (SHAPES_ONLY, CacheLayout, LayerGroup, ModelConfig,
+                     _dense, apply_norm, init_norm, require_ported)
 from .ffn import ffn_forward, init_ffn
 from .moe import init_moe, moe_forward
 from .rglru import init_rglru, rglru_decode, rglru_forward
@@ -410,14 +410,15 @@ def _store_state(cache: Dict[str, torch.Tensor], li: int,
 
 def _store_kv(cfg: ModelConfig, g: LayerGroup, cache: Dict[str, torch.Tensor],
               li: int, k: torch.Tensor, v: torch.Tensor,
-              positions: torch.Tensor, phys_blocks: torch.Tensor) -> None:
+              positions: torch.Tensor, phys_blocks: torch.Tensor,
+              layout: CacheLayout) -> None:
     """A prompt's self-attention K/V into layer ``li``'s cache: scattered
-    into the paged slabs through the block table, or the last ``min(S, W)``
-    tokens into a ring rebuilt from zeros (the state is shared by every wave
-    and the warm-up, so the slots this prompt does not fill must not keep an
-    earlier wave's keys)."""
+    into the paged slabs through the block table (``layout.pools``: the
+    row's pool), or the last ``min(S, W)`` tokens into a ring rebuilt from
+    zeros (the state is shared by every wave and the warm-up, so the slots
+    this prompt does not fill must not keep an earlier wave's keys)."""
     if "k_slabs" in cache:
-        scatter = (scatter_prefill_pooled if cache["k_slabs"].dim() == 6
+        scatter = (scatter_prefill_pooled if layout.pools > 1
                    else scatter_prefill_plain)
         scatter(cache["k_slabs"][li], cache["v_slabs"][li], k, v, phys_blocks,
                 positions, cfg.kv_block_tokens)
@@ -438,23 +439,26 @@ def _store_ring(rings: Tuple[torch.Tensor, torch.Tensor], k: torch.Tensor,
 
 def _store_kv_shard(cfg: ModelConfig, g: LayerGroup,
                     cache: Dict[str, torch.Tensor], li: int,
-                    positions: torch.Tensor, phys_blocks: torch.Tensor):
+                    positions: torch.Tensor, phys_blocks: torch.Tensor,
+                    layout: CacheLayout):
     """The prefill's cache write of one model shard (``attend_tp``'s
     ``store``): its kv heads of the replicated slabs or ring, or its own
-    split slabs or ring."""
+    split slabs or ring; pooled slabs through each row's pool."""
     def store(i, heads, k, v):
         if "ring_k" in cache:
-            _store_ring((_kv_of(cache["ring_k"][li], i, heads),
-                         _kv_of(cache["ring_v"][li], i, heads)), k, v, g.window)
+            _store_ring((_kv_of(cache["ring_k"][li], i, heads, layout.split),
+                         _kv_of(cache["ring_v"][li], i, heads, layout.split)),
+                        k, v, g.window)
             return
         ks, vs = cache["k_slabs"][li], cache["v_slabs"][li]
-        if ks.dim() == 5:                     # split [p, N, bt, Ks, hd]
+        if layout.split:                      # [p, (P,) N, bt, Ks, hd]
             ks, vs = ks[i], vs[i]
         else:
             rng = slice(heads.kv0, heads.kv0 + heads.Ks)
-            ks, vs = ks[:, :, rng], vs[:, :, rng]
-        scatter_prefill_plain(ks, vs, k, v, phys_blocks, positions,
-                              cfg.kv_block_tokens)
+            ks, vs = ks[..., rng, :], vs[..., rng, :]
+        scatter = (scatter_prefill_pooled if layout.pools > 1
+                   else scatter_prefill_plain)
+        scatter(ks, vs, k, v, phys_blocks, positions, cfg.kv_block_tokens)
     return store
 
 
@@ -463,12 +467,14 @@ def _layer(cfg: ModelConfig, g: LayerGroup, li: int, lp: PyTree,
            cache: Optional[Dict[str, torch.Tensor]] = None,
            phys_blocks: Optional[torch.Tensor] = None,
            enc_out: Optional[torch.Tensor] = None,
-           tp: Optional[Pods] = None, seq: Optional[SeqParallel] = None
+           tp: Optional[Pods] = None, seq: Optional[SeqParallel] = None,
+           layout: CacheLayout = CacheLayout()
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Layer ``li`` of group ``g`` over a whole sequence x [B,S,D] (with
     ``seq``: the shards' rows [p, B, S/t, D]): (x, its MoE aux loss or
     None).  With ``cache`` it also fills its part of the group's decode
-    state (``_run_group``).  Each residual block goes through ``_block``."""
+    state (``_run_group``), held as ``layout`` says.  Each residual block
+    goes through ``_block``."""
     causal = g.kind != "enc_attn"
     if g.kind in ("ssd", "rglru"):
         fwd = ssd_forward if g.kind == "ssd" else rglru_forward
@@ -484,7 +490,8 @@ def _layer(cfg: ModelConfig, g: LayerGroup, li: int, lp: PyTree,
     elif tp is not None and heads_sharded(lp["attn"]):
         split = True
         store = (None if cache is None else
-                 _store_kv_shard(cfg, g, cache, li, positions, phys_blocks))
+                 _store_kv_shard(cfg, g, cache, li, positions, phys_blocks,
+                                 layout))
 
         def mixer(h, ax):
             return attend_tp(cfg, lp["attn"], h, rope, ax, causal=causal,
@@ -497,18 +504,20 @@ def _layer(cfg: ModelConfig, g: LayerGroup, li: int, lp: PyTree,
             a = attend(cfg, lp["attn"], q, k, v, causal=causal,
                        window=g.window)
             if cache is not None:
-                _store_kv(cfg, g, cache, li, k, v, positions, phys_blocks)
+                _store_kv(cfg, g, cache, li, k, v, positions, phys_blocks,
+                          layout)
             return a, None
     x, _ = _block(cfg, x, lp["norm1"], mixer, tp, seq, split)
     if g.kind == "ssd":                 # an SSD layer has no FFN
         return x, None
     if g.kind == "dec_attn":
-        ck, cv = ((cache["cross_k"][li], cache["cross_v"][li])
-                  if cache is not None
-                  else _cross_kv(cfg, lp["cross"], enc_out, tp))
+        if cache is not None:
+            ck, cv, split = cache["cross_k"][li], cache["cross_v"][li], layout.split
+        else:                           # each shard's own, stacked
+            (ck, cv), split = _cross_kv(cfg, lp["cross"], enc_out, tp), True
         x, _ = _block(cfg, x, lp["norm_cross"],
                       lambda h, ax: (_cross_attend(cfg, lp["cross"], h, ck,
-                                                   cv, ax), None),
+                                                   cv, ax, split), None),
                       tp, seq, tp is not None and heads_sharded(lp["cross"]))
     return _ffn_block(cfg, lp, x, tp, seq)
 
@@ -569,10 +578,12 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
                phys_blocks: Optional[torch.Tensor] = None,
                enc_out: Optional[torch.Tensor] = None,
                tp: Optional[Pods] = None, remat=False,
-               seq: Optional[SeqParallel] = None
+               seq: Optional[SeqParallel] = None,
+               layout: CacheLayout = CacheLayout()
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer group over a whole sequence x [B,S,D] (with ``seq``: the
-    shards' rows): (x, the summed MoE aux loss or None).  With ``cache`` (the group's decode state) every
+    shards' rows): (x, the summed MoE aux loss or None).  With ``cache`` (the
+    group's decode state, held as ``layout`` says) every
     layer also fills its part of it, in place: self-attention K/V
     (``_store_kv``), the SSD / RG-LRU state, and a decoder layer reads its
     cross K/V from it; without, a decoder layer projects ``enc_out``.
@@ -585,7 +596,7 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
     for li, lp in enumerate(gp):
         args = (cfg, g, li, lp, x, positions, rope)
         kw = dict(cache=cache, phys_blocks=phys_blocks, enc_out=enc_out, tp=tp,
-                  seq=seq)
+                  seq=seq, layout=layout)
         if policy is not None and cache is None and _recording(x, lp):
             x, a = _rematerialised(_layer, policy, *args, **kw)
         else:
@@ -606,9 +617,11 @@ def _cross_kv(cfg: ModelConfig, p: PyTree, enc_out: torch.Tensor,
 
 def _cross_attend(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
                   ck: torch.Tensor, cv: torch.Tensor,
-                  tp: Optional[Pods]) -> torch.Tensor:
+                  tp: Optional[Pods], split: bool) -> torch.Tensor:
+    """Cross-attention on ck / cv: each shard's own stacked ``[p, ...]``
+    (``split``) or held once, when the heads split over ``tp``."""
     if tp is not None and heads_sharded(p):
-        return cross_attention_tp(cfg, p, x, ck, cv, tp)
+        return cross_attention_tp(cfg, p, x, ck, cv, tp, split=split)
     return cross_attention(cfg, p, x, ck, cv)
 
 
@@ -721,16 +734,19 @@ def prefill_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
     dec_g = require_ported(cfg)[1]
     tp = model_axis(tp)
     dec_cache, dp = state.caches[1], params["groups"][1]
+    layout = state.layout
     enc_out = _encode(cfg, params, enc_feats, tp)
     for li, lp in enumerate(dp):
         ck, cv = _cross_kv(cfg, lp["cross"], enc_out, tp)
+        whole = tp is None or not heads_sharded(lp["cross"])
         for name, kv in (("cross_k", ck), ("cross_v", cv)):
             cache = dec_cache[name][li]
-            if ck.dim() == 4 or cache.dim() == 5:      # whole, or split alike
+            if whole or layout.split:             # whole, or split alike
                 cache.copy_(kv)
                 continue
             for i, shard in enumerate(tp.local_indices()):
-                _kv_of(cache, i, ShardHeads(cfg, lp["cross"], shard)).copy_(kv[i])
+                _kv_of(cache, i, ShardHeads(cfg, lp["cross"], shard),
+                       False).copy_(kv[i])
     B, Sd = dec_tokens.shape
     positions = _positions(B, Sd, dec_tokens.device)
     seq = seq_shards(tp, Sd)
@@ -738,11 +754,11 @@ def prefill_encdec(cfg: ModelConfig, params: PyTree, enc_feats: torch.Tensor,
     if seq is not None:
         y = seq.tp.scatter_dim(y, 1)
     y, _ = _run_group(cfg, dec_g, dp, y, positions, cache=dec_cache,
-                      phys_blocks=phys_blocks, tp=tp, seq=seq)
+                      phys_blocks=phys_blocks, tp=tp, seq=seq, layout=layout)
     logits = _lm_head(cfg, params, y[:, -1] if seq is None
                       else seq.last_rows(y))
     seq_lens = torch.full((B,), Sd, dtype=torch.int32, device=y.device)
-    return logits, DecodeState(state.caches, seq_lens)
+    return logits, state._replace(seq_lens=seq_lens)
 
 
 def _vocab_parallel_ll(logits: torch.Tensor, targets: torch.Tensor,
@@ -800,9 +816,12 @@ def lm_loss(cfg: ModelConfig, params: PyTree, batch: Dict[str, torch.Tensor],
 
 # --------------------------------------------------------------------------- decode
 class DecodeState(NamedTuple):
-    """Per-group caches (tuple indexed like layer_groups(cfg))."""
+    """Per-group caches (tuple indexed like layer_groups(cfg)), the rows'
+    lengths, and how the caches are held (``layout``, recorded by
+    ``init_decode_state``; a new state is ``state._replace(...)``)."""
     caches: Tuple[Dict[str, torch.Tensor], ...]
     seq_lens: torch.Tensor        # [B] tokens so far (incl. prompt), int32
+    layout: CacheLayout
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
@@ -818,16 +837,21 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
     SSD and RG-LRU groups a float32 state ``h`` and a conv tail, the encoder
     nothing.  ``kv_split`` = t > 1 splits the slabs', the rings' and the
     cross K/V's kv heads over t model shards, ``[L, t, ..., K / t, hd]``
-    (one contiguous paged-kernel operand a shard); the default holds them
-    once, replicated over the model axis.  ``state_split`` = t > 1 holds
-    each model shard's recurrent state, ``[L, t, ...]`` of its heads or
-    channels (``launch/specs.py:state_split``).  All zeros: a masked slot
-    must hold a finite value."""
-    if kv_split > 1 and (n_pools > 1 or cfg.n_kv_heads % kv_split):
+    (pooled slabs ``[L, t, n_pools, n_blocks // n_pools, bt, K / t, hd]``:
+    one contiguous paged-kernel operand a shard, its pools flattened); the
+    default holds them once, replicated over the model axis.
+    ``state_split`` = t > 1 holds each model shard's recurrent state, ``[L,
+    t, ...]`` of its heads or channels (``launch/specs.py:state_split``).
+    The state records all three (``CacheLayout``).  All zeros: a masked
+    slot must hold a finite value."""
+    if cfg.n_kv_heads % kv_split:
         raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over "
-                         f"{kv_split} shards of one pool")
-    slab_dims = ((n_pools, n_blocks // n_pools) if n_pools > 1
-                 else (kv_split, n_blocks) if kv_split > 1 else (n_blocks,))
+                         f"{kv_split} shards")
+    if n_blocks % n_pools:
+        raise ValueError(f"{n_blocks} frames do not split over {n_pools} pools")
+    slab_dims = (((kv_split,) if kv_split > 1 else ())
+                 + ((n_pools, n_blocks // n_pools) if n_pools > 1
+                    else (n_blocks,)))
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
@@ -862,7 +886,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
         caches.append({n: torch.zeros(shape, dtype=dt, device=device)
                        for n, (shape, dt) in shapes.items()})
     return DecodeState(tuple(caches),
-                       torch.zeros((batch,), dtype=torch.int32, device=device))
+                       torch.zeros((batch,), dtype=torch.int32, device=device),
+                       CacheLayout(n_pools, kv_split, state_split))
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
@@ -876,11 +901,10 @@ def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
     written in place.  ``sp``: sequence-parallel decode of the global layers
     over the pools (the table's columns split over them; over ``pods`` when
     given).  ``tp``: the model axis (vocab-split logits then come as the
-    local shards' [p, B, V/t]).  Returns (logits [B,V], new state)."""
+    local shards' [p, B, V/t]); with ``sp`` each model shard decodes its
+    heads sequence-parallel and the shards' row-parallel outputs are summed
+    over it.  Returns (logits [B,V], new state)."""
     tp = model_axis(tp)
-    if tp is not None and sp:
-        raise NotImplementedError("sequence-parallel decode over the model "
-                                  "axis waits for ROADMAP queue 1 slice 16.1c")
     positions = state.seq_lens                       # position of new token
     if cfg.family == "encdec":
         x = _dec_embed(cfg, params, tokens[:, None], positions[:, None])
@@ -892,16 +916,16 @@ def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
         if g.kind == "enc_attn":                    # no decode state
             continue
         x = _decode_group(cfg, g, gp, cache, x, positions, phys_blocks,
-                          seq_lens, sp=sp, pods=pods, tp=tp)
+                          seq_lens, state.layout, sp=sp, pods=pods, tp=tp)
     logits = _lm_head(cfg, params, x, tp)[..., 0, :]
-    return logits, DecodeState(state.caches, seq_lens)
+    return logits, state._replace(seq_lens=seq_lens)
 
 
 def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
                   cache: Dict[str, torch.Tensor], x: torch.Tensor,
                   positions: torch.Tensor, phys_blocks: torch.Tensor,
-                  seq_lens: torch.Tensor, *, sp: bool = False,
-                  pods: Optional[Pods] = None,
+                  seq_lens: torch.Tensor, layout: CacheLayout, *,
+                  sp: bool = False, pods: Optional[Pods] = None,
                   tp: Optional[Pods] = None) -> torch.Tensor:
     rope = (rope_for(cfg, positions[:, None], g.rope_theta)
             if g.kind in ATTN_KINDS else None)
@@ -919,17 +943,17 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
             a = attn_decode_ring_tp(
                 cfg, lp["attn"], h, positions,
                 (cache["ring_k"][li], cache["ring_v"][li]), rope=rope, tp=tp,
-                window=g.window)
+                window=g.window, split=layout.split)
         elif tp is not None and heads_sharded(lp["attn"]):
             a = attn_decode_paged_tp(
                 cfg, lp["attn"], h, positions,
                 (cache["k_slabs"][li], cache["v_slabs"][li]), phys_blocks,
-                seq_lens, rope=rope, tp=tp)
+                seq_lens, rope=rope, tp=tp, layout=layout, sp=sp, pods=pods)
         elif g.window is None:
             a, _ = attn_decode_paged(
                 cfg, lp["attn"], h, positions,
                 (cache["k_slabs"][li], cache["v_slabs"][li]), phys_blocks,
-                seq_lens, rope=rope, sp=sp, pods=pods)
+                seq_lens, rope=rope, sp=sp, pods=pods, pools=layout.pools)
         else:
             a, _, _ = attn_decode_ring(
                 cfg, lp["attn"], h, positions, cache["ring_k"][li],
@@ -938,7 +962,7 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
         if g.kind == "dec_attn":
             h = apply_norm(cfg, x, lp["norm_cross"])
             x = x + _cross_attend(cfg, lp["cross"], h, cache["cross_k"][li],
-                                  cache["cross_v"][li], tp)
+                                  cache["cross_v"][li], tp, layout.split)
         x, _ = _ffn_block(cfg, lp, x, tp)
     return x
 
@@ -961,11 +985,12 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     for g, gp, cache in zip(require_ported(cfg), params["groups"],
                             state.caches):
         x, _ = _run_group(cfg, g, gp, x, positions, cache=cache,
-                          phys_blocks=phys_blocks, tp=tp, seq=seq)
+                          phys_blocks=phys_blocks, tp=tp, seq=seq,
+                          layout=state.layout)
     logits = _lm_head(cfg, params, x[:, -1] if seq is None
                       else seq.last_rows(x), tp)
     seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
-    return logits, DecodeState(state.caches, seq_lens)
+    return logits, state._replace(seq_lens=seq_lens)
 
 
 def greedy_sample(logits: torch.Tensor, tp: Optional[Pods] = None

@@ -5,7 +5,10 @@ Moments are float32; new parameters are cast back to each parameter's
 dtype.  ``adamw_update`` writes parameters and moments IN PLACE (a
 full-width model's parameters, gradients and moments are 16 bytes a
 parameter, so a second copy of either does not fit) and returns them with
-the new step.
+the new step.  A leaf of more than ``CHUNK`` elements (an MoE layer's
+experts: 805 M float32) is updated ``CHUNK`` elements at a time: the update
+is elementwise, so the result is the same bit for bit, and its temporaries
+stay at a few hundred MB where the whole leaf's would be several GB.
 
 Weight decay follows the reference's rank rule, ``p.ndim >= 2``, taken on
 the reference's tree: there every layer group stacks its layers' leaves on
@@ -33,6 +36,11 @@ from .._tree import tree_leaves, tree_leaves_with_path, tree_map
 from ..distributed.pods import Pods
 
 PyTree = Any
+
+
+#: the most elements of a leaf that one pass of the update makes temporaries
+#: for (512 MB in float32)
+CHUNK = 1 << 27
 
 
 class AdamWState(NamedTuple):
@@ -117,12 +125,19 @@ def adamw_update(params: PyTree, grads: PyTree, state: AdamWState, *,
     flat_p = list(tree_leaves_with_path(params))
     flat_m, flat_v = tree_leaves(state.mu), tree_leaves(state.nu)
     for (path, p), g, m, v, s in zip(flat_p, flat_g, flat_m, flat_v, split):
-        g = g.to(torch.float32) * scale
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * torch.square(g))
-        upd = (m / b1t) / (torch.sqrt(v / b2t) + eps)
-        p32 = p.to(torch.float32)
-        if decays(path, p, s):
-            upd = upd + weight_decay * p32
-        p.copy_(p32 - lr * upd)
+        decay = decays(path, p, s)
+        pieces = [(p, g, m, v)]
+        if p.numel() > CHUNK and all(t.is_contiguous() for t in (p, m, v)):
+            flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
+            pieces = [tuple(t[i:i + CHUNK] for t in flat)
+                      for i in range(0, p.numel(), CHUNK)]
+        for p_, g_, m_, v_ in pieces:
+            g_ = g_.to(torch.float32) * scale
+            m_.mul_(b1).add_((1 - b1) * g_)
+            v_.mul_(b2).add_((1 - b2) * torch.square(g_))
+            upd = (m_ / b1t) / (torch.sqrt(v_ / b2t) + eps)
+            p32 = p_.to(torch.float32)
+            if decay:
+                upd = upd + weight_decay * p32
+            p_.copy_(p32 - lr * upd)
     return params, AdamWState(step, state.mu, state.nu), gnorm

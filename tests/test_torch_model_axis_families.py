@@ -30,10 +30,14 @@ sections checked by hand), the clip's norm over split leaves equals the
 whole tree's, ``DistPods`` on gloo at world 2 equals ``LoopPods(2)`` bit for
 bit on a train step of Qwen3-MoE and of Mamba-2 (the differentiable
 all-gather), Qwen3-MoE restores from (data 2, model 4) onto (2, 2) within
-1e-5 of the uninterrupted run, and what stays unported over the model axis
-(pool-partitioned KV, sequence-parallel decode, the int8 pod leg split
-across processes, and the data axis over caches held a row) raises naming
-slice 16.1c.
+1e-5 of the uninterrupted run.  The per-arch cases of Qwen3-MoE and
+RecurrentGemma run here, with the restore and the shard / gather identity;
+those of Gemma-3, Kimi-K2, Mamba-2 and Whisper run in
+``test_torch_model_axis_families_b``, through the same functions, so that
+two workers share the cases.  The grid's other options (pool-partitioned
+KV and sequence-parallel decode over the model axis, the data axis over
+caches held a row, the int8 pod leg across processes) are held in
+``test_torch_model_axis_options``.
 """
 from __future__ import annotations
 
@@ -41,7 +45,6 @@ import dataclasses
 import functools
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -58,9 +61,7 @@ from repro_torch._tree import (tree_leaves, tree_leaves_with_path,  # noqa: E402
                                tree_map)
 from repro_torch.launch import specs  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
-from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
-from repro_torch.models.common import SHAPES_ONLY  # noqa: E402
 from repro_torch.models.transformer import gather_vocab, vocab_split  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.optim.adamw import global_norm  # noqa: E402
@@ -72,6 +73,8 @@ from test_torch_train import _unstacked_pairs  # noqa: E402
 ARCHS = ["gemma3_4b", "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b",
          "mamba2_370m", "recurrentgemma_2b", "whisper_base"]
 MOE = ["qwen3_moe_235b_a22b", "kimi_k2_1t_a32b"]
+#: the archs whose cases run in this file (the rest: ``..._families_b``)
+HERE = ["qwen3_moe_235b_a22b", "recurrentgemma_2b"]
 B, S, STEPS, SE = 2, 37, 4, 24
 REF_REL = 1e-4         # against the reference's unsharded functions
 OWN_TOL = 1e-5         # against the port's model = 1 run
@@ -231,7 +234,7 @@ def _port_cached(arch, t, layout="rules"):
 
 
 @pytest.mark.parametrize("t,layout", CASES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", HERE)
 def test_torch_families_match_the_reference(arch, t, layout):
     ref, got = _reference(arch), _port_cached(arch, t, layout)
     assert got["layout"] == LAYOUT[arch][CASES.index((t, layout))]
@@ -251,7 +254,7 @@ def test_torch_families_match_the_reference(arch, t, layout):
 
 
 @pytest.mark.parametrize("t,layout", CASES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", HERE)
 def test_torch_families_match_model_one(arch, t, layout):
     own, got = _port_cached(arch, 1), _port_cached(arch, t, layout)
     assert np.abs(got["forward"] - own["forward"]).max() <= OWN_TOL
@@ -265,7 +268,7 @@ def test_torch_families_match_model_one(arch, t, layout):
 
 
 @pytest.mark.parametrize("t,layout", CASES)
-@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("arch", [a for a in MOE if a in HERE])
 def test_torch_moe_routes_equal_model_one_on_every_shard(arch, t, layout):
     """Every shard routes each MoE call's tokens as model = 1 does (the
     gathered logits are the whole router product)."""
@@ -312,7 +315,7 @@ def test_torch_shard_and_gather_are_inverse_for_every_family(arch, t):
 
 
 @pytest.mark.parametrize("t", [2, 4])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", HERE)
 def test_torch_clip_norm_over_split_leaves_equals_model_one(arch, t):
     """AdamW's global norm over a tree split over the model axis (split
     leaves summed over it, replicated ones counted once) equals the whole
@@ -329,7 +332,7 @@ def test_torch_clip_norm_over_split_leaves_equals_model_one(arch, t):
     assert abs(float(got) - float(want)) <= 1e-6 * float(want)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b"])
 def test_torch_families_on_gloo_equal_loop_pods(tmp_path, arch):
     """A train step over DistPods(gloo, 2) as the model axis: loss,
     gradients and updated weights bit for bit LoopPods(2)'s; the router
@@ -363,46 +366,3 @@ def test_torch_moe_elastic_remesh_restore(tmp_path):
     _, _, resumed = _steps(cfg, grid_b, state["params"], state["opt"], 3, 2)
     assert all(np.isfinite(first + resumed))
     assert max(abs(a - b) for a, b in zip(uninterrupted, resumed)) <= OWN_TOL
-
-
-def test_torch_pooled_kv_over_the_model_axis_names_16_1c():
-    for arch in ARCHS[:-1]:                    # serve() takes decoder-only
-        with pytest.raises(NotImplementedError, match="16.1c"):
-            serve(arch, model=2, n_pools=2, n_pods=2, device="cpu",
-                  verbose=False)
-
-
-def test_torch_per_row_caches_over_the_data_axis_name_16_1c():
-    """A ring, a recurrent state or cross K/V is held a row: the data axis
-    does not split them yet (the paged slabs it does, through the table)."""
-    for arch in ARCHS[:-1]:
-        if arch in MOE:                       # paged slabs only
-            continue
-        with pytest.raises(NotImplementedError, match="16.1c"):
-            serve(arch, data=2, model=2, device="cpu", verbose=False)
-
-
-def test_torch_sp_decode_over_the_model_axis_names_16_1c():
-    grid = make_debug_mesh(1, model=2, device="cpu")
-    for arch in ARCHS:
-        cfg = tconfigs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="16.1c"):
-            specs.build_serve_step(cfg, sp=True, pods=grid)
-        params = specs.shard_params(tm.init_params(cfg, SHAPES_ONLY), grid, cfg)
-        with pytest.raises(NotImplementedError, match="16.1c"):
-            tm.decode_step(cfg, params, None, torch.zeros(1), None, sp=True,
-                           tp=grid.model)
-    # over a model axis of one, SP decode is the pod axis's own
-    specs.build_serve_step(cfg, sp=True, pods=make_debug_mesh(2, device="cpu"))
-
-
-def test_torch_int8_leg_over_a_model_axis_across_processes_names_16_1c():
-    """The int8 pod leg refuses a model axis split across processes (one
-    shard a rank) and runs over one held whole in the process."""
-    across = types.SimpleNamespace(n=2, model=types.SimpleNamespace(n=2, local=1))
-    for arch in ARCHS:
-        cfg = tconfigs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="16.1c"):
-            specs.build_train_step(cfg, compress_pod_grads=True, pods=across)
-        specs.build_train_step(cfg, compress_pod_grads=True,
-                               pods=make_debug_mesh(2, model=2, device="cpu"))

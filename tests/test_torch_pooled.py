@@ -213,7 +213,7 @@ def _sp_states(tcfg, tparams, n, B=2, S=21, steps=4, seed=5):
     for name in ("k_slabs", "v_slabs"):
         moved, local = _sp_layout(one.caches[0][name].numpy(), tables, n, F)
         sp.caches[0][name].copy_(torch.from_numpy(moved))
-    sp = tm.DecodeState(sp.caches, one.seq_lens.clone())
+    sp = sp._replace(seq_lens=one.seq_lens.clone())
     return tm.greedy_sample(logits), one, tables, sp, local
 
 
