@@ -1,3 +1,3 @@
-from .manager import PagedKVManager, ServingStats
+from .manager import PagedKVManager
 
-__all__ = ["PagedKVManager", "ServingStats"]
+__all__ = ["PagedKVManager"]

@@ -27,25 +27,17 @@ per-pod miss buffers to the prologue.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import DeviceLike, resolve_device
 from ..kernels.pte_gather.ops import pte_gather
 from ..pagedpt import BlockTableSpec, HostBlockManager
 from ..pagedpt.blocktable import CoherenceMode
 from .staging import StagingRing
-
-
-@dataclasses.dataclass
-class ServingStats:
-    steps: int = 0
-    tokens: int = 0
-    seqs_started: int = 0
-    seqs_finished: int = 0
 
 
 class PagedKVManager:
@@ -85,7 +77,6 @@ class PagedKVManager:
         #: the scheduler's pod: it walks every row's tail block to commit
         #: appended tokens (see ``physical_tables``)
         self.scheduler_pod = 0
-        self.stats = ServingStats()
         self.device = resolve_device(device)
         #: device-resident copy of ``host.canonical``, the table the walk reads
         self.device_table = torch.full((n_tables, entries_per_table), -1,
@@ -102,24 +93,25 @@ class PagedKVManager:
                        ) -> None:
         """With partitioned frames the sequence's frames come from its home
         ``pod``'s pool."""
-        n_blocks = max(1, -(-prompt_len // self.block_tokens))
-        pool = pod if self.n_pools > 1 else 0
-        if pool >= self.n_pools:
-            raise ValueError(f"pod {pod} has no pool of the {self.n_pools}")
-        self.host.alloc_sequence(seq_id, n_blocks, pod, pool)
-        self._seq_pod[seq_id] = pod
-        self.stats.seqs_started += 1
+        with tracing.span("kv.admit"):
+            n_blocks = max(1, -(-prompt_len // self.block_tokens))
+            pool = pod if self.n_pools > 1 else 0
+            if pool >= self.n_pools:
+                raise ValueError(f"pod {pod} has no pool of the "
+                                 f"{self.n_pools}")
+            self.host.alloc_sequence(seq_id, n_blocks, pod, pool)
+            self._seq_pod[seq_id] = pod
 
     def maybe_extend(self, seq_id: int, new_len: int) -> None:
-        have = len(self.host.seqs[seq_id].logical_blocks)
-        need = -(-new_len // self.block_tokens)
-        if need > have:
-            self.host.extend_sequence(seq_id, need - have)
+        with tracing.span("kv.extend"):
+            have = len(self.host.seqs[seq_id].logical_blocks)
+            need = -(-new_len // self.block_tokens)
+            if need > have:
+                self.host.extend_sequence(seq_id, need - have)
 
     def finish_sequence(self, seq_id: int) -> None:
         self.host.free_sequence(seq_id)
         self._seq_pod.pop(seq_id, None)
-        self.stats.seqs_finished += 1
 
     # ------------------------------------------------------------ tables
     def logical_tables(self, seq_ids: List[int]) -> np.ndarray:
@@ -140,35 +132,40 @@ class PagedKVManager:
         One drain returns at most ``mutation_budget`` entries and a prefill
         wave can queue more, so drain until the buffer is empty.  Returns the
         frames [M] on the device."""
-        drains = []
-        while True:
-            tables, idx, val, valid = self.host.drain_mutation_buffer()
-            n = int(valid.sum())         # the drain fills a prefix
-            if n == 0:
-                break
-            drains.append((tables[:n], idx[:n], val[:n], valid[:n]))
-        cols = [np.concatenate(col) for col in zip(*drains)] if drains else None
-        if drains and self.replicas is not None:
-            self._coherence_queue.append(tuple(cols[:3]))
-        n, M = (cols[0].size if drains else 0), logical.size
-        if n == 0 and M == 0:
-            return torch.empty((0,), dtype=torch.int32, device=self.device)
-        # bytes: table, idx, value and logical as int32, then applied as bool
-        n_words = 3 * n + M
+        with tracing.span("kv.stage"):
+            drains = []
+            while True:
+                tables, idx, val, valid = self.host.drain_mutation_buffer()
+                n = int(valid.sum())         # the drain fills a prefix
+                if n == 0:
+                    break
+                drains.append((tables[:n], idx[:n], val[:n], valid[:n]))
+            cols = ([np.concatenate(col) for col in zip(*drains)] if drains
+                    else None)
+            if drains and self.replicas is not None:
+                self._coherence_queue.append(tuple(cols[:3]))
+            n, M = (cols[0].size if drains else 0), logical.size
+            if n == 0 and M == 0:
+                return torch.empty((0,), dtype=torch.int32,
+                                   device=self.device)
+            # bytes: table, idx, value and logical as int32, then applied as
+            # bool
+            n_words = 3 * n + M
 
-        def fill(buf: np.ndarray) -> None:
-            words = buf[:4 * n_words].view(np.int32)
-            if n:
-                words[:3 * n] = np.concatenate(cols[:3])
-                buf[4 * n_words:] = cols[3]
-            words[3 * n:] = logical
+            def fill(buf: np.ndarray) -> None:
+                words = buf[:4 * n_words].view(np.int32)
+                if n:
+                    words[:3 * n] = np.concatenate(cols[:3])
+                    buf[4 * n_words:] = cols[3]
+                words[3 * n:] = logical
 
-        dev = self._staging.send(fill, 4 * n_words + n)
-        words = dev[:4 * n_words].view(torch.int32)
-        mutations = (words[:n], words[n:2 * n], words[2 * n:3 * n],
-                     dev[4 * n_words:].view(torch.bool)) if n else None
-        frames, _, _ = pte_gather(self.device_table, words[3 * n:],
-                                  self.spec.prefetch_degree, mutations)
+            dev = self._staging.send(fill, 4 * n_words + n)
+            words = dev[:4 * n_words].view(torch.int32)
+            mutations = (words[:n], words[n:2 * n], words[2 * n:3 * n],
+                         dev[4 * n_words:].view(torch.bool)) if n else None
+        with tracing.span("k3"):
+            frames, _, _ = pte_gather(self.device_table, words[3 * n:],
+                                      self.spec.prefetch_degree, mutations)
         return frames
 
     def sync_device_table(self) -> None:
@@ -192,8 +189,21 @@ class PagedKVManager:
         ``pod`` keeps the legacy single-pod walk.  Misses trigger the
         numaPTE on-demand fetch protocol; negative seq ids (padding rows)
         are skipped entirely."""
-        logical = self.logical_tables(seq_ids)
-        if record:
+        with tracing.span("kv.walk"):
+            logical = self.logical_tables(seq_ids)
+            if record:
+                self._record(seq_ids, logical, pod)
+            return self._walk(logical.reshape(-1)).view(logical.shape)
+
+    def _record(self, seq_ids: List[int], logical: np.ndarray,
+                pod: Optional[int]) -> None:
+        """The host protocol's record of the walk's accesses (see
+        ``physical_tables``); its span counts the accesses, the misses and
+        the on-demand fetches (``HostCounters`` deltas)."""
+        c = self.host.counters
+        local, miss, fetches = (c.translation_local, c.translation_miss,
+                                c.fetches)
+        with tracing.span("kv.record") as rec:
             for r, sid in enumerate(seq_ids):
                 if sid < 0:
                     continue
@@ -204,7 +214,11 @@ class PagedKVManager:
                 if (pod is None and blocks.size
                         and walk_pod != self.scheduler_pod):
                     self.host.record_access(self.scheduler_pod, int(blocks[-1]))
-        return self._walk(logical.reshape(-1)).view(logical.shape)
+            if rec:
+                miss = c.translation_miss - miss
+                rec.counts.update(
+                    accesses=c.translation_local - local + miss, misses=miss,
+                    fetches=c.fetches - fetches)
 
     def check_device_table(self) -> None:
         """The device table, brought up to date, equals the host's canonical
@@ -230,25 +244,34 @@ class PagedKVManager:
         program order, fill pod 0's buffer first, then pod 1's ... (the
         pod-major all-gather keeps their order); what does not fit waits for
         the next call.  Pod p's misses are its own (``drain_miss_buffer``)."""
-        P = self.spec.n_pods
-        B = mutation_budget or self.spec.mutation_budget
-        M = miss_budget or self.spec.miss_budget
-        queued = ([np.concatenate(c) for c in zip(*self._coherence_queue)]
-                  if self._coherence_queue else [np.empty(0, np.int32)] * 3)
-        n = min(queued[0].size, P * B)
-        rest = [c[n:] for c in queued]
-        self._coherence_queue = [tuple(rest)] if rest[0].size else []
-        tables = np.zeros(P * B, np.int32)
-        idx = np.zeros(P * B, np.int32)
-        value = np.full(P * B, -1, np.int32)
-        valid = np.zeros(P * B, bool)
-        tables[:n], idx[:n], value[:n] = (c[:n] for c in queued)
-        valid[:n] = True
-        miss = np.stack([self.host.drain_miss_buffer(p, M) for p in range(P)])
-        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        return (dev(self.host.sharers.astype(np.int64)), dev(self.host.owner),
-                *(dev(a.reshape(P, B)) for a in (tables, idx, value, valid)),
-                dev(miss))
+        with tracing.span("coherence.inputs") as rec:
+            P = self.spec.n_pods
+            B = mutation_budget or self.spec.mutation_budget
+            M = miss_budget or self.spec.miss_budget
+            queued = ([np.concatenate(c) for c in zip(*self._coherence_queue)]
+                      if self._coherence_queue
+                      else [np.empty(0, np.int32)] * 3)
+            n = min(queued[0].size, P * B)
+            rest = [c[n:] for c in queued]
+            self._coherence_queue = [tuple(rest)] if rest[0].size else []
+            tables = np.zeros(P * B, np.int32)
+            idx = np.zeros(P * B, np.int32)
+            value = np.full(P * B, -1, np.int32)
+            valid = np.zeros(P * B, bool)
+            tables[:n], idx[:n], value[:n] = (c[:n] for c in queued)
+            valid[:n] = True
+            miss = np.stack([self.host.drain_miss_buffer(p, M)
+                             for p in range(P)])
+            if rec:
+                rec.counts.update(mutations=n, misses=int((miss >= 0).sum()),
+                                  mutation_slots=P * B, miss_slots=P * M)
+            dev = lambda a: torch.from_numpy(
+                np.ascontiguousarray(a)).to(self.device)
+            return (dev(self.host.sharers.astype(np.int64)),
+                    dev(self.host.owner),
+                    *(dev(a.reshape(P, B))
+                      for a in (tables, idx, value, valid)),
+                    dev(miss))
 
     def replica_mismatches(self, full: bool) -> int:
         """Entries where a replica differs from the host's canonical table:

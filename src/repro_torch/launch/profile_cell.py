@@ -19,10 +19,11 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from .._device import DeviceLike, resolve_device
 from ..configs import ARCH_IDS, SHAPES, get_config
 from . import analysis
@@ -34,6 +35,8 @@ DATA = 16
 #: the share of the card's memory a cut must fit by its analytic peak (room
 #: for the analytic peak's error, so that the cut never runs out of memory)
 BUDGET = 0.8
+#: the span around the profiled step, its window on the profiler's clock
+STEP = "cell.step"
 
 
 def _cell(arch: str, shape, rows: int, n_layers: Optional[int],
@@ -95,9 +98,9 @@ def card_cell(arch: str, shape_name: str, *, rows: Optional[int] = None,
 def profile(cell: CellSpec, *, steps: int = 3, top: int = 8) -> Dict:
     """Run ``cell`` on its card: one warm-up step, ``steps`` timed steps
     (CUDA events; the peak of allocated memory over them), one step under
-    the profiler (device busy ms, idle share against the timed median,
-    kernel launches, the largest kernels); with the cut work's analytic
-    bound and peak."""
+    the profiler (``device_busy``: the device's busy ms and idle share over
+    that step's own window; kernel launches, the largest kernels); with the
+    cut work's analytic bound and peak."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     def step():
@@ -118,13 +121,16 @@ def profile(cell: CellSpec, *, steps: int = 3, top: int = 8) -> Dict:
     peak = torch.cuda.max_memory_allocated()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
+        with tracing.span(STEP):
+            step()
+            torch.cuda.synchronize()
+    ops, ranges = tracing.profiled(prof)
+    (window,) = [(s, e) for n, s, e in ranges if n == tracing.PREFIX + STEP]
+    busy, idle = device_busy(ops, window)
     kernels = {e.key: (e.device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.device_time_total > 0}
-    busy = sum(ms for ms, _ in kernels.values())
     step_ms = sorted(times)[len(times) // 2]
     roof = analysis.roofline(cell)
     return {"arch": cell.arch, "shape": cell.shape.name, "rows": cell.rows,
@@ -134,7 +140,7 @@ def profile(cell: CellSpec, *, steps: int = 3, top: int = 8) -> Dict:
             "peak_gb": peak / 1e9,
             "analytic_peak_gb": analysis.peak_bytes(cell) / 1e9,
             "arguments_gb": analysis.device_bytes(cell) / 1e9,
-            "device_busy_ms": busy, "device_idle_share": 1 - busy / step_ms,
+            "device_busy_ms": busy, "device_idle_share": idle,
             "launches": sum(n for _, n in kernels.values()),
             "top_kernels": [{"kernel": k[:80], "ms": ms, "launches": n}
                             for k, (ms, n) in sorted(
@@ -144,6 +150,15 @@ def profile(cell: CellSpec, *, steps: int = 3, top: int = 8) -> Dict:
             "memory_ms": roof.memory_s * 1e3,
             "flops": roof.flops, "bytes": roof.bytes,
             "share_of_bound": roof.bound_s * 1e3 / step_ms}
+
+
+def device_busy(ops, window) -> Tuple[float, float]:
+    """(busy ms, idle share) of the device over ``window`` (start, end ns):
+    the union of the operations' (start, end) intervals clipped to it, so
+    that operations overlapping on different streams count once."""
+    start, end = window
+    busy = sum(e - s for s, e in tracing.union(ops, start, end))
+    return busy * 1e-6, 1.0 - busy / (end - start)
 
 
 def main(argv=None) -> None:

@@ -55,6 +55,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 
 import torch
 
+from .. import tracing
 from .._tree import tree_leaves, tree_leaves_with_path, tree_map, \
     tree_map_with_path
 from ..distributed.compression import compress_allreduce_pods
@@ -72,6 +73,7 @@ from ..models.transformer import (DecodeState, decode_step, prefill,
                                   vocab_split)
 from ..optim import adamw_init, adamw_update
 from ..optim.adamw import decays
+from ..kernels.pte_gather.ops import pte_gather
 from ..pagedpt.coherence import eager_sync, numapte_prologue
 from .mesh import make_debug_mesh
 
@@ -667,7 +669,8 @@ def build_serve_step(cfg: ModelConfig, sp: bool = False,
                 coh_out = _coherence_prologue(coherence, pods, *coh_args)
         logits, state = decode_on_grid(cfg, params, state, tokens,
                                        phys_blocks, pods, sp=sp)
-        sampled = (sample or grid_sampler(params, pods))(logits)
+        with tracing.span("sample"):
+            sampled = (sample or grid_sampler(params, pods))(logits)
         if coh_out is None:
             return sampled, state
         return sampled, state, coh_out
@@ -682,11 +685,20 @@ def _coherence_prologue(mode: str, pods: Pods, entries, sharers, owner,
     step and applies all of it (Mitosis: one K3 launch); NUMAPTE applies
     only sharer-filtered updates and fetches misses from owners with
     degree-d prefetch (two K3 launches).  entries [p, T, epb] are updated in
-    place; returns (entries, sharers)."""
-    if mode == "eager":
-        return eager_sync(entries, mut_t, mut_i, mut_v, mut_ok, pods), sharers
-    return numapte_prologue(entries, sharers, owner, mut_t, mut_i, mut_v,
-                            mut_ok, miss, PREFETCH_DEGREE, pods)
+    place; returns (entries, sharers).  Its span counts the bytes the
+    collectives move (``pods.wire_bytes``) and the K3 launches."""
+    wire, k3 = pods.wire_bytes, pte_gather.launches
+    with tracing.span("coherence.prologue") as rec:
+        if mode == "eager":
+            out = (eager_sync(entries, mut_t, mut_i, mut_v, mut_ok, pods),
+                   sharers)
+        else:
+            out = numapte_prologue(entries, sharers, owner, mut_t, mut_i,
+                                   mut_v, mut_ok, miss, PREFETCH_DEGREE, pods)
+        if rec:
+            rec.counts.update(wire_bytes=pods.wire_bytes - wire,
+                              k3=pte_gather.launches - k3)
+    return out
 
 
 # --------------------------------------------------------------------------- cells

@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..distributed.pods import Pods
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import NEG_INF, soft_cap
@@ -101,14 +102,20 @@ def project_qk_rope_v(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 def attend(cfg: ModelConfig, p: Dict[str, torch.Tensor],
            q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+           causal: bool = True, window: Optional[int] = None,
+           store: Optional[Callable] = None) -> torch.Tensor:
     """The flash kernel on projected q/k/v [B,S,heads,hd] (one S), then
     ``wo``.  The kernel takes [B,heads,S,hd]: it is handed transposed views
-    (it reads through strides, no copy is made)."""
+    (it reads through strides, no copy is made).  ``store(k, v)``, when
+    given, writes the prompt's K/V into the cache after the kernel (the
+    prefill's scatter); the two are the span ``attn.kernel``."""
     B, S = q.shape[:2]
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=window,
-                          softcap=cfg.attn_logit_softcap)
+    with tracing.span("attn.kernel"):
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, window=window,
+                              softcap=cfg.attn_logit_softcap)
+        if store is not None:
+            store(k, v)
     out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, -1)
     return out @ p["wo"].to(cfg.dtype)
 
@@ -194,11 +201,12 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
             k_slabs = k_slabs.flatten(0, 1)
             v_slabs = v_slabs.flatten(0, 1)
         # write the new token's KV, then attend through the block table
-        write_token_plain(k_slabs, v_slabs, k_new[:, 0], v_new[:, 0], tables,
-                          positions, bt)
-        out = paged_attention(q[:, 0].contiguous(), k_slabs, v_slabs, tables,
-                              seq_lens, window=window,
-                              softcap=cfg.attn_logit_softcap)
+        with tracing.span("attn.kernel"):
+            write_token_plain(k_slabs, v_slabs, k_new[:, 0], v_new[:, 0],
+                              tables, positions, bt)
+            out = paged_attention(q[:, 0].contiguous(), k_slabs, v_slabs,
+                                  tables, seq_lens, window=window,
+                                  softcap=cfg.attn_logit_softcap)
         k_slabs, v_slabs = kv
     out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.dtype)
     out = out @ p["wo"].to(cfg.dtype)

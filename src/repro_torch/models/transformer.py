@@ -84,6 +84,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from .. import tracing
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves
 from ..distributed.pods import Pods
@@ -499,15 +500,16 @@ def _layer(cfg: ModelConfig, g: LayerGroup, li: int, lp: PyTree,
     else:
         split = False
 
+        def store(k, v):
+            _store_kv(cfg, g, cache, li, k, v, positions, phys_blocks, layout)
+
         def mixer(h, ax):
             q, k, v = project_qk_rope_v(cfg, lp["attn"], h, rope)
-            a = attend(cfg, lp["attn"], q, k, v, causal=causal,
-                       window=g.window)
-            if cache is not None:
-                _store_kv(cfg, g, cache, li, k, v, positions, phys_blocks,
-                          layout)
-            return a, None
-    x, _ = _block(cfg, x, lp["norm1"], mixer, tp, seq, split)
+            return attend(cfg, lp["attn"], q, k, v, causal=causal,
+                          window=g.window,
+                          store=None if cache is None else store), None
+    with tracing.span(_mixer_span(g)):
+        x, _ = _block(cfg, x, lp["norm1"], mixer, tp, seq, split)
     if g.kind == "ssd":                 # an SSD layer has no FFN
         return x, None
     if g.kind == "dec_attn":
@@ -519,7 +521,14 @@ def _layer(cfg: ModelConfig, g: LayerGroup, li: int, lp: PyTree,
                       lambda h, ax: (_cross_attend(cfg, lp["cross"], h, ck,
                                                    cv, ax, split), None),
                       tp, seq, tp is not None and heads_sharded(lp["cross"]))
-    return _ffn_block(cfg, lp, x, tp, seq)
+    with tracing.span("ffn"):
+        return _ffn_block(cfg, lp, x, tp, seq)
+
+
+def _mixer_span(g: LayerGroup) -> str:
+    """The span of a layer's token mixer: ``attn`` for attention, else the
+    group's kind."""
+    return "attn" if g.kind in ATTN_KINDS else g.kind
 
 
 #: the values ``remat`` takes, as in the reference's ``_run_groups``
@@ -579,7 +588,7 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
                enc_out: Optional[torch.Tensor] = None,
                tp: Optional[Pods] = None, remat=False,
                seq: Optional[SeqParallel] = None,
-               layout: CacheLayout = CacheLayout()
+               layout: CacheLayout = CacheLayout(), first: int = 0
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer group over a whole sequence x [B,S,D] (with ``seq``: the
     shards' rows): (x, the summed MoE aux loss or None).  With ``cache`` (the
@@ -588,7 +597,9 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
     (``_store_kv``), the SSD / RG-LRU state, and a decoder layer reads its
     cross K/V from it; without, a decoder layer projects ``enc_out``.
     ``remat`` (``remat_policy``) rematerialises each layer of a training
-    forward (no cache, autograd recording); a prefill is never wrapped."""
+    forward (no cache, autograd recording); a prefill is never wrapped.
+    Each layer is a ``layer`` span counting its ``index``, ``first`` + its
+    place in the group."""
     rope = (rope_for(cfg, positions, g.rope_theta) if g.kind in ATTN_KINDS
             else None)
     policy = remat_policy(remat)
@@ -597,10 +608,11 @@ def _run_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree, x: torch.Tensor,
         args = (cfg, g, li, lp, x, positions, rope)
         kw = dict(cache=cache, phys_blocks=phys_blocks, enc_out=enc_out, tp=tp,
                   seq=seq, layout=layout)
-        if policy is not None and cache is None and _recording(x, lp):
-            x, a = _rematerialised(_layer, policy, *args, **kw)
-        else:
-            x, a = _layer(*args, **kw)
+        with tracing.span("layer", index=first + li):
+            if policy is not None and cache is None and _recording(x, lp):
+                x, a = _rematerialised(_layer, policy, *args, **kw)
+            else:
+                x, a = _layer(*args, **kw)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
@@ -904,21 +916,28 @@ def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
     local shards' [p, B, V/t]); with ``sp`` each model shard decodes its
     heads sequence-parallel and the shards' row-parallel outputs are summed
     over it.  Returns (logits [B,V], new state)."""
-    tp = model_axis(tp)
-    positions = state.seq_lens                       # position of new token
-    if cfg.family == "encdec":
-        x = _dec_embed(cfg, params, tokens[:, None], positions[:, None])
-    else:
-        x = _embed(cfg, params, tokens, tp)[:, None]
-    seq_lens = state.seq_lens + 1
-    for g, gp, cache in zip(require_ported(cfg), params["groups"],
-                            state.caches):
-        if g.kind == "enc_attn":                    # no decode state
-            continue
-        x = _decode_group(cfg, g, gp, cache, x, positions, phys_blocks,
-                          seq_lens, state.layout, sp=sp, pods=pods, tp=tp)
-    logits = _lm_head(cfg, params, x, tp)[..., 0, :]
-    return logits, state._replace(seq_lens=seq_lens)
+    with tracing.span("decode"):
+        tp = model_axis(tp)
+        positions = state.seq_lens                   # position of new token
+        with tracing.span("embed"):
+            if cfg.family == "encdec":
+                x = _dec_embed(cfg, params, tokens[:, None],
+                               positions[:, None])
+            else:
+                x = _embed(cfg, params, tokens, tp)[:, None]
+        seq_lens = state.seq_lens + 1
+        first = 0
+        for g, gp, cache in zip(require_ported(cfg), params["groups"],
+                                state.caches):
+            if g.kind == "enc_attn":                # no decode state
+                continue
+            x = _decode_group(cfg, g, gp, cache, x, positions, phys_blocks,
+                              seq_lens, state.layout, sp=sp, pods=pods, tp=tp,
+                              first=first)
+            first += len(gp)
+        with tracing.span("head"):
+            logits = _lm_head(cfg, params, x, tp)[..., 0, :]
+        return logits, state._replace(seq_lens=seq_lens)
 
 
 def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
@@ -926,44 +945,53 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
                   positions: torch.Tensor, phys_blocks: torch.Tensor,
                   seq_lens: torch.Tensor, layout: CacheLayout, *,
                   sp: bool = False, pods: Optional[Pods] = None,
-                  tp: Optional[Pods] = None) -> torch.Tensor:
+                  tp: Optional[Pods] = None, first: int = 0) -> torch.Tensor:
+    """One decode step of a layer group.  Each layer is a ``layer`` span
+    counting its ``index`` (``first`` + its place in the group) that holds
+    its mixer's span (``_mixer_span``) and its FFN's (``ffn``)."""
     rope = (rope_for(cfg, positions[:, None], g.rope_theta)
             if g.kind in ATTN_KINDS else None)
+    mixer = _mixer_span(g)
     for li, lp in enumerate(gp):
-        h = apply_norm(cfg, x, lp["norm1"])
-        if g.kind in ("ssd", "rglru"):
-            step = ssd_decode if g.kind == "ssd" else rglru_decode
-            a, hs, conv = step(cfg, lp[g.kind], h, cache["h"][li],
-                               cache["conv"][li], tp=tp)
-            _store_state(cache, li, {"h": hs, "conv": conv})
-            if g.kind == "ssd":             # an SSD layer has no FFN
+        with tracing.span("layer", index=first + li):
+            with tracing.span(mixer):
+                h = apply_norm(cfg, x, lp["norm1"])
+                if g.kind in ("ssd", "rglru"):
+                    step = ssd_decode if g.kind == "ssd" else rglru_decode
+                    a, hs, conv = step(cfg, lp[g.kind], h, cache["h"][li],
+                                       cache["conv"][li], tp=tp)
+                    _store_state(cache, li, {"h": hs, "conv": conv})
+                elif tp is not None and heads_sharded(lp["attn"]) and g.window:
+                    a = attn_decode_ring_tp(
+                        cfg, lp["attn"], h, positions,
+                        (cache["ring_k"][li], cache["ring_v"][li]), rope=rope,
+                        tp=tp, window=g.window, split=layout.split)
+                elif tp is not None and heads_sharded(lp["attn"]):
+                    a = attn_decode_paged_tp(
+                        cfg, lp["attn"], h, positions,
+                        (cache["k_slabs"][li], cache["v_slabs"][li]),
+                        phys_blocks, seq_lens, rope=rope, tp=tp,
+                        layout=layout, sp=sp, pods=pods)
+                elif g.window is None:
+                    a, _ = attn_decode_paged(
+                        cfg, lp["attn"], h, positions,
+                        (cache["k_slabs"][li], cache["v_slabs"][li]),
+                        phys_blocks, seq_lens, rope=rope, sp=sp, pods=pods,
+                        pools=layout.pools)
+                else:
+                    a, _, _ = attn_decode_ring(
+                        cfg, lp["attn"], h, positions, cache["ring_k"][li],
+                        cache["ring_v"][li], rope=rope, window=g.window)
                 x = x + a
+            if g.kind == "ssd":                 # an SSD layer has no FFN
                 continue
-        elif tp is not None and heads_sharded(lp["attn"]) and g.window:
-            a = attn_decode_ring_tp(
-                cfg, lp["attn"], h, positions,
-                (cache["ring_k"][li], cache["ring_v"][li]), rope=rope, tp=tp,
-                window=g.window, split=layout.split)
-        elif tp is not None and heads_sharded(lp["attn"]):
-            a = attn_decode_paged_tp(
-                cfg, lp["attn"], h, positions,
-                (cache["k_slabs"][li], cache["v_slabs"][li]), phys_blocks,
-                seq_lens, rope=rope, tp=tp, layout=layout, sp=sp, pods=pods)
-        elif g.window is None:
-            a, _ = attn_decode_paged(
-                cfg, lp["attn"], h, positions,
-                (cache["k_slabs"][li], cache["v_slabs"][li]), phys_blocks,
-                seq_lens, rope=rope, sp=sp, pods=pods, pools=layout.pools)
-        else:
-            a, _, _ = attn_decode_ring(
-                cfg, lp["attn"], h, positions, cache["ring_k"][li],
-                cache["ring_v"][li], rope=rope, window=g.window)
-        x = x + a
-        if g.kind == "dec_attn":
-            h = apply_norm(cfg, x, lp["norm_cross"])
-            x = x + _cross_attend(cfg, lp["cross"], h, cache["cross_k"][li],
-                                  cache["cross_v"][li], tp, layout.split)
-        x, _ = _ffn_block(cfg, lp, x, tp)
+            if g.kind == "dec_attn":
+                h = apply_norm(cfg, x, lp["norm_cross"])
+                x = x + _cross_attend(cfg, lp["cross"], h,
+                                      cache["cross_k"][li],
+                                      cache["cross_v"][li], tp, layout.split)
+            with tracing.span("ffn"):
+                x, _ = _ffn_block(cfg, lp, x, tp)
     return x
 
 
@@ -977,20 +1005,26 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     model axis, as for ``decode_step``; sequence parallelism as
     ``forward_lm``'s (the caches and the logits are the same).
     Returns (logits of the last position [B,V], new state)."""
-    B, S = tokens.shape
-    tp = model_axis(tp)
-    seq = seq_shards(tp, S)
-    x = _embed(cfg, params, tokens, tp, seq)
-    positions = _positions(B, S, tokens.device)
-    for g, gp, cache in zip(require_ported(cfg), params["groups"],
-                            state.caches):
-        x, _ = _run_group(cfg, g, gp, x, positions, cache=cache,
-                          phys_blocks=phys_blocks, tp=tp, seq=seq,
-                          layout=state.layout)
-    logits = _lm_head(cfg, params, x[:, -1] if seq is None
-                      else seq.last_rows(x), tp)
-    seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
-    return logits, state._replace(seq_lens=seq_lens)
+    with tracing.span("prefill"):
+        B, S = tokens.shape
+        tp = model_axis(tp)
+        seq = seq_shards(tp, S)
+        with tracing.span("embed"):
+            x = _embed(cfg, params, tokens, tp, seq)
+        positions = _positions(B, S, tokens.device)
+        first = 0
+        for g, gp, cache in zip(require_ported(cfg), params["groups"],
+                                state.caches):
+            x, _ = _run_group(cfg, g, gp, x, positions, cache=cache,
+                              phys_blocks=phys_blocks, tp=tp, seq=seq,
+                              layout=state.layout, first=first)
+            first += len(gp)
+        with tracing.span("head"):
+            logits = _lm_head(cfg, params, x[:, -1] if seq is None
+                              else seq.last_rows(x), tp)
+        seq_lens = torch.full((B,), S, dtype=torch.int32,
+                              device=tokens.device)
+        return logits, state._replace(seq_lens=seq_lens)
 
 
 def greedy_sample(logits: torch.Tensor, tp: Optional[Pods] = None
