@@ -278,6 +278,7 @@ from repro_torch.distributed.sharding import use_rules  # noqa: E402
 from repro_torch.kvcache import PagedKVManager  # noqa: E402
 from repro_torch.kvcache import gather as kv_gather  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import tracing  # noqa: E402
 from repro_torch.launch import (analysis, dryrun, profile_cell,  # noqa: E402
                                 specs)
 from repro_torch.launch.serve import serve  # noqa: E402
@@ -1224,7 +1225,8 @@ def walk_device_ops():
             fn()
             torch.cuda.synchronize()
         ops[kind] = {e.key[:80]: e.count for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA}
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith(tracing.PREFIX)}
 
     walk_wave(kv, list(range(16)), False, call)
     return ops
@@ -4305,7 +4307,8 @@ def phase_profile(arch: str, n_layers=None, walks: bool = True,
         return {e.key: (e.device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.device_time_total > 0}
+                and e.device_time_total > 0
+                and not e.key.startswith(tracing.PREFIX)}
 
     walk_ops = walk_device_ops() if walks else {}
     for kind, names in walk_ops.items():
@@ -4371,7 +4374,8 @@ def phase_profile_train(warm: int = 2, profiled: int = 2):
     by_kernel = {e.key: (e.device_time_total / 1e3 / profiled, e.count / profiled)
                  for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.device_time_total > 0}
+                 and e.device_time_total > 0
+                 and not e.key.startswith(tracing.PREFIX)}
     check(bool(by_kernel), "the profiler recorded no device time")
     busy = sum(ms for ms, _ in by_kernel.values())
     step_ms = 1e3 * wall[-1]

@@ -101,6 +101,12 @@ def _scratch(index: int, stream: int, n_counters: int,
     run in order and share them; launches on two streams never do."""
     counters, partials = _SCRATCH.get((index, stream), (None, None))
     device = torch.device("cuda", index)
+    grow = (counters is None or counters.numel() < n_counters
+            or partials.numel() < n_partials)
+    if grow and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("paged_attention: a CUDA graph's capture stream "
+                           "needs its scratch made before the capture (run "
+                           "the step once on that stream first)")
     if counters is None or counters.numel() < n_counters:
         counters = torch.zeros(max(n_counters, 1 << 12), dtype=torch.int32,
                                device=device)
@@ -109,6 +115,12 @@ def _scratch(index: int, stream: int, n_counters: int,
                                device=device)
     _SCRATCH[(index, stream)] = (counters, partials)
     return counters.data_ptr(), partials.data_ptr()
+
+
+def stream_scratch(index: int, stream: int) -> Tuple[torch.Tensor, ...]:
+    """The scratch tensors of (device, stream), which a CUDA graph captured
+    on that stream keeps alive: its launches read their addresses."""
+    return _SCRATCH.get((index, stream), ())
 
 
 @functools.lru_cache(maxsize=None)

@@ -60,16 +60,14 @@ from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..kernels.pte_gather.ops import pte_gather
 from ..kvcache import PagedKVManager
 from ..kvcache.gather import pool_of_rows
-from ..models import (ModelConfig, decode_step, init_decode_state,
-                      init_params, prefill)
+from ..models import ModelConfig, init_decode_state, init_params, prefill
 from ..models.transformer import gather_vocab, vocab_split
 from ..pagedpt.blocktable import (CoherenceMode, eager_sync_bytes,
                                   numapte_fetch_bytes)
 from .mesh import make_debug_mesh
-from .specs import (_coherence_prologue, build_serve_step, decode_on_grid,
-                    grid_sampler, kv_split, make_rules, prefill_on_grid,
-                    shard_params, split_leaves, state_split, timed,
-                    elapsed_ms)
+from .specs import (_coherence_prologue, build_serve_step, grid_sampler,
+                    kv_split, make_rules, prefill_on_grid, shard_params,
+                    split_leaves, state_split, timed, elapsed_ms)
 
 
 def _sync(device: torch.device) -> None:
@@ -180,29 +178,28 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
     coherence = mode if replicas else "none"
     timings: list = []
     finite = torch.ones((), dtype=torch.bool, device=device)
-    n_live = batch
     greedy = grid_sampler(params, grid)
     traced: list = []            # per step: (top values, top ids) [batch, k]
     first_logits = None
 
     def sample(logits: torch.Tensor) -> torch.Tensor:
-        nonlocal finite, first_logits
-        finite &= torch.isfinite(logits[..., :n_live, :]).all()
-        if trace_logits:
-            # the trace's gather is the harness's, not the step's: its
-            # bytes leave the model axis's counters as they were
-            counted = (grid.model.wire_bytes, dict(grid.model.calls))
-            whole = (gather_vocab(logits, tp) if tp is not None
-                     and vocab_split(params) else logits).float()
-            grid.model.wire_bytes, grid.model.calls = counted
-            if first_logits is None:
-                first_logits = whole.cpu().numpy()
-            top = whole.topk(trace_logits, dim=-1)
-            traced.append((top.values, top.indices))
+        nonlocal first_logits
+        # the trace's gather is the harness's, not the step's: its
+        # bytes leave the model axis's counters as they were
+        counted = (grid.model.wire_bytes, dict(grid.model.calls))
+        whole = (gather_vocab(logits, tp) if tp is not None
+                 and vocab_split(params) else logits).float()
+        grid.model.wire_bytes, grid.model.calls = counted
+        if first_logits is None:
+            first_logits = whole.cpu().numpy()
+        top = whole.topk(trace_logits, dim=-1)
+        traced.append((top.values, top.indices))
         return greedy(logits)
 
+    # the default sampler lets the card replay the step as a CUDA graph
     step = build_serve_step(cfg, coherence=coherence, pods=grid,
-                            sample=sample, prologue_timer=timings)
+                            sample=sample if trace_logits else None,
+                            prologue_timer=timings)
     k3_prologue = 0
     mismatches = 0
 
@@ -222,10 +219,10 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         return launched
 
     # run prefill and decode once before the timer starts, so that building
-    # the kernels and warming the GEMM library never land inside the
-    # tok_per_s window; their outputs are discarded.  All-(-1) tables keep
-    # them out of the paged slabs, but they do write the local layers' rings,
-    # which every wave's prefill rebuilds from zeros
+    # the kernels, warming the GEMM library and capturing the step's graph
+    # never land inside the tok_per_s window; their outputs are discarded.
+    # All-(-1) tables keep them out of the paged slabs, but they do write the
+    # local layers' rings, which every wave's prefill rebuilds from zeros
     warm_phys = torch.full((batch, max_blocks), -1, dtype=torch.int32,
                            device=device)
     warm_prompts = torch.zeros((batch, prompt_len), dtype=torch.int32,
@@ -239,10 +236,9 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
 
     run_prefill(warm_prompts, state, warm_phys)
     warm_tokens = torch.zeros((batch,), dtype=torch.int32, device=device)
-    if on_grid:
-        decode_on_grid(cfg, params, state, warm_tokens, warm_phys, grid)
-    else:
-        decode_step(cfg, params, state, warm_tokens, warm_phys)
+    step(params, state, warm_tokens, warm_phys)
+    traced.clear()
+    first_logits = None
     _sync(device)
     grid.model.reset_counters()
 
@@ -289,6 +285,8 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
                 tokens, st, _ = step(params, st, tokens, phys, kv.replicas,
                                      *kv.coherence_inputs())
                 k3_prologue += pte_gather.launches - before + extra_rounds()
+            finite &= torch.isfinite(
+                step.last["logits"][..., :n_live, :]).all()
             model_step_bytes += grid.model.wire_bytes - model_before
             steps.append(tokens)
             done_tokens += len(wave)

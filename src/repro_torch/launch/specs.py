@@ -56,6 +56,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import torch
 
 from .. import tracing
+from . import step_graph
 from .._tree import tree_leaves, tree_leaves_with_path, tree_map, \
     tree_map_with_path
 from ..distributed.compression import compress_allreduce_pods
@@ -655,10 +656,30 @@ def build_serve_step(cfg: ModelConfig, sp: bool = False,
     ``sp``), then ``sample`` of its logits (default greedy, over the vocab
     shards when the model axis splits the head).  Returns (sampled tokens,
     state) and, after a prologue, its (replicas, sharers) as a third item.
+    ``step.last["logits"]`` holds the last call's logits.
     ``prologue_timer``: a list that gets a ``timed`` pair around each
-    prologue."""
+    prologue.
+
+    Where ``step_graph.graphed`` holds (the card, grad off, the default
+    sampler, no SP, a grid of one data and one model shard in this
+    process) the decode step and its sampling replay a CUDA graph
+    (``step_graph.StepGraph``; the prologue stays outside it), and the
+    logits are then the graph's own buffer, which the next replay
+    overwrites."""
     if coherence not in ("none", "eager", "numapte"):
         raise ValueError(f"coherence {coherence!r}")
+
+    def decode(params, state, tokens, phys_blocks):
+        logits, state = decode_on_grid(cfg, params, state, tokens,
+                                       phys_blocks, pods, sp=sp)
+        with tracing.span("sample"):
+            sampled = (sample or grid_sampler(params, pods))(logits)
+        return logits, sampled, state
+
+    graph = step_graph.StepGraph(decode)
+    # not an attribute set from inside ``step``: a function that refers to
+    # itself is freed only by the cycle collector, and so are its graphs
+    last: Dict[str, torch.Tensor] = {}
 
     def step(params, state, tokens, phys_blocks, *coh_args):
         coh_out = None
@@ -667,13 +688,14 @@ def build_serve_step(cfg: ModelConfig, sp: bool = False,
                      else timed(prologue_timer, coh_args[0].device))
             with timer:
                 coh_out = _coherence_prologue(coherence, pods, *coh_args)
-        logits, state = decode_on_grid(cfg, params, state, tokens,
-                                       phys_blocks, pods, sp=sp)
-        with tracing.span("sample"):
-            sampled = (sample or grid_sampler(params, pods))(logits)
+        run = (graph if step_graph.graphed(tokens.device, pods, sp=sp,
+                                           sample=sample) else decode)
+        last["logits"], sampled, state = run(params, state, tokens,
+                                             phys_blocks)
         if coh_out is None:
             return sampled, state
         return sampled, state, coh_out
+    step.last = last
     return step
 
 

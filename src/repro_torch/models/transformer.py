@@ -915,8 +915,10 @@ def decode_step(cfg: ModelConfig, params: PyTree, state: DecodeState,
     given).  ``tp``: the model axis (vocab-split logits then come as the
     local shards' [p, B, V/t]); with ``sp`` each model shard decodes its
     heads sequence-parallel and the shards' row-parallel outputs are summed
-    over it.  Returns (logits [B,V], new state)."""
-    with tracing.span("decode"):
+    over it.  Returns (logits [B,V], new state).  Its ``decode`` span counts
+    ``graph`` = 0: a replay of the step's CUDA graph is a span of its own
+    (``launch/step_graph.py``)."""
+    with tracing.span("decode", graph=0):
         tp = model_axis(tp)
         positions = state.seq_lens                   # position of new token
         with tracing.span("embed"):

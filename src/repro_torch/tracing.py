@@ -4,9 +4,9 @@ interval arithmetic that reads a profiled trace.
 ``span(name, **counts)`` marks a block: the page walk, the coherence
 prologue, a decode step and its layers.  It records only while a
 ``torch.profiler`` collects (``torch.autograd.profiler._is_profiler_enabled``)
-or inside ``recording()``.  Off, it is one flag read and a shared no-op
-context: it makes no tensor, calls nothing on the device and never
-synchronises.  On, it appends a ``Record`` (name, the index of the enclosing
+or inside ``recording()``, and never inside ``paused()`` (a CUDA graph's
+capture).  Off, it is two flag reads and a shared no-op context: it makes no
+tensor, calls nothing on the device and never synchronises.  On, it appends a ``Record`` (name, the index of the enclosing
 span, start and end on ``time.perf_counter_ns``, counts) to a list in memory
 and opens ``torch.profiler.record_function("repro_torch." + name)``, so that
 an exported trace shows the range; the record's stamps are taken inside the
@@ -45,6 +45,7 @@ class Record:
 _records: List[Record] = []
 _open: List[int] = []
 _forced = 0
+_paused = 0
 _OFF = contextlib.nullcontext()
 
 
@@ -72,7 +73,7 @@ class _Span:
 
 def span(name: str, **counts: int):
     """A context over the block named ``name`` (module doc)."""
-    if not (_forced or _profiler._is_profiler_enabled):
+    if _paused or not (_forced or _profiler._is_profiler_enabled):
         return _OFF
     return _Span(name, counts)
 
@@ -86,6 +87,19 @@ def recording() -> Iterator[None]:
         yield
     finally:
         _forced -= 1
+
+
+@contextlib.contextmanager
+def paused() -> Iterator[None]:
+    """Record nothing inside the block, even under a profiler or inside
+    ``recording()``: a CUDA graph's capture runs the step's code and
+    launches nothing."""
+    global _paused
+    _paused += 1
+    try:
+        yield
+    finally:
+        _paused -= 1
 
 
 def records() -> List[Record]:

@@ -16,6 +16,7 @@ from repro.launch.serve import serve as jax_serve  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import specs as specs_mod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import params_from_jax  # noqa: E402
 
@@ -95,17 +96,18 @@ def test_torch_serve_tokens_follow_the_model(converted):
 
 def test_torch_serve_warms_up_before_timer(monkeypatch):
     """Prefill and decode both run once (all -1 tables) before the first
-    ``time.perf_counter()`` read, so building the kernels never lands inside
-    the tok_per_s window."""
+    ``time.perf_counter()`` read, so building the kernels (and, on the card,
+    capturing the step's graph) never lands inside the tok_per_s window.
+    The warm-up's decode is the serve step's (``specs.decode_step``)."""
     events = []
-    real_prefill, real_step = serve_mod.prefill, serve_mod.decode_step
+    real_prefill, real_step = serve_mod.prefill, specs_mod.decode_step
     real_pc = serve_mod.time.perf_counter
 
     def spy(name, fn):
-        def wrapper(cfg, params, *args):
+        def wrapper(cfg, params, *args, **kw):
             phys = args[-1]
             events.append((name, bool((phys < 0).all())))
-            return fn(cfg, params, *args)
+            return fn(cfg, params, *args, **kw)
         return wrapper
 
     def spy_pc():
@@ -113,7 +115,7 @@ def test_torch_serve_warms_up_before_timer(monkeypatch):
         return real_pc()
 
     monkeypatch.setattr(serve_mod, "prefill", spy("prefill", real_prefill))
-    monkeypatch.setattr(serve_mod, "decode_step", spy("decode", real_step))
+    monkeypatch.setattr(specs_mod, "decode_step", spy("decode", real_step))
     monkeypatch.setattr(serve_mod.time, "perf_counter", spy_pc)
     serve("qwen3_14b", n_requests=2, prompt_len=8, gen_len=2, batch=2,
           n_pods=1, mode="local", verbose=False, device="cpu")
