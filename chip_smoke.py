@@ -6,6 +6,9 @@
     python3 chip_smoke.py --phases train   # build + the training slice only
     python3 chip_smoke.py --phases kernels_bwd  # build + K2's backward row only
     python3 chip_smoke.py --phases kernels_cap  # build + the soft-cap rows only
+    python3 chip_smoke.py --phases kernels_mla  # build + K4's row only (MLA)
+    python3 chip_smoke.py --phases kernels_mla,serve_mla  # K4's row, and its
+                                           # launches in Moonlight's serve
     python3 chip_smoke.py --phases cap     # the logit soft-cap at full width
     python3 chip_smoke.py --phases kernels,multipod   # the pod axis
     python3 chip_smoke.py --phases kernels,model_axis # the in-pod model axis
@@ -58,6 +61,11 @@ and the script exits non-zero):
             serving and prefill shapes and Yi-6B's training shape beside the
             uncapped instance and flex_attention with a tanh score_mod
             (``--phases kernels_cap`` runs these rows alone).
+            K4 (``mla_decode``, the paged decode of latent attention) against
+            its plain version at Moonlight's widths (a 512-wide latent and a
+            64-wide rope key, 16 heads, and 4 heads), one split and many, a
+            dead row; timed at Moonlight's decode (B 64, 5 120 slots
+            a row) beside gather + SDPA (``--phases kernels_mla`` alone).
             K1's per-row log-sum-exp (``lse``) against the plain version's
             (within 1e-5, both dtypes, a dead row, shard-local lengths past
             either end of a shard, with and without a window, one split and
@@ -81,7 +89,9 @@ and the script exits non-zero):
             Chameleon-34B (24 of 48), Yi-6B (all 32), Mamba-2-370M (all 48
             SSD layers: no attention, the block table is walked all the same)
             and RecurrentGemma-2B (all 26: 18 RG-LRU layers, 8 local
-            attention layers on rings), then Whisper-base (all 12 layers)
+            attention layers on rings), Moonlight-16B-A3B (all 27: latent
+            attention decoding on K4, dropless sigmoid-routed experts;
+            ``--phases serve_mla`` serves it alone), then Whisper-base (all 12 layers)
             through ``whisper_serve``: ``prefill_encdec`` and ``decode_step``
             over the manager's tables.  The launch counters of the kernels
             are zeroed before each and read after, and must equal what the
@@ -328,7 +338,8 @@ KERNEL_FNS = {"paged_attention": paged_attention,
               "flash_attention": flash_attention,
               "flash_attention_bwd": flash_attention_bwd,
               "pte_gather": pte_gather,
-              "fifo_miss": fifo_miss_ids}
+              "fifo_miss": fifo_miss_ids,
+              "mla_decode": paged_ops.mla_decode}
 #: the wrappers whose ``softcap_launches`` count their capped instance's
 #: launches; a path's counts name them "<kernel>/softcap"
 CAP_FNS = {"paged_attention": paged_attention,
@@ -1745,7 +1756,106 @@ def phase_kernels():
         rows.append(row)
     rows.insert(2, phase_kernels_bwd())
     rows.extend(phase_kernels_cap())
+    rows.append(phase_kernels_mla())
     return rows
+
+
+# ------------------------------------------------- latent attention (K4)
+def mla_case(B, H, dv, dr, bt, MB, N, lens=None, dead_row=False):
+    """A K4 case: q [B,H,dv+dr], one latent slab [N,bt,1,dv+dr], tables and
+    lengths as K1's cases make them; the softmax scale is 1/sqrt(192), the
+    MLA one of Moonlight's 128 + 64 query width."""
+    q = randn((B, H, dv + dr), torch.bfloat16)
+    slab = randn((N, bt, 1, dv + dr), torch.bfloat16)
+    tables, lens = make_tables(B, MB, bt, N, lens, dead_row)
+    return (q, slab, tables, lens), {"scale": 192 ** -0.5, "dv": dv}
+
+
+def mla_bound(args, kw):
+    """Bytes: each live slot's latent once, q, the float32 output, the
+    tables and lengths; operations: 2 H (dv + dr) + 2 H dv a live slot."""
+    q, slab, tables, lens = args
+    B, H, dk = q.shape
+    bt, dv = slab.shape[1], kw["dv"]
+    pos = torch.arange(tables.shape[1] * bt, device=DEV)[None, :]
+    n_live = int(((pos < lens[:, None])
+                  & (tables >= 0).repeat_interleave(bt, dim=1)).sum())
+    nbytes = (n_live * dk * 2 + q.numel() * 2 + B * H * dv * 4
+              + tables.numel() * 4 + lens.numel() * 4)
+    return nbytes / HBM_BPS, 2 * H * (dk + dv) * n_live / PEAK_FLOPS[q.dtype]
+
+
+def mla_library(args, kw):
+    """Yardstick only (the port never calls it): gather the latents, then
+    SDPA with V the latents' first dv columns."""
+    q, slab, tables, lens = args
+    B, H, dk = q.shape
+    bt = slab.shape[1]
+    lat = slab.view(slab.shape[0], bt, dk)[tables.long().clamp_min(0)]
+    lat = lat.reshape(B, 1, -1, dk)
+    pos = torch.arange(lat.shape[2], device=DEV)[None, :]
+    mask = (pos < lens[:, None]) & (tables >= 0).repeat_interleave(bt, dim=1)
+    return F.scaled_dot_product_attention(
+        q[:, :, None], lat.expand(B, H, -1, dk),
+        lat[..., :kw["dv"]].expand(B, H, -1, kw["dv"]),
+        attn_mask=mask[:, None, None, :], scale=kw["scale"])
+
+
+def mla_p_bf16(q, slab, tables, lens, *, scale, dv):
+    """The plain version with P rounded once to bf16 (the error a kernel
+    without the hi + lo split of P would make)."""
+    B, H, dk = q.shape
+    bt = slab.shape[1]
+    lat = slab.view(slab.shape[0], bt, dk)[tables.long().clamp_min(0)]
+    lat = lat.reshape(B, -1, dk).float()
+    pos = torch.arange(lat.shape[1], device=DEV)[None, :]
+    live = (pos < lens[:, None]) & (tables >= 0).repeat_interleave(bt, dim=1)
+    s = torch.einsum("bhd,btd->bht", q.float(), lat) * scale
+    p = torch.softmax(s.masked_fill(~live[:, None], NEG_INF), -1) * live[:, None]
+    p = p.to(torch.bfloat16).float()
+    return torch.einsum("bht,btd->bhd", p, lat[..., :dv])
+
+
+def phase_kernels_mla() -> dict:
+    """K4 (paged MLA decode) against its plain version at Moonlight's
+    widths: one split and many, a dead row, ragged lengths, fewer heads than 16;
+    the combine's counters back at 0; timed at Moonlight's decode (B 64,
+    16 heads, 5 120 slots a row) beside the plain version and gather +
+    SDPA; the bf16-P control that the bound must see."""
+    ref = paged_ops.mla_decode_ref
+    fn = paged_ops.mla_decode
+    cases = [mla_case(2, 16, 512, 64, 16, 8, 32),
+             mla_case(3, 16, 512, 64, 16, 40, 128),
+             mla_case(4, 16, 512, 64, 16, 8, 40, dead_row=True),
+             mla_case(2, 4, 512, 64, 16, 8, 24),         # fewer heads than 16
+             mla_case(5, 16, 512, 64, 16, 64, 400),
+             mla_case(1, 16, 512, 64, 16, 1024, 1024)]   # 16 384 slots, one row
+    main = mla_case(64, 16, 512, 64, 16, 320, 64 * 320, lens=np.full(64, 5120))
+    err = 0.0
+    for args, kw in cases + [main]:
+        got, want = fn(*args, **kw), ref(*args, **kw)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        check(e <= TOL["paged_attention"],
+              f"mla_decode {tuple(args[0].shape)}: |err| {e} > "
+              f"{TOL['paged_attention']}")
+        err = max(err, e)
+    check(all(int(c.abs().sum()) == 0 for c, _ in paged_ops._SCRATCH.values()),
+          "mla_decode left a combine counter nonzero")
+    row = {"name": "mla_decode", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+           "replaces": "none: no TPU kernel (the JAX package has no latent "
+                       "attention); the port's plain mla_decode_ref",
+           "launches": 0, **timed(fn, ref, mla_bound, mla_library, *main),
+           "max_abs_err_by_dtype": {"bfloat16": err},
+           "tolerance": TOL["paged_attention"], "cases": len(cases) + 1,
+           "splits": paged_ops._mla_plan(0, 64, 320, 16, 512, 64)}
+    args, kw = main
+    row["naive_p_bf16_err"] = max_err(mla_p_bf16(*args, **kw), ref(*args, **kw))
+    check(row["naive_p_bf16_err"] > TOL["paged_attention"],
+          f"rounding P to bf16 misses by {row['naive_p_bf16_err']}: the bound "
+          "cannot see it")
+    return row
 
 
 def timed(fn, ref, bound, library, args, kw):
@@ -1784,8 +1894,10 @@ def counts_now() -> dict:
 
 
 def uncapped(want: dict) -> dict:
-    """``want`` of a path that launches no capped instance."""
-    return {**want, **{f"{name}/softcap": 0 for name in CAP_FNS}}
+    """``want`` of a path that launches no capped instance (and no K4 where
+    ``want`` names none)."""
+    return {"mla_decode": 0, **want,
+            **{f"{name}/softcap": 0 for name in CAP_FNS}}
 
 
 # the prompt each arch is served with: Gemma's is longer than its 1 024-token
@@ -1795,15 +1907,18 @@ def uncapped(want: dict) -> dict:
 PROMPT_LEN = {"qwen3_14b": 1024, "gemma3_4b": 2048, "qwen3_moe_235b_a22b": 1024,
               "kimi_k2_1t_a32b": 1024, "nemotron_4_15b": 1024,
               "chameleon_34b": 1024, "yi_6b": 1024, "mamba2_370m": 2000,
-              "recurrentgemma_2b": 4096}
+              "recurrentgemma_2b": 4096, "moonlight_16b_a3b": 1024}
 # the depth each arch is served at (None: all its layers).  Widths are never
 # cut; a depth is cut where the weights would not fit the card's 80 GB with
 # the KV slabs and the activations: Qwen3-235B-A22B's 8 layers hold 38.7 GB of
 # experts, Kimi-K2's 2 its dense first layer and one MoE layer (33.8 GB of
-# experts), Chameleon-34B's 24 34.3 GB of weights beside 6.9 GB of slabs
+# experts), Chameleon-34B's 24 34.3 GB of weights beside 6.9 GB of slabs.
+# Moonlight-16B-A3B (latent attention on K4, dropless sigmoid-routed
+# experts) runs whole: 31.9 GB
 SERVE_DEPTH = {"qwen3_14b": 40, "gemma3_4b": None, "qwen3_moe_235b_a22b": 8,
                "kimi_k2_1t_a32b": 2, "nemotron_4_15b": None, "chameleon_34b": 24,
-               "yi_6b": None, "mamba2_370m": None, "recurrentgemma_2b": None}
+               "yi_6b": None, "mamba2_370m": None, "recurrentgemma_2b": None,
+               "moonlight_16b_a3b": None}
 # Whisper-base's serve: 1 500 encoder frames (30 s of audio; the frontend is a
 # stub in the reference too), a 4-token decoder prompt (start of transcript)
 WHISPER = dict(batch=16, enc_len=1500, prompt_len=4, gen_len=64, n_requests=32)
@@ -1826,13 +1941,16 @@ def expected_launches(cfg, waves: int, gen_len: int, warm_up: bool,
     layer (a local layer decodes from its ring, a recurrent one from its
     state), K2 once a prefill in each attention layer, K3 once a walk (a
     wave's first walk, one a decode step, and the sync of
-    ``check_device_table`` after the frees).  ``warm_up``: serve()'s warm-up
-    prefill and decode step add one launch a layer each.  ``shards``: the
-    model shards each attention layer's heads split over (K1 and K2 launch
-    once a shard; 1 where the attention runs replicated)."""
+    ``check_device_table`` after the frees).  Latent attention (``cfg.mla``)
+    decodes on K4 where the others decode on K1.  ``warm_up``: serve()'s
+    warm-up prefill and decode step add one launch a layer each.
+    ``shards``: the model shards each attention layer's heads split over (K1
+    and K2 launch once a shard; 1 where the attention runs replicated)."""
     n_global, n_attn = attention_layers(cfg)
     extra = 1 if warm_up else 0
-    return uncapped({"paged_attention": n_global * (gen_len * waves + extra) * shards,
+    decode = n_global * (gen_len * waves + extra) * shards
+    return uncapped({"paged_attention": 0 if cfg.mla else decode,
+                     "mla_decode": decode if cfg.mla else 0,
                      "flash_attention": n_attn * (waves + extra) * shards,
                      "flash_attention_bwd": 0,
                      "pte_gather": (2 + gen_len) * waves, "fifo_miss": 0})
@@ -1896,6 +2014,7 @@ def phase_serve(arch: str, n_layers=None, batch=16, gen_len=64, n_requests=32):
           "n_experts": cfg.n_experts, "experts_per_token": cfg.experts_per_token,
           "moe_d_ff": cfg.moe_d_ff, "n_shared_experts": cfg.n_shared_experts,
           "first_dense_layers": cfg.first_dense_layers,
+          "kv_lora_rank": cfg.kv_lora_rank,
           "ssm_state": cfg.ssm_state, "lru_width": cfg.lru_width,
           "param_count": param_count(cfg),
           "active_param_count": active_param_count(cfg), "layers_run": L,
@@ -2749,7 +2868,7 @@ def cap_train() -> dict:
     L = cfg.n_layers
     want = {"paged_attention": 0, "flash_attention": L,
             "flash_attention_bwd": L, "pte_gather": 0, "fifo_miss": 0,
-            "paged_attention/softcap": 0, "flash_attention/softcap": L,
+            "mla_decode": 0, "paged_attention/softcap": 0, "flash_attention/softcap": L,
             "flash_attention_bwd/softcap": L}
     check(counts == want, f"cap train: launches {counts}, not {want}")
     with plain_versions():
@@ -4875,6 +4994,8 @@ def main() -> None:
         rows = [phase_kernels_bwd()]
     elif "kernels_cap" in phases:         # the soft-cap rows alone
         rows = phase_kernels_cap()
+    elif "kernels_mla" in phases:         # K4's row alone
+        rows = [phase_kernels_mla()]
     runs, walls = {}, {"kernels": time.perf_counter() - t0}
 
     def timed_phase(name, fn):
@@ -4887,6 +5008,9 @@ def main() -> None:
         runs = timed_phase("serve", lambda: dict(
             {arch: phase_serve(arch, n) for arch, n in depth.items()},
             whisper_base=phase_whisper()))
+    elif "serve_mla" in phases:           # Moonlight's serve alone
+        runs = timed_phase("serve_mla", lambda: {
+            "moonlight_16b_a3b": phase_serve("moonlight_16b_a3b")})
     if "parity" in phases:
         timed_phase("parity", lambda: [phase_parity(arch) for arch in PARITY])
     if "coherence" in phases:

@@ -57,6 +57,10 @@
 // c tanh(s / c) in log2 units; it is a template flag (CAP), so the instance
 // without it is the one that ran before.  tanhf, not tanh.approx.f32: the
 // approximation's ~2^-11 relative error would miss the 5e-5 bound.
+//
+// The same file holds K4, the paged decode of multi-head latent attention
+// (MLA, DeepSeek-V3's and Moonlight's): its own kernel, `mla_decode_kernel`,
+// described above it.
 #include <type_traits>
 
 #include "common.cuh"
@@ -725,5 +729,390 @@ extern "C" int paged_attention_blocks_per_sm(int hd, int dtype, int capped,
         using T = decltype(t);
         constexpr int HDP = decltype(h)::value;
         return capped ? occupancy<T, HDP, true>(blocks) : occupancy<T, HDP, false>(blocks);
+    });
+}
+
+// ------------------------------------------------------------------ K4: MLA
+//
+// Paged decode of multi-head latent attention.  Every head of a row reads the
+// same cached latent a slot: DK = DV + DR columns, the normed latent c (DV)
+// then the roped key (DR).  The wrapper hands the queries already absorbed
+// into the latent's space, q = [q_nope W_UK^T, q_pe] [B,H,DK], and the kernel
+// computes softmax(scale q . latent) . latent[:, :DV] over the row's live
+// slots, V aliasing K's first DV columns, so each slot is read once.  What
+// bounds it is again bytes (2 H DK + 2 H DV FLOPs a 2 DK-byte slot, about 30
+// FLOPs a byte at H = 16, still under the tensor cores' ~300); what the
+// design does about it, in K1's family:
+//   * the H <= 16 heads of a row are the 16 rows of one mma's M, so a tile
+//     of 16 slots is two m16n8k16 chains for Q K^T and a P V on the tensor
+//     cores, P split into bf16 hi + lo as in K1;
+//   * the four warps share each tile, staged once for the block by a
+//     cp.async ring of STAGES tiles: warp w takes the k-steps w, w + 4, ...
+//     of Q K^T (its quarter of Q in registers), the partial scores meet in
+//     shared memory, every warp then holds the same scores and softmax
+//     state, and warp w accumulates P V for its DV / 4 output columns (a
+//     warp of K1's design would hold all DV columns: 256 registers at 512);
+//   * split-KV and the block table as in K1: the grid is (B, n_splits), a
+//     block stages the frame ids of its column range and walks them; the
+//     last block of a row, found with a counter it resets, merges the
+//     partials (max, rescale, sum, denominator floored at 1e-30).
+namespace {
+
+template <int DV, int DR>
+struct MlaLayout {
+    static constexpr int DK = DV + DR;
+    static constexpr int LD = DK + 8;           // a row + 16 bytes: ldmatrix
+                                                // rows on distinct banks
+    static constexpr int CH = DK / 8;           // 16-byte chunks a row
+    static constexpr int KSTEPS = DK / 16;
+    static constexpr int KW = (KSTEPS + NW - 1) / NW;   // k-steps a warp
+    static constexpr int CW = DV / NW;          // output columns a warp
+    static constexpr int DBLK = CW / 8;
+    static constexpr int TILE_BYTES = TK * LD * 2;
+    static constexpr int STAGES = 4 * TILE_BYTES <= 96 * 1024 ? 4 : 3;
+    static constexpr int Q_BYTES = round16(GM * LD * 2);
+    static constexpr int S_BYTES = NW * 2 * 4 * 32 * 4;   // [warp][j][c][lane]
+    static constexpr int RING_BYTES = STAGES * TILE_BYTES;
+    static_assert(DK % 16 == 0 && DV % (NW * 16) == 0, "mma-shaped widths");
+};
+
+template <int DV, int DR>
+size_t mla_smem_bytes(int n_splits) {
+    using L = MlaLayout<DV, DR>;
+    const int combine = GM * (n_splits + 1) * 4;
+    const int big = L::RING_BYTES > combine ? L::RING_BYTES : combine;
+    return (size_t)L::Q_BYTES + L::S_BYTES + big;
+}
+
+struct MlaParams {
+    const __nv_bfloat16* q;      // [B,H,DK]
+    const __nv_bfloat16* lat;    // [N,bt,DK]
+    const int* tables;           // [B,MB]
+    const int* lens;             // [B]
+    float* out;                  // [B,H,DV]
+    float* part;                 // B*n_splits*GM rows: acc [DV], then m, then l
+    int* counters;               // [B], 0 between launches
+    int B, H, bt, MB, n_splits, cps;
+    float scale_log2;
+};
+
+template <int DV, int DR>
+__global__ void __launch_bounds__(NT) mla_decode_kernel(const MlaParams p) {
+    using L = MlaLayout<DV, DR>;
+    constexpr int DK = L::DK, LD = L::LD, STAGES = L::STAGES;
+    extern __shared__ __align__(16) unsigned char smem[];
+    __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);          // [GM][LD]
+    float* s_part = reinterpret_cast<float*>(smem + L::Q_BYTES);         // partial scores
+    unsigned char* big = smem + L::Q_BYTES + L::S_BYTES;
+    __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(big);         // [STAGES][TK][LD]
+    __shared__ int s_frames[MAX_COLS];
+    __shared__ int s_last;
+
+    const int b = blockIdx.x, split = blockIdx.y;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int t = lane & 3, g = lane >> 2;
+    const int* table_row = p.tables + (int64_t)b * p.MB;
+
+    // Q (zero rows past H) rides in the first commit group
+    {
+        const __nv_bfloat16* qb = p.q + (int64_t)b * p.H * DK;
+        for (int idx = threadIdx.x; idx < GM * L::CH; idx += NT) {
+            const int r = idx / L::CH, c = idx % L::CH;
+            const bool ok = r < p.H;
+            cp_async_16(sq + r * LD + c * 8, ok ? qb + r * DK + c * 8 : qb, ok ? 16 : 0);
+        }
+    }
+    const int c_begin = split * p.cps;
+    const int c_end = min(c_begin + p.cps, p.MB);
+#pragma unroll
+    for (int j = 0; j < COLS_PER_THREAD; ++j) {
+        const int c = threadIdx.x + NT * j;
+        s_frames[c] = c < c_end - c_begin ? __ldg(table_row + c_begin + c) : -1;
+    }
+    const int seq_len = __ldg(p.lens + b);
+    const int p0 = c_begin * p.bt;
+    const int p1 = min(c_end * p.bt, seq_len);
+    const int n_tiles = p1 > p0 ? (p1 - p0 + TK - 1) / TK : 0;
+    __syncthreads();                           // the frame ids are staged
+
+    // the block's copies of tile i: 16 slots x CH chunks
+    auto fetch = [&](int i) {
+        __nv_bfloat16* st = ring + (i % STAGES) * TK * LD;
+        const int pos0 = p0 + i * TK;
+        for (int idx = threadIdx.x; idx < TK * L::CH; idx += NT) {
+            const int r = idx / L::CH, c = idx % L::CH;
+            const int pos = pos0 + r;
+            const int frame = pos < p1 ? s_frames[pos / p.bt - c_begin] : -1;
+            const int64_t src = frame >= 0
+                ? ((int64_t)frame * p.bt + pos % p.bt) * DK + c * 8 : 0;
+            cp_async_16(st + r * LD + c * 8, p.lat + src, frame >= 0 ? 16 : 0);
+        }
+    };
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+        if (i < n_tiles) fetch(i);
+        cp_async_commit();
+    }
+
+    uint32_t qf[L::KW][4];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float acc[L::DBLK][4];
+#pragma unroll
+    for (int j = 0; j < L::DBLK; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+    const __nv_bfloat16* sq_lane = sq + (lane & 15) * LD + (lane >> 4) * 8;
+    const int k_lane = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+    const int v_lane = (lane & 15) * LD + (lane >> 4) * 8 + warp * L::CW;
+
+    cp_async_wait<STAGES - 2>();               // Q (with tile 0) has landed ...
+    __syncthreads();                           // ... for every warp
+#pragma unroll
+    for (int j = 0; j < L::KW; ++j)
+        if (warp + NW * j < L::KSTEPS) ldmatrix_x4(qf[j], sq_lane + 16 * (warp + NW * j));
+
+    for (int i = 0; i < n_tiles; ++i) {
+        cp_async_wait<STAGES - 2>();           // this thread's copies of tile i ...
+        __syncthreads();                       // ... and everyone's; tile i - 1 done
+        if (i + STAGES - 1 < n_tiles) fetch(i + STAGES - 1);
+        cp_async_commit();
+        const __nv_bfloat16* sk = ring + (i % STAGES) * TK * LD;
+
+        // this warp's k-steps of Q K^T, then the four partials summed
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int j = 0; j < L::KW; ++j) {
+            const int kk = warp + NW * j;
+            if (kk < L::KSTEPS) {
+                uint32_t kf[4];
+                ldmatrix_x4(kf, sk + k_lane + 16 * kk);
+                mma_bf16_16816(s[0], qf[j], kf[0], kf[1]);
+                mma_bf16_16816(s[1], qf[j], kf[2], kf[3]);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s_part[((warp * 2 + j) * 4 + c) * 32 + lane] = s[j][c];
+        // the tile's live slots: slot r of lane r
+        const int pos = p0 + i * TK + (lane & 15);
+        const bool live = pos < p1 && s_frames[pos / p.bt - c_begin] >= 0;
+        const uint32_t mask = __ballot_sync(FULL, live) & 0xffffu;
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                float x = 0.f;
+#pragma unroll
+                for (int w = 0; w < NW; ++w) x += s_part[((w * 2 + j) * 4 + c) * 32 + lane];
+                s[j][c] = x;
+            }
+
+        // online softmax, the same in every warp; a head's 16 scores lie on
+        // the 4 lanes of a quad
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float mx = NEG_INF;
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    float& x = s[j][2 * r + c];
+                    const bool ok = (mask >> (8 * j + 2 * t + c)) & 1u;
+                    x = ok ? x * p.scale_log2 : NEG_INF;
+                    mx = fmaxf(mx, x);
+                }
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+            const float m_new = fmaxf(m[r], mx);
+            const float alpha = exp2f(m[r] - m_new);
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    float& x = s[j][2 * r + c];
+                    const bool ok = (mask >> (8 * j + 2 * t + c)) & 1u;
+                    x = ok ? exp2f(x - m_new) : 0.f;
+                    sum += x;
+                }
+            l[r] = l[r] * alpha + sum;
+            m[r] = m_new;
+#pragma unroll
+            for (int j = 0; j < L::DBLK; ++j) {
+                acc[j][2 * r] *= alpha;
+                acc[j][2 * r + 1] *= alpha;
+            }
+        }
+
+        // acc += P V on this warp's columns, P = hi + lo
+        uint32_t hi[4], lo[4];
+        split_p(s[0][0], s[0][1], hi[0], lo[0]);
+        split_p(s[0][2], s[0][3], hi[1], lo[1]);
+        split_p(s[1][0], s[1][1], hi[2], lo[2]);
+        split_p(s[1][2], s[1][3], hi[3], lo[3]);
+#pragma unroll
+        for (int dd = 0; dd < L::DBLK / 2; ++dd) {
+            uint32_t vf[4];
+            ldmatrix_x4_trans(vf, sk + v_lane + 16 * dd);
+            mma_bf16_16816(acc[2 * dd], hi, vf[0], vf[1]);
+            mma_bf16_16816(acc[2 * dd], lo, vf[0], vf[1]);
+            mma_bf16_16816(acc[2 * dd + 1], hi, vf[2], vf[3]);
+            mma_bf16_16816(acc[2 * dd + 1], lo, vf[2], vf[3]);
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();                           // the ring is free for the merge
+
+    // this lane's rows g and g + 8: the row sums over the quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(FULL, l[r], 1);
+        l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    }
+    const int col0 = warp * L::CW + 2 * t;
+    float* part_m = p.part + (int64_t)p.B * p.n_splits * GM * DV;
+    float* part_l = part_m + (int64_t)p.B * p.n_splits * GM;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = g + 8 * r;
+        if (row >= p.H) continue;
+        if (p.n_splits == 1) {
+            const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+            float* o = p.out + ((int64_t)b * p.H + row) * DV + col0;
+#pragma unroll
+            for (int j = 0; j < L::DBLK; ++j)
+                *reinterpret_cast<float2*>(o + 8 * j) =
+                    make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+        } else {
+            const int64_t prow = ((int64_t)b * p.n_splits + split) * GM + row;
+            float* o = p.part + prow * DV + col0;
+#pragma unroll
+            for (int j = 0; j < L::DBLK; ++j)
+                *reinterpret_cast<float2*>(o + 8 * j) =
+                    make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+            if (warp == 0 && t == 0) {
+                part_m[prow] = m[r];
+                part_l[prow] = l[r];
+            }
+        }
+    }
+    if (p.n_splits == 1) return;
+
+    // the last block of this row merges the partials
+    __threadfence();
+    __syncthreads();
+    int* counter = p.counters + b;
+    if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == p.n_splits - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+
+    const int n = p.n_splits;
+    float* sf = reinterpret_cast<float*>(big);   // [GM][n] rescale factors
+    float* sden = sf + GM * n;                   // [GM] denominators
+    for (int h = warp; h < p.H; h += NW) {
+        float M = NEG_INF;
+        for (int sp = lane; sp < n; sp += 32)
+            M = fmaxf(M, __ldcg(part_m + ((int64_t)b * n + sp) * GM + h));
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(FULL, M, off));
+        float den = 0.f;
+        for (int sp = lane; sp < n; sp += 32) {
+            const int64_t prow = ((int64_t)b * n + sp) * GM + h;
+            const float f = exp2f(__ldcg(part_m + prow) - M);
+            sf[h * n + sp] = f;
+            den += __ldcg(part_l + prow) * f;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) den += __shfl_xor_sync(FULL, den, off);
+        if (lane == 0) sden[h] = den;
+    }
+    __syncthreads();
+    constexpr int DV4 = DV / 4;
+    for (int idx = threadIdx.x; idx < p.H * DV4; idx += NT) {
+        const int h = idx / DV4, d = 4 * (idx % DV4);
+        float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int sp = 0; sp < n; ++sp) {
+            const float f = sf[h * n + sp];
+            const float4 a = __ldcg(reinterpret_cast<const float4*>(
+                p.part + (((int64_t)b * n + sp) * GM + h) * DV + d));
+            num.x += a.x * f;
+            num.y += a.y * f;
+            num.z += a.z * f;
+            num.w += a.w * f;
+        }
+        const float inv = 1.0f / fmaxf(sden[h], 1e-30f);
+        *reinterpret_cast<float4*>(p.out + ((int64_t)b * p.H + h) * DV + d) =
+            make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv);
+    }
+    if (threadIdx.x == 0) *counter = 0;         // ready for the next launch
+}
+
+template <int DV, int DR>
+cudaError_t mla_launch(const MlaParams& p, cudaStream_t stream) {
+    const size_t smem = mla_smem_bytes<DV, DR>(p.n_splits);
+    auto kernel = mla_decode_kernel<DV, DR>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(p.B, p.n_splits), NT, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int DV, int DR>
+cudaError_t mla_occupancy(int* blocks) {
+    const size_t smem = mla_smem_bytes<DV, DR>(1);
+    auto kernel = mla_decode_kernel<DV, DR>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NT, smem);
+}
+
+// f(integral_constant<DV>, integral_constant<DR>) for the instance of
+// (dv, dr): Moonlight's and DeepSeek-V3's (512, 64)
+template <typename F>
+cudaError_t mla_dispatch(int dv, int dr, F&& f) {
+    if (dv == 512 && dr == 64)
+        return f(std::integral_constant<int, 512>{}, std::integral_constant<int, 64>{});
+    return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q [B,H,dv+dr] bf16 (H <= 16), latents [N,bt,dv+dr] bf16 (one layer,
+// contiguous), tables [B,MB] i32 physical frames (-1 absent), lens [B] i32,
+// out [B,H,dv] f32.  The split plan (n_splits ranges of cps columns) comes
+// from the wrapper; with n_splits > 1, `part` holds B*n_splits*16*(dv + 2)
+// floats and `counters` B ints that are 0 (the kernel leaves them 0).  A
+// plan outside 1 <= n_splits <= MAX_SPLITS, 1 <= cps <= MAX_COLS, H outside
+// 1..16 or widths without an instance return cudaErrorInvalidValue and launch
+// nothing.  Returns the launch's cudaError_t (0 = launched).
+extern "C" int mla_decode_launch(const void* q, const void* lat, const void* tables,
+                                 const void* lens, void* out, void* part,
+                                 void* counters, int B, int H, int dv, int dr, int bt,
+                                 int MB, int n_splits, int cps, float scale,
+                                 void* stream) {
+    if (B == 0) return 0;
+    if (n_splits < 1 || n_splits > MAX_SPLITS || cps < 1 || cps > MAX_COLS ||
+        H < 1 || H > GM)
+        return (int)cudaErrorInvalidValue;
+    MlaParams p{(const __nv_bfloat16*)q, (const __nv_bfloat16*)lat,
+                (const int*)tables, (const int*)lens, (float*)out, (float*)part,
+                (int*)counters, B, H, bt, MB, n_splits, cps,
+                1.44269504f * scale};
+    cudaStream_t st = (cudaStream_t)stream;
+    return (int)mla_dispatch(dv, dr, [&](auto v, auto r) {
+        return mla_launch<decltype(v)::value, decltype(r)::value>(p, st);
+    });
+}
+
+// How many blocks of K4's (dv, dr) instance one SM holds at once, into
+// *blocks.  Returns the cudaError_t of the query.
+extern "C" int mla_decode_blocks_per_sm(int dv, int dr, int* blocks) {
+    return (int)mla_dispatch(dv, dr, [&](auto v, auto r) {
+        return mla_occupancy<decltype(v)::value, decltype(r)::value>(blocks);
     });
 }

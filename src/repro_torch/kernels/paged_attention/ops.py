@@ -17,6 +17,10 @@ the replicated slab): it strides over the slab's K heads a slot, and nothing
 is copied.  ``softcap`` = c caps the scaled scores, ``c * tanh(s / c)``
 (the reference's logit soft-cap), in a kernel instance of its own: the
 launch without a cap runs the instance it ran before.
+
+``mla_decode`` is the paged latent-attention decode (K4, MLA): one latent
+slab a layer, every head reading the same latent of a slot, V its first
+``dv`` columns; ``mla_decode.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import _build
-from .ref import paged_attention_ref
+from .ref import mla_decode_ref, paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -219,3 +223,94 @@ def paged_attention(q: torch.Tensor, k_slabs: torch.Tensor,
 
 paged_attention.launches = 0
 paged_attention.softcap_launches = 0   # the launches of the capped instance
+
+
+# ------------------------------------------------------------ latent (K4)
+#: (latent width dv, rope width) pairs K4 has an instance for: Moonlight's
+#: (DeepSeek-V3's too)
+MLA_WIDTHS = ((512, 64),)
+MLA_HEADS = 16      # query heads a block: the M of one mma
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_plan(index: int, B: int, MB: int, bt: int, dv: int, dr: int
+              ) -> Tuple[int, int]:
+    """(n_splits, cols_per_split) of K4 for device ``index``, from shapes
+    alone: as many column ranges as fit B of them into one wave of the
+    kernel's resident blocks, at least four tiles a range, at most
+    ``MAX_COLS`` columns."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        fn = _build.load("paged_attention").mla_decode_blocks_per_sm
+        fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = _I
+        _build.check_launch("paged_attention", fn(dv, dr, ctypes.byref(blocks)))
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    min_cols = max(1, -(-4 * TILE // bt))
+    want = sms * max(1, blocks.value) // max(1, B)
+    n_splits = max(1, min(want, -(-MB // min_cols), MAX_SPLITS),
+                   -(-MB // MAX_COLS))
+    cps = -(-MB // n_splits)
+    return -(-MB // cps), cps
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_launcher():
+    fn = _build.load("paged_attention").mla_decode_launch
+    fn.argtypes = [_P] * 7 + [_I] * 8 + [_F, _P]
+    fn.restype = _I
+    return fn
+
+
+def mla_decode(q: torch.Tensor, slab: torch.Tensor, block_tables: torch.Tensor,
+               seq_lens: torch.Tensor, *, scale: float, dv: int
+               ) -> torch.Tensor:
+    """q: [B,H,dk] (H <= 16); slab: [N,bt,1,dk] (one layer's latents);
+    block_tables: [B,MB] int32 physical frames (-1 absent); seq_lens: [B]
+    int32, the newest token included.  Returns softmax(scale q.latent) .
+    latent[..., :dv] over each row's live slots, [B,H,dv] float32 (zeros
+    for a row with none).  bfloat16 on the card (the widths of
+    ``MLA_WIDTHS``); a CPU tensor takes the plain version."""
+    B, H, dk = q.shape
+    if not q.is_cuda:
+        return mla_decode_ref(q, slab, block_tables, seq_lens, scale=scale,
+                              dv=dv)
+    N, bt = slab.shape[:2]
+    MB = block_tables.shape[1]
+    if q.dtype != torch.bfloat16 or slab.dtype != q.dtype:
+        raise TypeError("mla_decode: q and the slab are bfloat16, got "
+                        f"{q.dtype}/{slab.dtype}")
+    if ((dv, dk - dv) not in MLA_WIDTHS or slab.shape[2:] != (1, dk)
+            or H > MLA_HEADS or block_tables.shape[0] != B
+            or seq_lens.shape != (B,) or MB == 0):
+        raise ValueError("mla_decode: unsupported shapes "
+                         f"q{tuple(q.shape)} slab{tuple(slab.shape)} "
+                         f"tables{tuple(block_tables.shape)} dv {dv}")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("mla_decode: block_tables and seq_lens are int32")
+    tensors = (q, slab, block_tables, seq_lens)
+    if not all(t.is_cuda and t.device == q.device and t.is_contiguous()
+               and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("mla_decode: operands must be contiguous, 16-byte "
+                         "aligned and on one CUDA device")
+    if B == 0:
+        return torch.empty((0, H, dv), dtype=torch.float32, device=q.device)
+    index = q.device.index
+    n_splits, cps = _mla_plan(index, B, MB, bt, dv, dk - dv)
+    out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream().cuda_stream
+        counters = partials = 0
+        if n_splits > 1:
+            counters, partials = _scratch(index, stream, B,
+                                          B * MLA_HEADS * n_splits * (dv + 2))
+        code = _mla_launcher()(
+            q.data_ptr(), slab.data_ptr(), block_tables.data_ptr(),
+            seq_lens.data_ptr(), out.data_ptr(), partials, counters,
+            B, H, dv, dk - dv, bt, MB, n_splits, cps, float(scale), stream)
+    _build.check_launch("paged_attention", code)
+    mla_decode.launches += 1
+    return out
+
+
+mla_decode.launches = 0

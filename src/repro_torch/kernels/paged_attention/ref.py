@@ -117,3 +117,28 @@ def paged_attention_split_ref(q: torch.Tensor, k_slabs: torch.Tensor,
     out = (acc * f[..., None]).sum(dim=-2) / (l * f).sum(
         dim=-1, keepdim=True).clamp_min(1e-30)
     return out.reshape(B, H, hd)
+
+
+def mla_decode_ref(q: torch.Tensor, slab: torch.Tensor,
+                   block_tables: torch.Tensor, seq_lens: torch.Tensor, *,
+                   scale: float, dv: int) -> torch.Tensor:
+    """Paged latent-attention decode (MLA), plain: q [B,H,dk] (the absorbed
+    query and the rope query) attends over each row's live latents, the
+    slab [N,bt,1,dk] read through ``block_tables`` [B,MB] (-1 absent) up to
+    ``seq_lens`` [B]; V is the latents' first ``dv`` columns.  Returns
+    softmax(scale q.latent) . latent[:, :dv] as [B,H,dv] float32; a row
+    with no live slot returns zeros."""
+    B, H, dk = q.shape
+    N, bt = slab.shape[:2]
+    MB = block_tables.shape[1]
+    tables = block_tables.long()
+    lat = slab.reshape(N, bt, dk)[tables.clamp_min(0)].reshape(
+        B, MB * bt, dk).float()
+    scores = torch.einsum("bhd,btd->bht", q.float(), lat) * scale
+    t = torch.arange(MB * bt, device=q.device)
+    valid = t[None, :] < seq_lens.long()[:, None]
+    valid &= (tables >= 0).repeat_interleave(bt, dim=1)
+    scores = torch.where(valid[:, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1) * valid[:, None, :]
+    return torch.einsum("bht,btd->bhd", probs, lat[..., :dv])

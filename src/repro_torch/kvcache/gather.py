@@ -6,6 +6,10 @@ into the caller's ``[F, bt, K, hd]`` tensors and returns them.  Rows whose
 block is unmapped (-1 tables: inactive/padding rows) store nothing.  No
 function here waits for the device: shapes never depend on the data.
 
+Latent attention (MLA) holds one slab a layer, ``[F, bt, 1, dk]`` or
+pooled ``[P, F_local, bt, 1, dk]``: ``write_latent`` and ``scatter_latent``
+are its token write and prefill scatter.
+
 Pool-partitioned slabs are ``[P, F_local, bt, K, hd]`` (stacked ``[L, P,
 ...]``) and a block table then holds frame ids LOCAL to a row's pool.  On one
 device every pooled function takes the reference's no-mesh form: the pools
@@ -46,6 +50,20 @@ def _masked_row_store(slabs: Tuple[torch.Tensor, ...], rows: torch.Tensor,
         flat.index_copy_(0, rows, torch.where(any_valid, new, flat[rows]))
 
 
+def _slot_rows(phys_blocks: torch.Tensor, positions: torch.Tensor,
+               block_tokens: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The slab row ``frame * bt + position % bt`` of each position [B] or
+    [B, S] through the rows' tables [B, MB], and whether its block is
+    mapped, both flattened."""
+    bt = block_tokens
+    pos = positions.long()
+    if pos.dim() == 1:
+        pos = pos[:, None]
+    blk = (pos // bt).clamp(0, phys_blocks.shape[1] - 1)
+    frame = phys_blocks.long().gather(1, blk)
+    return (frame * bt + pos % bt).reshape(-1), (frame >= 0).reshape(-1)
+
+
 def write_token_plain(k_slabs: torch.Tensor, v_slabs: torch.Tensor,
                       k_new: torch.Tensor, v_new: torch.Tensor,
                       phys_blocks: torch.Tensor, positions: torch.Tensor,
@@ -57,12 +75,8 @@ def write_token_plain(k_slabs: torch.Tensor, v_slabs: torch.Tensor,
     reference's ``update_gather_plain``; the gathered ``k_all`` copy has no
     counterpart because the paged-attention kernel reads the slabs through
     the block table."""
-    bt = block_tokens
-    pos = positions.long()
-    blk = (pos // bt).clamp(0, phys_blocks.shape[1] - 1)
-    frame = phys_blocks.long().gather(1, blk[:, None])[:, 0]
-    _masked_row_store((k_slabs, v_slabs), frame * bt + pos % bt,
-                      (k_new, v_new), frame >= 0)
+    rows, valid = _slot_rows(phys_blocks, positions, block_tokens)
+    _masked_row_store((k_slabs, v_slabs), rows, (k_new, v_new), valid)
     return k_slabs, v_slabs
 
 
@@ -84,14 +98,37 @@ def scatter_prefill_plain(k_slabs: torch.Tensor, v_slabs: torch.Tensor,
     """Scatter a full prompt's KV into the slabs, in place.  k [B,S,K,hd];
     positions [B,S].  Tokens whose block is unmapped (-1: inactive/padding
     rows) are dropped — never redirected into frame 0."""
-    bt = block_tokens
-    pos = positions.long()
-    blk = (pos // bt).clamp(0, phys_blocks.shape[1] - 1)
-    frame = phys_blocks.long().gather(1, blk)
-    _masked_row_store((k_slabs, v_slabs), (frame * bt + pos % bt).reshape(-1),
-                      (k.flatten(0, 1), v.flatten(0, 1)),
-                      (frame >= 0).reshape(-1))
+    rows, valid = _slot_rows(phys_blocks, positions, block_tokens)
+    _masked_row_store((k_slabs, v_slabs), rows,
+                      (k.flatten(0, 1), v.flatten(0, 1)), valid)
     return k_slabs, v_slabs
+
+
+def write_latent(slab: torch.Tensor, latent: torch.Tensor,
+                 phys_blocks: torch.Tensor, positions: torch.Tensor,
+                 block_tokens: int) -> torch.Tensor:
+    """``write_token_plain`` for latent attention's one slab: each row's
+    new latent [B, dk] into slab [F, bt, 1, dk] through its frame, in
+    place."""
+    rows, valid = _slot_rows(phys_blocks, positions, block_tokens)
+    _masked_row_store((slab,), rows, (latent,), valid)
+    return slab
+
+
+def scatter_latent(slab: torch.Tensor, latent: torch.Tensor,
+                   phys_blocks: torch.Tensor, positions: torch.Tensor,
+                   block_tokens: int, pools: int = 1) -> torch.Tensor:
+    """A prompt's latents [B,S,dk] into slab [F, bt, 1, dk] (``pools`` > 1:
+    [P, F_local, bt, 1, dk], frames local to each row's pool), in place;
+    tokens of unmapped blocks are dropped, as ``scatter_prefill_plain``
+    drops them."""
+    flat = slab
+    if pools > 1:
+        phys_blocks = pooled_tables(phys_blocks, *slab.shape[:2])
+        flat = _flat(slab)
+    rows, valid = _slot_rows(phys_blocks, positions, block_tokens)
+    _masked_row_store((flat,), rows, (latent.flatten(0, 1),), valid)
+    return slab
 
 
 # ------------------------------------------------------------------ pools

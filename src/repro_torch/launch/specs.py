@@ -562,7 +562,7 @@ def _data_share(state: DecodeState, rows: slice, B: int,
     for cache in state.caches:
         view = {}
         for name, t in cache.items():
-            if name not in ("k_slabs", "v_slabs"):
+            if name not in ("k_slabs", "v_slabs", "latent"):
                 view[name] = t[(slice(None),) * (1 + layout.row_dim(name))
                                + (rows,)]
             elif pools is None:
@@ -868,7 +868,7 @@ def _state_shares(state: DecodeState, row_share: int) -> List[int]:
     shares = []
     for cache in state.caches:
         for name in cache:
-            if name in ("k_slabs", "v_slabs"):
+            if name in ("k_slabs", "v_slabs", "latent"):
                 shares.append(lay.pools * lay.kv_split)
             elif name in ("h", "conv"):
                 shares.append(row_share * lay.state_split)

@@ -19,7 +19,7 @@ captures its own graph; at most ``GRAPHS`` are kept, the least recently
 used freed first.
 
 What a capture must see:
-- K1's scratch (``kernels/paged_attention/ops.py:_scratch``) is keyed by
+- K1's and K4's scratch (``kernels/paged_attention/ops.py:_scratch``) is keyed by
   stream; the eager first call makes the capture stream's, and the graph
   holds the tensors it baked in, since a later first call may replace them.
 - The wrappers' launch counters count Python calls: a capture's counts are
@@ -41,7 +41,8 @@ from .. import tracing
 from ..distributed.pods import LoopPods, Pods
 from ..kernels.fifo_miss.ops import fifo_miss_ids
 from ..kernels.flash_attention.ops import flash_attention, flash_attention_bwd
-from ..kernels.paged_attention.ops import paged_attention, stream_scratch
+from ..kernels.paged_attention.ops import (mla_decode, paged_attention,
+                                          stream_scratch)
 from ..kernels.pte_gather.ops import pte_gather
 
 #: graphs kept by one ``StepGraph``
@@ -50,6 +51,7 @@ GRAPHS = 4
 #: the wrappers' launch counters, (function, attribute)
 COUNTERS = ((paged_attention, "launches"),
             (paged_attention, "softcap_launches"),
+            (mla_decode, "launches"),
             (flash_attention, "launches"),
             (flash_attention, "softcap_launches"),
             (flash_attention_bwd, "launches"),

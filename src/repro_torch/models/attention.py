@@ -24,6 +24,17 @@ Ks, hd]`` (one a local shard) or held once ``[B, ..., K, hd]``, each shard
 reading and writing its kv heads of it; the ring decode and the
 cross-attention then run per shard on its heads.
 
+Multi-head latent attention (DeepSeek-V3's MLA, ``cfg.mla``: Moonlight)
+caches one ``kv_lora_rank`` + ``qk_rope_head_dim`` wide latent a token,
+shared by the heads: the normed latent c and the roped key k_pe.  Prefill
+expands c through ``w_kv_b`` into each head's k_nope and v and runs K2 on q
+and k of ``qk_nope_head_dim`` + ``qk_rope_head_dim`` with v zero-padded to
+that width (K2's scale is then the published one); decode absorbs
+``w_kv_b``'s key half into the query (q_lat = q_nope W_UK^T), runs the paged
+MLA kernel over the latent slab (V is the latent's first ``kv_lora_rank``
+columns), and un-absorbs the output through ``w_kv_b``'s value half.  MLA
+runs unsplit: one data and one model shard.
+
 The logit soft-cap (``cfg.attn_logit_softcap`` = c) caps every path's
 scaled scores, ``c * tanh(s / c)``, before the mask, as the reference's
 plain ``_gqa_scores`` does: K2 and K1 take it as an argument (a kernel
@@ -40,9 +51,9 @@ from .. import tracing
 from ..distributed.pods import Pods
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import NEG_INF, soft_cap
-from ..kernels.paged_attention.ops import paged_attention
+from ..kernels.paged_attention.ops import mla_decode, paged_attention
 from ..kvcache.gather import (decode_attention_sp, pooled_tables,
-                              write_token_plain)
+                              write_latent, write_token_plain)
 from .common import (CacheLayout, ModelConfig, _dense, rms_norm, rope_tables,
                      rotate)
 
@@ -60,6 +71,23 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator, dtype, cross: bool = False
         p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
         p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
     return p
+
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator, dtype
+             ) -> Dict[str, torch.Tensor]:
+    """MLA's projections (module doc), DeepSeek-V3's layout: ``wq`` [D,
+    H*(dn + dr)] (a head's nope then rope columns), ``w_kv_a`` [D, r + dr]
+    (the latent, then the shared rope key), ``kv_norm`` [r] (the latent's
+    RMSNorm scale), ``w_kv_b`` [r, H*(dn + dv)] (a head's k_nope then v
+    columns), ``wo`` [H*dv, D]."""
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim, cfg.kv_lora_rank)
+    return {"wq": _dense(gen, (d, H * (dn + dr)), dtype),
+            "w_kv_a": _dense(gen, (d, r + dr), dtype),
+            "kv_norm": torch.zeros((r,), dtype=dtype, device=gen.device),
+            "w_kv_b": _dense(gen, (r, H * (dn + dv)), dtype),
+            "wo": _dense(gen, (H * dv, d), dtype)}
 
 
 def _project_qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -86,7 +114,8 @@ def rope_for(cfg: ModelConfig, positions: torch.Tensor, theta: float
     without RoPE (learned or sinusoidal positions)."""
     if not cfg.use_rope:
         return None
-    return rope_tables(positions, cfg.resolved_head_dim, theta)
+    return rope_tables(positions, cfg.qk_rope_head_dim if cfg.mla
+                       else cfg.resolved_head_dim, theta)
 
 
 def project_qk_rope_v(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -211,6 +240,98 @@ def attn_decode_paged(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     out = out.reshape(B, 1, cfg.n_heads * hd).to(cfg.dtype)
     out = out @ p["wo"].to(cfg.dtype)
     return out, (k_slabs, v_slabs)
+
+
+# ------------------------------------------------------ latent attention
+def mla_latent(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+               rope: Rope) -> torch.Tensor:
+    """x [B,S,D] -> the latents [B,S,r + dr] a token caches: c through its
+    RMSNorm, then k_pe roped, in ``cfg.dtype``."""
+    r = cfg.kv_lora_rank
+    kv = x @ p["w_kv_a"].to(cfg.dtype)
+    c = rms_norm(kv[..., :r], p["kv_norm"])
+    k_pe = rotate(kv[..., None, r:], rope)[..., 0, :]
+    return torch.cat([c, k_pe], dim=-1)
+
+
+def mla_queries(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                rope: Rope) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,D] -> (q_nope [B,S,H,dn], a view; q_pe [B,S,H,dr] roped)."""
+    B, S, _ = x.shape
+    dn = cfg.qk_nope_head_dim
+    q = (x @ p["wq"].to(cfg.dtype)).view(B, S, cfg.n_heads, -1)
+    return q[..., :dn], rotate(q[..., dn:], rope)
+
+
+def mla_attend(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+               rope: Rope, *, causal: bool = True,
+               store: Optional[Callable] = None) -> torch.Tensor:
+    """MLA over a whole sequence x [B,S,D] -> [B,S,D] (module doc): K2 on
+    [q_nope, q_pe] and [k_nope, k_pe] at dn + dr, v zero-padded to that
+    width, the output cut to dv.  ``store(latent)``, when given, writes the
+    prompt's latents [B,S,r + dr] into the cache: it and the latent's
+    projection are the span ``attn.latent``; K2 is ``attn.kernel``."""
+    B, S, _ = x.shape
+    H, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_head_dim,
+                        cfg.qk_rope_head_dim, cfg.v_head_dim,
+                        cfg.kv_lora_rank)
+    if dv > dn + dr:
+        raise ValueError(f"{cfg.name}: v_head_dim {dv} wider than q and k")
+    with tracing.span("attn.latent"):
+        latent = mla_latent(cfg, p, x, rope)
+        if store is not None:
+            store(latent)
+    q_nope, q_pe = mla_queries(cfg, p, x, rope)
+    kv = (latent[..., :r] @ p["w_kv_b"].to(cfg.dtype)).view(B, S, H, dn + dv)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([kv[..., :dn],
+                   latent[..., None, r:].expand(B, S, H, dr)], dim=-1)
+    v = torch.nn.functional.pad(kv[..., dn:], (0, dn + dr - dv))
+    with tracing.span("attn.kernel"):
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal)
+    out = out[..., :dv].to(cfg.dtype).transpose(1, 2).reshape(B, S, H * dv)
+    return out @ p["wo"].to(cfg.dtype)
+
+
+def attn_decode_mla(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                    x: torch.Tensor, positions: torch.Tensor,
+                    slab: torch.Tensor, phys_blocks: torch.Tensor,
+                    seq_lens: torch.Tensor, *, rope: Rope, pools: int = 1
+                    ) -> torch.Tensor:
+    """One MLA decode step (module doc) of x [B,1,D] over this layer's
+    latent slab ``[N, bt, 1, r + dr]`` (pooled ``[P, N/P, bt, 1, r + dr]``,
+    read through ``pooled_tables``), UPDATED IN PLACE with each row's new
+    latent; ``positions``, ``phys_blocks``, ``seq_lens`` and ``rope`` as
+    for ``attn_decode_paged``.  Spans: ``attn.latent`` (the latent and its
+    write), ``attn.kernel`` (the absorb product, the paged MLA kernel, the
+    un-absorb product).  Returns the attention output [B,1,D]."""
+    B = x.shape[0]
+    H, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_head_dim,
+                        cfg.qk_rope_head_dim, cfg.v_head_dim,
+                        cfg.kv_lora_rank)
+    bt = slab.shape[-3]
+    tables = phys_blocks
+    if pools > 1:
+        tables = pooled_tables(phys_blocks, *slab.shape[:2])
+        slab = slab.flatten(0, 1)
+    with tracing.span("attn.latent"):
+        write_latent(slab, mla_latent(cfg, p, x, rope)[:, 0], tables,
+                     positions, bt)
+    q_nope, q_pe = mla_queries(cfg, p, x, rope)
+    w = p["w_kv_b"].to(cfg.dtype).view(r, H, dn + dv)
+    with tracing.span("attn.kernel"):
+        # [H,B,dn] @ [H,dn,r]: each head's query in the latent's space
+        q_lat = torch.bmm(q_nope[:, 0].transpose(0, 1),
+                          w[..., :dn].permute(1, 2, 0))
+        q = torch.cat([q_lat.transpose(0, 1), q_pe[:, 0]], dim=-1)
+        out = mla_decode(q, slab, tables, seq_lens, scale=(dn + dr) ** -0.5,
+                         dv=r)
+        # [H,B,r] @ [H,r,dv]: the latent's output through each head's v
+        out = torch.bmm(out.to(cfg.dtype).transpose(0, 1),
+                        w[..., dn:].transpose(0, 1))
+    out = out.transpose(0, 1).reshape(B, 1, H * dv)
+    return out @ p["wo"].to(cfg.dtype)
 
 
 # ----------------------------------------------------------------- model axis

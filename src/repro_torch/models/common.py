@@ -70,6 +70,22 @@ class ModelConfig:
     # per-arch logical->mesh rule overrides of the multi-device layer; kept
     # so a config compares field for field with the JAX package's
     rule_overrides: Tuple[Tuple[str, Any], ...] = ()
+    # --- the port's own fields, after the reference's (none of the ten
+    # configs sets them): multi-head latent attention (DeepSeek-V3's MLA,
+    # on when kv_lora_rank > 0) and the experts' router
+    kv_lora_rank: int = 0                    # the cached latent's width
+    qk_nope_head_dim: int = 0                # a head's query/key width without RoPE
+    qk_rope_head_dim: int = 0                # the RoPE width, one key shared by the heads
+    v_head_dim: int = 0
+    moe_router: str = "softmax"              # softmax | sigmoid (top-k on score + bias)
+    moe_routed_scale: float = 1.0            # the routed experts' gates times this
+    moe_dropless: bool = False               # no capacity: no assignment ever drops
+    f32_residual: bool = False               # the residual stream in float32
+
+    @property
+    def mla(self) -> bool:
+        """Whether attention is multi-head latent attention."""
+        return self.kv_lora_rank > 0
 
     @property
     def resolved_head_dim(self) -> int:

@@ -29,25 +29,48 @@ the others'), a ``shared`` expert split by ``ff`` adds its partial, and one
 scatter-add becomes a sum of per-shard sums (only the order of the
 ``cfg.dtype`` additions differs).  The aux loss comes from the gathered
 probabilities, replicated, and is not summed over the axis.
+
+DeepSeek-V3's experts (``cfg.moe_router == "sigmoid"``, Moonlight's) route
+on float32 logits and sigmoid scores: the top k are taken on the scores plus
+a per-expert correction bias (``router_bias``, the noaux_tc rule; ties to the
+lower id), and the gates are the chosen unbiased scores over their sum,
+times ``cfg.moe_routed_scale``; there is no aux loss.  With
+``cfg.moe_dropless`` no assignment is ever dropped: a decode step (one
+token a row) runs the batched products at capacity = its tokens, static
+shapes that a CUDA graph captures; a longer call (prefill, training) runs
+over expert-sorted segments, one product an expert, ``DROPLESS_CHUNK``
+tokens at a time, and reads the experts' loads on the host once a chunk.
+
+Spans: ``moe`` holds ``moe.route`` {``assignments``}, ``moe.experts``
+{``experts``, ``rows``: the experts run and the rows their products compute;
+over segments also ``load_max``, the largest load} and ``moe.shared``.  A
+segmented call on the card drains the stream before its ``moe`` span opens
+and before it closes, while spans record (the segments read the loads on
+the host anyway): the device time inside the span is then the layer's own.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..distributed.pods import Pods
 from .common import ModelConfig, _dense, activation, ffn_has_gate
 from .ffn import ffn_forward, init_ffn
 
 CAPACITY_FACTOR = 1.25
+#: tokens a dropless segmented call routes and runs at once (its gathered
+#: rows and hidden activations stay under ~1 GB at Moonlight's widths)
+DROPLESS_CHUNK = 32768
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype
              ) -> Dict[str, object]:
     """``router`` [D,E] (scale 0.1), ``we_in``/``we_gate`` [E,D,F],
-    ``we_out`` [E,F,D] and, with shared experts, a dense ``shared`` FFN of
-    width ``moe_d_ff * n_shared_experts``.  The expert tensors take the
+    ``we_out`` [E,F,D], a sigmoid router's ``router_bias`` [E] (scale
+    0.01) and, with shared experts, a dense ``shared`` FFN of width
+    ``moe_d_ff * n_shared_experts``.  The expert tensors take the
     reference's fan-in, ``shape[0]`` = E."""
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     p: Dict[str, object] = {
@@ -57,6 +80,8 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype
     }
     if ffn_has_gate(cfg.ffn_act):
         p["we_gate"] = _dense(gen, (e, d, f), dtype)
+    if cfg.moe_router == "sigmoid":
+        p["router_bias"] = _dense(gen, (e,), dtype, scale=0.01)
     if cfg.n_shared_experts:
         p["shared"] = init_ffn(cfg, gen, dtype,
                                d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
@@ -70,7 +95,7 @@ def expert_capacity(n_tokens: int, n_experts: int, top_k: int,
 
 
 class Routes(NamedTuple):
-    probs: torch.Tensor     # [N,E] float32 softmax of the router
+    probs: torch.Tensor     # [N,E] float32 softmax (or sigmoid) of the router
     eids: torch.Tensor      # [N,k] int64 expert ids, by falling probability
     gates: torch.Tensor     # [N,k] float32, renormalised over the k
 
@@ -79,7 +104,9 @@ def route(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
           logits: Optional[torch.Tensor] = None) -> Routes:
     """Router product in ``cfg.dtype`` (or its given ``logits`` [N,E]),
     softmax in float32, top-k as the first k of a stable descending sort
-    (ties go to the lower expert id)."""
+    (ties go to the lower expert id).  A sigmoid router: ``_route_sigmoid``."""
+    if cfg.moe_router == "sigmoid":
+        return _route_sigmoid(cfg, p, xf, logits)
     if logits is None:
         logits = xf @ p["router"].to(cfg.dtype)
     probs = torch.softmax(logits.float(), dim=-1)
@@ -87,6 +114,25 @@ def route(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
     k = cfg.experts_per_token
     gates = vals[:, :k]
     return Routes(probs, idx[:, :k], gates / gates.sum(dim=-1, keepdim=True))
+
+
+def _route_sigmoid(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                   xf: torch.Tensor, logits: Optional[torch.Tensor] = None
+                   ) -> Routes:
+    """DeepSeek-V3's noaux_tc routing: float32 logits (the router product
+    in float32, or the given ``logits``), sigmoid scores, the top k of
+    score + ``router_bias`` by a stable descending sort (ties to the lower
+    id), gates the chosen scores over their sum times
+    ``cfg.moe_routed_scale``."""
+    if logits is None:
+        logits = xf.float() @ p["router"].float()
+    scores = torch.sigmoid(logits.float())
+    _, idx = torch.sort(scores + p["router_bias"].float(), dim=-1,
+                        descending=True, stable=True)
+    eids = idx[:, :cfg.experts_per_token]
+    picked = scores.gather(1, eids)
+    gates = picked / picked.sum(dim=-1, keepdim=True) * cfg.moe_routed_scale
+    return Routes(scores, eids, gates)
 
 
 # Two runs that round differently (the two frameworks in bfloat16, or the
@@ -194,24 +240,108 @@ def _experts(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
     return out
 
 
+def _segments(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
+              routes: Routes) -> Tuple[torch.Tensor, List[int]]:
+    """The dropless experts over expert-sorted segments: the N*k
+    assignments sorted by expert (stable: token order within an expert),
+    one product chain an expert on its rows, each result scaled by its
+    gate, then each token's k results added in ascending expert order in
+    ``cfg.dtype`` (as ``_experts`` adds them).  Reads the experts' loads on
+    the host.  Returns (out [N, D], the loads [E])."""
+    N, D = xf.shape
+    K = routes.eids.shape[1]
+    flat = routes.eids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    loads = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    gates = routes.gates.reshape(-1)[order].to(cfg.dtype)
+    ye = torch.empty((N * K, D), dtype=cfg.dtype, device=xf.device)
+    start = 0
+    for e, n in enumerate(loads):
+        if n == 0:
+            continue
+        rows = order[start:start + n]
+        xe = xf[rows // K]
+        h = xe @ p["we_in"][e].to(cfg.dtype)
+        gate = xe @ p["we_gate"][e].to(cfg.dtype) if "we_gate" in p else None
+        del xe
+        h = activation(cfg.ffn_act, h, gate)
+        del gate
+        ye[start:start + n] = (h @ p["we_out"][e].to(cfg.dtype)) * gates[
+            start:start + n, None]
+        start += n
+    # sorted position of assignment (t, j), then each token's by expert id
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(N * K, device=xf.device)
+    pos = torch.gather(pos.view(N, K), 1, torch.argsort(routes.eids, dim=-1))
+    out = ye[pos[:, 0]]
+    for j in range(1, K):
+        out = out + ye[pos[:, j]]
+    return out, loads
+
+
+def _dropless(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
+              xe: torch.Tensor) -> torch.Tensor:
+    """The routed experts of a dropless call longer than a decode step
+    (module doc), routed on xf [N, D] and run on xe (the same rows in
+    ``cfg.dtype``) -> [N, D]: in segments, ``DROPLESS_CHUNK`` tokens at a
+    time."""
+    K, outs = cfg.experts_per_token, []
+    for c0 in range(0, xf.shape[0], DROPLESS_CHUNK):
+        x = xf[c0:c0 + DROPLESS_CHUNK]
+        with tracing.span("moe.route", assignments=x.shape[0] * K):
+            routes = route(cfg, p, x)
+        with tracing.span("moe.experts") as rec:
+            out, loads = _segments(cfg, p, xe[c0:c0 + DROPLESS_CHUNK], routes)
+            if rec:
+                rec.counts.update(experts=sum(n > 0 for n in loads),
+                                  rows=x.shape[0] * K, load_max=max(loads))
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 def moe_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 tp: Optional[Pods] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B,S,D] -> (out [B,S,D], aux: the Switch load-balance loss, a
-    float32 scalar).  Capacity comes from the N = B*S tokens of this call.
+    """x: [B,S,D] -> (out [B,S,D] in ``cfg.dtype``, aux: the Switch
+    load-balance loss, a float32 scalar; 0 for a sigmoid router).  A float32
+    x (a float32 residual's norm) is routed as it is and rounded to
+    ``cfg.dtype`` for the experts.  Capacity comes from the N = B*S tokens
+    of this call; a dropless layer has none (module doc).
     ``tp``: the model axis (expert-parallel when the experts are split over
     it: module doc)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     N = B * S
     xf = x.reshape(N, D)
+    xe = xf.to(cfg.dtype)
     C = expert_capacity(N, E, K, cfg.moe_capacity_factor)
     if tp is not None and p["we_in"].dim() == 4:
+        if cfg.moe_dropless or cfg.moe_router != "softmax":
+            raise ValueError(f"{cfg.name}: dropless or sigmoid-routed experts "
+                             "are not split over the model axis")
         return _moe_tp(cfg, p, x, C, tp)
-    routes = route(cfg, p, xf)
-    aux = _aux_loss(routes, E)
-    out = _experts(cfg, p, xf, dispatch(routes, E, C), routes)
-    if cfg.n_shared_experts:
-        out = out + ffn_forward(cfg, p["shared"], xf[None], tp)[0]
+    segmented = cfg.moe_dropless and S > 1
+    drain = segmented and x.is_cuda and tracing.on()
+    if drain:
+        torch.cuda.synchronize(x.device)
+    with tracing.span("moe"):
+        if segmented:
+            out = _dropless(cfg, p, xf, xe)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            if cfg.moe_dropless:            # decode: capacity = its tokens
+                C = N
+            with tracing.span("moe.route", assignments=N * K):
+                routes = route(cfg, p, xf)
+                aux = (_aux_loss(routes, E) if cfg.moe_router == "softmax"
+                       else torch.zeros((), dtype=torch.float32,
+                                        device=x.device))
+            with tracing.span("moe.experts", experts=E, rows=E * C):
+                out = _experts(cfg, p, xe, dispatch(routes, E, C), routes)
+        if cfg.n_shared_experts:
+            with tracing.span("moe.shared"):
+                out = out + ffn_forward(cfg, p["shared"], xe[None], tp)[0]
+        if drain:
+            torch.cuda.synchronize(x.device)
     return out.reshape(B, S, D), aux
 
 

@@ -89,14 +89,17 @@ from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves
 from ..distributed.pods import Pods
 from ..distributed.sharding import current_rules
-from ..kvcache.gather import scatter_prefill_plain, scatter_prefill_pooled
+from ..kvcache.gather import (scatter_latent, scatter_prefill_plain,
+                              scatter_prefill_pooled)
 from .attention import (ShardHeads, _kv_of, attend, attend_tp,
-                        attn_decode_paged, attn_decode_paged_tp,
-                        attn_decode_ring, attn_decode_ring_tp, cross_attention,
+                        attn_decode_mla, attn_decode_paged,
+                        attn_decode_paged_tp, attn_decode_ring,
+                        attn_decode_ring_tp, cross_attention,
                         cross_attention_tp, cross_kv, cross_kv_tp,
-                        heads_sharded, init_attn, project_qk_rope_v, rope_for)
+                        heads_sharded, init_attn, init_mla, mla_attend,
+                        project_qk_rope_v, rope_for)
 from .common import (SHAPES_ONLY, CacheLayout, LayerGroup, ModelConfig,
-                     _dense, apply_norm, init_norm, require_ported)
+                     _dense, apply_norm, init_norm, require_ported, rms_norm)
 from .ffn import ffn_forward, init_ffn
 from .moe import init_moe, moe_forward
 from .rglru import init_rglru, rglru_decode, rglru_forward
@@ -119,7 +122,7 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype,
     if group.kind == "rglru":
         p["rglru"] = init_rglru(cfg, gen, dtype)
     else:
-        p["attn"] = init_attn(cfg, gen, dtype)
+        p["attn"] = (init_mla if cfg.mla else init_attn)(cfg, gen, dtype)
     p["norm2"] = init_norm(cfg, cfg.d_model, dtype, dev)
     if group.kind == "dec_attn":
         p["cross"] = init_attn(cfg, gen, dtype, cross=True)
@@ -285,6 +288,13 @@ def seq_shards(tp: Optional[Pods], length: int) -> Optional[SeqParallel]:
     return SeqParallel(tp)
 
 
+def _norm(cfg: ModelConfig, x: torch.Tensor, p: Dict[str, torch.Tensor]
+          ) -> torch.Tensor:
+    """``apply_norm`` in ``cfg.dtype``: a float32 residual stream
+    (``cfg.f32_residual``) is normed into the working type."""
+    return apply_norm(cfg, x, p).to(cfg.dtype)
+
+
 def _block(cfg: ModelConfig, x: torch.Tensor, norm: Dict[str, torch.Tensor],
            fn, tp: Optional[Pods], seq: Optional[SeqParallel], split: bool):
     """One residual block, ``x + fn(norm(x), axis)``: (x, fn's second
@@ -293,7 +303,7 @@ def _block(cfg: ModelConfig, x: torch.Tensor, norm: Dict[str, torch.Tensor],
     the axis, so ``fn`` ends in ``block_out``) reduce-scatters its output
     through ``seq``, a replicated one keeps its shard's chunk."""
     if seq is None:
-        out, extra = fn(apply_norm(cfg, x, norm), tp)
+        out, extra = fn(_norm(cfg, x, norm), tp)
         return x + out, extra
     h = seq.norm(cfg, x, norm)
     if split:
@@ -330,8 +340,12 @@ def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
         if seq is not None:
             x = seq.tp.scatter_dim(x, 1)
     # gemma-style scale, rounded to the working dtype as the reference does
-    # (for every decoder-only family, Mamba-2's included)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
+    # (for every decoder-only family, Mamba-2's included); a float32
+    # residual stream takes the product in float32
+    scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
+    if cfg.f32_residual:
+        return x.float() * scale.float()
+    return x * scale
 
 
 def _dec_embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
@@ -356,7 +370,7 @@ def _lm_head(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
                       else "embedding"].transpose(-1, -2)
     split = tp is not None and head.dim() == 3
     if seq is None:
-        x = apply_norm(cfg, x, params["final_norm"])
+        x = _norm(cfg, x, params["final_norm"])
         xin = tp.copy_in(x) if split else None
     else:
         x = seq.gather(seq.norm(cfg, x, params["final_norm"]), partial=split)
@@ -388,6 +402,11 @@ def _ffn_block(cfg: ModelConfig, lp: PyTree, x: torch.Tensor,
     ``moe``), and the MoE auxiliary loss (None for a dense layer)."""
     if "moe" in lp:
         split = tp is not None and lp["moe"]["we_in"].dim() == 4
+        if cfg.f32_residual and seq is None and not split:
+            # the router reads the float32 residual's norm unrounded
+            out, aux = moe_forward(cfg, lp["moe"],
+                                   rms_norm(x, lp["norm2"]["scale"]), tp)
+            return x + out, aux
         return _block(cfg, x, lp["norm2"],
                       lambda h, ax: moe_forward(cfg, lp["moe"], h, ax),
                       tp, seq, split)
@@ -488,6 +507,18 @@ def _layer(cfg: ModelConfig, g: LayerGroup, li: int, lp: PyTree,
             out, state = fwd(cfg, lp[g.kind], h, return_state=True, tp=ax)
             _store_state(cache, li, state)
             return out, None
+    elif cfg.mla:
+        if tp is not None:
+            raise ValueError(f"{cfg.name}: latent attention runs unsplit")
+        split = False
+
+        def store(latent):
+            scatter_latent(cache["latent"][li], latent, phys_blocks,
+                           positions, cfg.kv_block_tokens, layout.pools)
+
+        def mixer(h, ax):
+            return mla_attend(cfg, lp["attn"], h, rope, causal=causal,
+                              store=None if cache is None else store), None
     elif tp is not None and heads_sharded(lp["attn"]):
         split = True
         store = (None if cache is None else
@@ -845,7 +876,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
     attention groups get paged slabs ``[L, n_blocks, bt, K, hd]``, or with
     ``n_pools`` > 1 pool-partitioned ones ``[L, n_pools, n_blocks //
     n_pools, bt, K, hd]`` (numaPTE's partitioned KV: each row's frames in
-    its own pool); windowed groups a ring of ``window`` slots per sequence,
+    its own pool); latent attention (``cfg.mla``) one such ``latent`` slab
+    of ``[..., bt, 1, kv_lora_rank + qk_rope_head_dim]`` in their place;
+    windowed groups a ring of ``window`` slots per sequence,
     SSD and RG-LRU groups a float32 state ``h`` and a conv tail, the encoder
     nothing.  ``kv_split`` = t > 1 splits the slabs', the rings' and the
     cross K/V's kv heads over t model shards, ``[L, t, ..., K / t, hd]``
@@ -856,6 +889,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
     t, ...]`` of its heads or channels (``launch/specs.py:state_split``).
     The state records all three (``CacheLayout``).  All zeros: a masked
     slot must hold a finite value."""
+    if cfg.mla and kv_split > 1:
+        raise ValueError(f"{cfg.name}: latent attention's slab does not "
+                         "split over the model axis")
     if cfg.n_kv_heads % kv_split:
         raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over "
                          f"{kv_split} shards")
@@ -886,6 +922,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, n_blocks: int,
             w = (cfg.lru_width or cfg.d_model) // ts
             shapes = {"h": ((L,) + rec + (batch, w), torch.float32),
                       "conv": ((L,) + rec + (batch, W1, w), dtype)}
+        elif cfg.mla:
+            shapes = {"latent": ((L,) + slab_dims + (
+                bt, 1, cfg.kv_lora_rank + cfg.qk_rope_head_dim), dtype)}
         elif g.kind in ("attn", "dec_attn") and g.window is None:
             shapes = {n: ((L,) + slab_dims + (bt, kv[1], hd), dtype)
                       for n in ("k_slabs", "v_slabs")}
@@ -957,7 +996,7 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
     for li, lp in enumerate(gp):
         with tracing.span("layer", index=first + li):
             with tracing.span(mixer):
-                h = apply_norm(cfg, x, lp["norm1"])
+                h = _norm(cfg, x, lp["norm1"])
                 if g.kind in ("ssd", "rglru"):
                     step = ssd_decode if g.kind == "ssd" else rglru_decode
                     a, hs, conv = step(cfg, lp[g.kind], h, cache["h"][li],
@@ -974,6 +1013,13 @@ def _decode_group(cfg: ModelConfig, g: LayerGroup, gp: PyTree,
                         (cache["k_slabs"][li], cache["v_slabs"][li]),
                         phys_blocks, seq_lens, rope=rope, tp=tp,
                         layout=layout, sp=sp, pods=pods)
+                elif cfg.mla:
+                    if sp or tp is not None:
+                        raise ValueError(f"{cfg.name}: latent attention "
+                                         "decodes unsplit, without SP")
+                    a = attn_decode_mla(
+                        cfg, lp["attn"], h, positions, cache["latent"][li],
+                        phys_blocks, seq_lens, rope=rope, pools=layout.pools)
                 elif g.window is None:
                     a, _ = attn_decode_paged(
                         cfg, lp["attn"], h, positions,

@@ -71,6 +71,11 @@ class _Span:
         return False
 
 
+def on() -> bool:
+    """Whether a ``span`` opened here would record (module doc)."""
+    return not _paused and bool(_forced or _profiler._is_profiler_enabled)
+
+
 def span(name: str, **counts: int):
     """A context over the block named ``name`` (module doc)."""
     if _paused or not (_forced or _profiler._is_profiler_enabled):

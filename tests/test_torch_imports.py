@@ -85,12 +85,18 @@ def test_torch_chip_smoke_refuses_to_run_without_a_gpu():
                                   "mamba2_370m", "recurrentgemma_2b",
                                   "whisper_base"])
 def test_torch_configs_equal_reference_field_for_field(arch, which):
+    """The reference's fields are the port's leading fields, in order, each
+    equal; every field the port adds after them (latent attention, the
+    experts' router) holds its default in the reference's configs."""
     import importlib
     ours = getattr(importlib.import_module(f"repro_torch.configs.{arch}"), which)
     theirs = getattr(importlib.import_module(f"repro.configs.{arch}"), which)
     ours_d, theirs_d = dataclasses.asdict(ours), dataclasses.asdict(theirs)
-    assert list(ours_d) == list(theirs_d)
-    for name in ours_d:
+    assert list(ours_d)[:len(theirs_d)] == list(theirs_d)
+    for f in dataclasses.fields(ours)[len(theirs_d):]:
+        assert ours_d[f.name] == f.default, f.name
+    assert not ours.mla
+    for name in theirs_d:
         a, b = ours_d[name], theirs_d[name]
         if name in ("dtype", "param_dtype"):      # dtypes by name
             a, b = str(a).replace("torch.", ""), b.__name__ if hasattr(b, "__name__") else str(b)

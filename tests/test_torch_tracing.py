@@ -222,6 +222,18 @@ def test_records_on_the_profilers_clock(profiled):
         assert r.end_ns + offset <= e + 50_000, r.name
 
 
+def test_on_says_whether_a_span_records():
+    assert not tracing.on() and tracing.span("x") is tracing.span("y")
+    with tracing.recording():
+        assert tracing.on()
+        with tracing.paused():
+            assert not tracing.on()
+        assert tracing.on()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert tracing.on()
+    assert not tracing.on()
+
+
 def test_union_and_gaps():
     ops = [(100, 150), (120, 180), (300, 400), (950, 1050), (-20, 10)]
     busy = tracing.union(ops, 0, 1000)
