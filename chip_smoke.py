@@ -64,8 +64,10 @@ and the script exits non-zero):
             K4 (``mla_decode``, the paged decode of latent attention) against
             its plain version at Moonlight's widths (a 512-wide latent and a
             64-wide rope key, 16 heads, and 4 heads), one split and many, a
-            dead row; timed at Moonlight's decode (B 64, 5 120 slots
-            a row) beside gather + SDPA (``--phases kernels_mla`` alone).
+            dead row, rows shorter than a stage; timed at Moonlight's decode
+            (B 64, 5 120 slots a row) and at the cell's shape (385 columns,
+            rows of 4 112) beside gather + SDPA (``--phases kernels_mla``
+            alone).
             K1's per-row log-sum-exp (``lse``) against the plain version's
             (within 1e-5, both dtypes, a dead row, shard-local lengths past
             either end of a shard, with and without a window, one split and
@@ -1818,10 +1820,13 @@ def mla_p_bf16(q, slab, tables, lens, *, scale, dv):
 
 def phase_kernels_mla() -> dict:
     """K4 (paged MLA decode) against its plain version at Moonlight's
-    widths: one split and many, a dead row, ragged lengths, fewer heads than 16;
+    widths: one split and many, a dead row, ragged lengths, fewer heads than 16,
+    rows shorter than a stage, a row ending inside one beside a dead row;
     the combine's counters back at 0; timed at Moonlight's decode (B 64,
-    16 heads, 5 120 slots a row) beside the plain version and gather +
-    SDPA; the bf16-P control that the bound must see."""
+    16 heads, 5 120 slots a row) and at the cell's shape (385 columns, rows of
+    4 112: the table's last quarter dead) beside the plain version and gather +
+    SDPA, each with its split count; the bf16-P control that the bound must
+    see."""
     ref = paged_ops.mla_decode_ref
     fn = paged_ops.mla_decode
     cases = [mla_case(2, 16, 512, 64, 16, 8, 32),
@@ -1829,10 +1834,18 @@ def phase_kernels_mla() -> dict:
              mla_case(4, 16, 512, 64, 16, 8, 40, dead_row=True),
              mla_case(2, 4, 512, 64, 16, 8, 24),         # fewer heads than 16
              mla_case(5, 16, 512, 64, 16, 64, 400),
-             mla_case(1, 16, 512, 64, 16, 1024, 1024)]   # 16 384 slots, one row
+             mla_case(1, 16, 512, 64, 16, 1024, 1024),   # 16 384 slots, one row
+             # ragged rows of 1-6 144 in the cell's table, some shorter than
+             # a 64-slot stage
+             mla_case(64, 16, 512, 64, 16, 385, 64 * 385,
+                      lens=RNG.integers(1, 6145, 64)),
+             # a row ending inside a stage, a dead row beside it
+             mla_case(2, 16, 512, 64, 16, 70, 140, lens=[1000, 1000],
+                      dead_row=True)]
     main = mla_case(64, 16, 512, 64, 16, 320, 64 * 320, lens=np.full(64, 5120))
+    cell = mla_case(64, 16, 512, 64, 16, 385, 64 * 385, lens=np.full(64, 4112))
     err = 0.0
-    for args, kw in cases + [main]:
+    for args, kw in cases + [main, cell]:
         got, want = fn(*args, **kw), ref(*args, **kw)
         torch.cuda.synchronize()
         e = max_err(got, want)
@@ -1848,8 +1861,10 @@ def phase_kernels_mla() -> dict:
                        "attention); the port's plain mla_decode_ref",
            "launches": 0, **timed(fn, ref, mla_bound, mla_library, *main),
            "max_abs_err_by_dtype": {"bfloat16": err},
-           "tolerance": TOL["paged_attention"], "cases": len(cases) + 1,
-           "splits": paged_ops._mla_plan(0, 64, 320, 16, 512, 64)}
+           "tolerance": TOL["paged_attention"], "cases": len(cases) + 2,
+           "splits": paged_ops._mla_plan(0, 64, 320, 16, 512, 64),
+           "cell": {**timed(fn, ref, mla_bound, mla_library, *cell),
+                    "splits": paged_ops._mla_plan(0, 64, 385, 16, 512, 64)}}
     args, kw = main
     row["naive_p_bf16_err"] = max_err(mla_p_bf16(*args, **kw), ref(*args, **kw))
     check(row["naive_p_bf16_err"] > TOL["paged_attention"],

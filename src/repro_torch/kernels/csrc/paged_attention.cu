@@ -739,305 +739,409 @@ extern "C" int paged_attention_blocks_per_sm(int hd, int dtype, int capped,
 // then the roped key (DR).  The wrapper hands the queries already absorbed
 // into the latent's space, q = [q_nope W_UK^T, q_pe] [B,H,DK], and the kernel
 // computes softmax(scale q . latent) . latent[:, :DV] over the row's live
-// slots, V aliasing K's first DV columns, so each slot is read once.  What
-// bounds it is again bytes (2 H DK + 2 H DV FLOPs a 2 DK-byte slot, about 30
-// FLOPs a byte at H = 16, still under the tensor cores' ~300); what the
-// design does about it, in K1's family:
-//   * the H <= 16 heads of a row are the 16 rows of one mma's M, so a tile
-//     of 16 slots is two m16n8k16 chains for Q K^T and a P V on the tensor
-//     cores, P split into bf16 hi + lo as in K1;
-//   * the four warps share each tile, staged once for the block by a
-//     cp.async ring of STAGES tiles: warp w takes the k-steps w, w + 4, ...
-//     of Q K^T (its quarter of Q in registers), the partial scores meet in
-//     shared memory, every warp then holds the same scores and softmax
-//     state, and warp w accumulates P V for its DV / 4 output columns (a
-//     warp of K1's design would hold all DV columns: 256 registers at 512);
-//   * split-KV and the block table as in K1: the grid is (B, n_splits), a
-//     block stages the frame ids of its column range and walks them; the
-//     last block of a row, found with a counter it resets, merges the
-//     partials (max, rescale, sum, denominator floored at 1e-30).
+// slots, V aliasing K's first DV columns, so each slot is read once.
+//
+// What bounds it: bytes.  A 2 DK-byte slot costs 2 H DK + 2 H DV FLOPs, about
+// 30 FLOPs a byte at H = 16, a tenth of what would make the tensor cores the
+// limit; the least time is the live latents over HBM bandwidth.  The first
+// design (K1's family) took about 4.4 us a 16-slot tile (18.4 KB) whatever
+// the bandwidth: all 128 threads issued its 1 152 16-byte cp.async with their
+// index arithmetic, the block met twice at __syncthreads, and the four warps
+// passed their partial scores through 4 KB of shared memory, since no warp
+// could hold all DV output columns of 16 heads.  Its column ranges were cut
+// from the table's MB columns, so rows shorter than the table left blocks
+// idle.  About a fifth of the bound in Moonlight's serving.  This design:
+//   * splits each row's live columns, not MB.  The grid is (B, n_splits),
+//     n_splits from shapes alone (a captured CUDA graph replays the same
+//     launch); a block reads its row's length and takes its share of the
+//     ceil(len / bt) live columns;
+//   * one producer warp fills a ring of MLA_STAGES stages of 64 slots (72 KB
+//     each) with TMA copies.  A frame of bt slots is NCH boxes of bt rows x
+//     128 bytes, 128-byte swizzled, its frame id read from the block table on
+//     the device (the block table is the page table: no gathered copy of the
+//     cache exists).  Full / empty mbarriers track the stages, so the
+//     consumers spend no instruction on an address and meet at no
+//     block-wide barrier inside the loop;
+//   * one consumer warpgroup runs both products on wgmma with the 16 heads as
+//     N, so nothing is padded at H = 16: S^T = latent [64 x DK] . Q^T (Q
+//     staged once, the K-major B), then O^T [DV x 16] += V^T . P^T, V^T the
+//     stage's first DV columns read transposed as A and P [16 x 64] the B, in
+//     shared memory as bf16 hi + lo (as K1 splits it, so P V stays within
+//     ~1e-5 of the float32 product).  The warpgroup holds all 16 x DV outputs,
+//     64 float32 a thread; the softmax of a stage meets once, to exchange the
+//     heads' maxima over its 64 slots;
+//   * the combine costs no launch: the last block of a row, found with a
+//     counter it resets, merges the partials (max, rescale, sum, denominator
+//     floored at 1e-30).  Scores, softmax and sums are float32.
+// A slot past the row's length in a live frame is loaded and masked (P = 0);
+// so is a frame that is absent (-1) or pads the last stage, which loads frame
+// 0 in its place.  A row with no live slot comes out as 0.
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
+
 namespace {
+
+constexpr int MLA_SLOTS = 64;       // slots a stage: the M of the scores' wgmma
+constexpr int MLA_STAGES = 2;       // stages in the ring (two fill 144 KB)
+constexpr int MLA_CONSUMERS = 128;  // one warpgroup
+constexpr int MLA_THREADS = MLA_CONSUMERS + 32;   // and the producer warp
+constexpr int SW = 128;             // bytes a swizzled row
 
 template <int DV, int DR>
 struct MlaLayout {
     static constexpr int DK = DV + DR;
-    static constexpr int LD = DK + 8;           // a row + 16 bytes: ldmatrix
-                                                // rows on distinct banks
-    static constexpr int CH = DK / 8;           // 16-byte chunks a row
+    static constexpr int NCH = DK / 64;       // 128-byte chunks a latent row
+    static constexpr int VCH = DV / 64;       // of them V's: O^T's m64 tiles
     static constexpr int KSTEPS = DK / 16;
-    static constexpr int KW = (KSTEPS + NW - 1) / NW;   // k-steps a warp
-    static constexpr int CW = DV / NW;          // output columns a warp
-    static constexpr int DBLK = CW / 8;
-    static constexpr int TILE_BYTES = TK * LD * 2;
-    static constexpr int STAGES = 4 * TILE_BYTES <= 96 * 1024 ? 4 : 3;
-    static constexpr int Q_BYTES = round16(GM * LD * 2);
-    static constexpr int S_BYTES = NW * 2 * 4 * 32 * 4;   // [warp][j][c][lane]
-    static constexpr int RING_BYTES = STAGES * TILE_BYTES;
-    static_assert(DK % 16 == 0 && DV % (NW * 16) == 0, "mma-shaped widths");
+    static constexpr int CHUNK = MLA_SLOTS * SW;       // one chunk of a stage
+    static constexpr int STAGE = NCH * CHUNK;          // [NCH][64 slots][128 B]
+    static constexpr int QCHUNK = GM * SW;
+    static constexpr int SQ = MLA_STAGES * STAGE;      // Q [NCH][16][128 B]
+    static constexpr int SP = SQ + NCH * QCHUNK;       // P hi, then lo [16][128 B]
+    static constexpr int RED = SP + 2 * GM * SW;       // [NW][16] float32
+    static constexpr int BARS = RED + NW * GM * 4;     // full, then empty
+    static constexpr int LAST = BARS + 2 * MLA_STAGES * 8;
+    static constexpr int BYTES = LAST + 16 + 1024;     // + aligning the base
+    static_assert(DK % 64 == 0 && DV % 64 == 0, "128-byte chunks");
 };
 
-template <int DV, int DR>
-size_t mla_smem_bytes(int n_splits) {
-    using L = MlaLayout<DV, DR>;
-    const int combine = GM * (n_splits + 1) * 4;
-    const int big = L::RING_BYTES > combine ? L::RING_BYTES : combine;
-    return (size_t)L::Q_BYTES + L::S_BYTES + big;
+// The 16-byte unit u of row r of a 128-byte-swizzled block (1 024-aligned),
+// as TMA writes it and wgmma reads it.
+__device__ __forceinline__ int sw128(int r, int u) { return r * SW + ((u ^ (r & 7)) << 4); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`; trap
+// (a launch failure) rather than hang on a stage that never arrives.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+    for (int n = 0;; ++n) {
+        uint32_t done;
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        if (done) return;
+        if (n == 1 << 22) __trap();
+    }
+}
+
+// One box of the tensor map at column x, row y into shared memory at dst,
+// its bytes counted on the mbarrier at bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int x,
+                                            int y, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+        : "memory");
+}
+
+// A wgmma descriptor of a 128-byte-swizzled operand at shared address addr;
+// lbo and sbo in 16-byte units (sbo: the stride of 8-row groups).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, int lbo, int sbo) {
+    return (uint64_t)((addr & 0x3ffffu) >> 4) | (uint64_t)lbo << 16 |
+           (uint64_t)sbo << 32 | 1ull << 62;
+}
+
+// d (+)= A [64 x 16] . B [16 x 16], bf16 from shared memory, float32 in
+// registers; A K-major (TRANS_A 0) or M-major (1), B K-major.
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc), "n"(TRANS_A));
+}
+
+__device__ __forceinline__ void wg_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit_wait() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from touching wgmma's registers before the wait.
+__device__ __forceinline__ void reg_fence(float (&r)[8]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// Generic-proxy writes to shared memory, visible to the async proxy (wgmma).
+__device__ __forceinline__ void fence_async_smem() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The consumer warpgroup's barrier (the producer warp never joins it).
+__device__ __forceinline__ void consumers_sync() {
+    asm volatile("bar.sync 1, %0;\n" :: "n"(MLA_CONSUMERS) : "memory");
 }
 
 struct MlaParams {
     const __nv_bfloat16* q;      // [B,H,DK]
-    const __nv_bfloat16* lat;    // [N,bt,DK]
     const int* tables;           // [B,MB]
     const int* lens;             // [B]
     float* out;                  // [B,H,DV]
     float* part;                 // B*n_splits*GM rows: acc [DV], then m, then l
     int* counters;               // [B], 0 between launches
-    int B, H, bt, MB, n_splits, cps;
+    int B, H, bt, MB, n_splits;
     float scale_log2;
 };
 
+// A thread's 8 accumulator registers of an m64n16 tile: register r holds row
+// 16 warp + g + 8 ((r >> 1) & 1) and column (head) 8 (r >> 2) + 2 t + (r & 1);
+// hh = 2 (r >> 2) + (r & 1) numbers the thread's four heads.
+__device__ __forceinline__ int head_of(int hh, int t) { return 8 * (hh >> 1) + 2 * t + (hh & 1); }
+
 template <int DV, int DR>
-__global__ void __launch_bounds__(NT) mla_decode_kernel(const MlaParams p) {
+__global__ void __launch_bounds__(MLA_THREADS, 1)
+    mla_decode_kernel(const __grid_constant__ CUtensorMap lat_map, const MlaParams p) {
     using L = MlaLayout<DV, DR>;
-    constexpr int DK = L::DK, LD = L::LD, STAGES = L::STAGES;
-    extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);          // [GM][LD]
-    float* s_part = reinterpret_cast<float*>(smem + L::Q_BYTES);         // partial scores
-    unsigned char* big = smem + L::Q_BYTES + L::S_BYTES;
-    __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(big);         // [STAGES][TK][LD]
-    __shared__ int s_frames[MAX_COLS];
-    __shared__ int s_last;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+    const uint32_t base = smem_u32(smem);
+    const uint32_t full = base + L::BARS, empty = full + 8 * MLA_STAGES;
+    int* s_last = reinterpret_cast<int*>(smem + L::LAST);
 
+    // this block's share of the row's live columns
     const int b = blockIdx.x, split = blockIdx.y;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int t = lane & 3, g = lane >> 2;
     const int* table_row = p.tables + (int64_t)b * p.MB;
+    const int len = __ldg(p.lens + b);
+    const int live_cols = len > 0 ? min(p.MB, (len + p.bt - 1) / p.bt) : 0;
+    const int per = (live_cols + p.n_splits - 1) / p.n_splits;
+    const int c_begin = min(split * per, live_cols);
+    const int c_end = min(c_begin + per, live_cols);
+    const int fps = MLA_SLOTS / p.bt;          // frames a stage
+    const int n_stages = (c_end - c_begin + fps - 1) / fps;
 
-    // Q (zero rows past H) rides in the first commit group
-    {
-        const __nv_bfloat16* qb = p.q + (int64_t)b * p.H * DK;
-        for (int idx = threadIdx.x; idx < GM * L::CH; idx += NT) {
-            const int r = idx / L::CH, c = idx % L::CH;
-            const bool ok = r < p.H;
-            cp_async_16(sq + r * LD + c * 8, ok ? qb + r * DK + c * 8 : qb, ok ? 16 : 0);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < MLA_STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, NW);
         }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    const int c_begin = split * p.cps;
-    const int c_end = min(c_begin + p.cps, p.MB);
-#pragma unroll
-    for (int j = 0; j < COLS_PER_THREAD; ++j) {
-        const int c = threadIdx.x + NT * j;
-        s_frames[c] = c < c_end - c_begin ? __ldg(table_row + c_begin + c) : -1;
-    }
-    const int seq_len = __ldg(p.lens + b);
-    const int p0 = c_begin * p.bt;
-    const int p1 = min(c_end * p.bt, seq_len);
-    const int n_tiles = p1 > p0 ? (p1 - p0 + TK - 1) / TK : 0;
-    __syncthreads();                           // the frame ids are staged
+    __syncthreads();
 
-    // the block's copies of tile i: 16 slots x CH chunks
-    auto fetch = [&](int i) {
-        __nv_bfloat16* st = ring + (i % STAGES) * TK * LD;
-        const int pos0 = p0 + i * TK;
-        for (int idx = threadIdx.x; idx < TK * L::CH; idx += NT) {
-            const int r = idx / L::CH, c = idx % L::CH;
-            const int pos = pos0 + r;
-            const int frame = pos < p1 ? s_frames[pos / p.bt - c_begin] : -1;
-            const int64_t src = frame >= 0
-                ? ((int64_t)frame * p.bt + pos % p.bt) * DK + c * 8 : 0;
-            cp_async_16(st + r * LD + c * 8, p.lat + src, frame >= 0 ? 16 : 0);
-        }
-    };
+    if (threadIdx.x >= MLA_CONSUMERS) {        // the producer warp
+        const int lane = threadIdx.x & 31;
+        for (int i = 0; i < n_stages; ++i) {
+            const int s = i % MLA_STAGES;
+            if (i >= MLA_STAGES) mbar_wait(empty + 8 * s, (i / MLA_STAGES - 1) & 1);
+            if (lane == 0) mbar_expect_tx(full + 8 * s, L::STAGE);
+            __syncwarp();
+            if (lane < fps) {                  // lane f copies frame f of the stage
+                const int col = c_begin + i * fps + lane;
+                const int frame = col < c_end ? __ldg(table_row + col) : -1;
+                const int row = frame >= 0 ? frame * p.bt : 0;
+                const uint32_t dst = base + s * L::STAGE + lane * p.bt * SW;
 #pragma unroll
-    for (int i = 0; i < STAGES - 1; ++i) {
-        if (i < n_tiles) fetch(i);
-        cp_async_commit();
-    }
-
-    uint32_t qf[L::KW][4];
-    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-    float acc[L::DBLK][4];
-#pragma unroll
-    for (int j = 0; j < L::DBLK; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-    const __nv_bfloat16* sq_lane = sq + (lane & 15) * LD + (lane >> 4) * 8;
-    const int k_lane = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-    const int v_lane = (lane & 15) * LD + (lane >> 4) * 8 + warp * L::CW;
-
-    cp_async_wait<STAGES - 2>();               // Q (with tile 0) has landed ...
-    __syncthreads();                           // ... for every warp
-#pragma unroll
-    for (int j = 0; j < L::KW; ++j)
-        if (warp + NW * j < L::KSTEPS) ldmatrix_x4(qf[j], sq_lane + 16 * (warp + NW * j));
-
-    for (int i = 0; i < n_tiles; ++i) {
-        cp_async_wait<STAGES - 2>();           // this thread's copies of tile i ...
-        __syncthreads();                       // ... and everyone's; tile i - 1 done
-        if (i + STAGES - 1 < n_tiles) fetch(i + STAGES - 1);
-        cp_async_commit();
-        const __nv_bfloat16* sk = ring + (i % STAGES) * TK * LD;
-
-        // this warp's k-steps of Q K^T, then the four partials summed
-        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int j = 0; j < L::KW; ++j) {
-            const int kk = warp + NW * j;
-            if (kk < L::KSTEPS) {
-                uint32_t kf[4];
-                ldmatrix_x4(kf, sk + k_lane + 16 * kk);
-                mma_bf16_16816(s[0], qf[j], kf[0], kf[1]);
-                mma_bf16_16816(s[1], qf[j], kf[2], kf[3]);
+                for (int c = 0; c < L::NCH; ++c)
+                    tma_load_2d(dst + c * L::CHUNK, &lat_map, 64 * c, row, full + 8 * s);
             }
         }
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) s_part[((warp * 2 + j) * 4 + c) * 32 + lane] = s[j][c];
-        // the tile's live slots: slot r of lane r
-        const int pos = p0 + i * TK + (lane & 15);
-        const bool live = pos < p1 && s_frames[pos / p.bt - c_begin] >= 0;
-        const uint32_t mask = __ballot_sync(FULL, live) & 0xffffu;
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                float x = 0.f;
-#pragma unroll
-                for (int w = 0; w < NW; ++w) x += s_part[((w * 2 + j) * 4 + c) * 32 + lane];
-                s[j][c] = x;
-            }
+        return;
+    }
 
-        // online softmax, the same in every warp; a head's 16 scores lie on
-        // the 4 lanes of a quad
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            float mx = NEG_INF;
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    float& x = s[j][2 * r + c];
-                    const bool ok = (mask >> (8 * j + 2 * t + c)) & 1u;
-                    x = ok ? x * p.scale_log2 : NEG_INF;
-                    mx = fmaxf(mx, x);
-                }
-            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-            const float m_new = fmaxf(m[r], mx);
-            const float alpha = exp2f(m[r] - m_new);
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    float& x = s[j][2 * r + c];
-                    const bool ok = (mask >> (8 * j + 2 * t + c)) & 1u;
-                    x = ok ? exp2f(x - m_new) : 0.f;
-                    sum += x;
-                }
-            l[r] = l[r] * alpha + sum;
-            m[r] = m_new;
-#pragma unroll
-            for (int j = 0; j < L::DBLK; ++j) {
-                acc[j][2 * r] *= alpha;
-                acc[j][2 * r + 1] *= alpha;
-            }
-        }
-
-        // acc += P V on this warp's columns, P = hi + lo
-        uint32_t hi[4], lo[4];
-        split_p(s[0][0], s[0][1], hi[0], lo[0]);
-        split_p(s[0][2], s[0][3], hi[1], lo[1]);
-        split_p(s[1][0], s[1][1], hi[2], lo[2]);
-        split_p(s[1][2], s[1][3], hi[3], lo[3]);
-#pragma unroll
-        for (int dd = 0; dd < L::DBLK / 2; ++dd) {
-            uint32_t vf[4];
-            ldmatrix_x4_trans(vf, sk + v_lane + 16 * dd);
-            mma_bf16_16816(acc[2 * dd], hi, vf[0], vf[1]);
-            mma_bf16_16816(acc[2 * dd], lo, vf[0], vf[1]);
-            mma_bf16_16816(acc[2 * dd + 1], hi, vf[2], vf[3]);
-            mma_bf16_16816(acc[2 * dd + 1], lo, vf[2], vf[3]);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    {   // Q [16][DK], zero rows past H, as wgmma's K-major B
+        const __nv_bfloat16* qb = p.q + (int64_t)b * p.H * L::DK;
+        for (int idx = tid; idx < GM * L::NCH * 8; idx += MLA_CONSUMERS) {
+            const int n = idx / (L::NCH * 8), u = idx % (L::NCH * 8);
+            uint4 v = make_uint4(0u, 0u, 0u, 0u);
+            if (n < p.H) v = *reinterpret_cast<const uint4*>(qb + n * L::DK + 8 * u);
+            *reinterpret_cast<uint4*>(smem + L::SQ + (u >> 3) * L::QCHUNK + sw128(n, u & 7)) = v;
         }
     }
-    cp_async_wait<0>();
-    __syncthreads();                           // the ring is free for the merge
+    fence_async_smem();
+    consumers_sync();
 
-    // this lane's rows g and g + 8: the row sums over the quad
+    float m[4], l[4], acc[L::VCH][8];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(FULL, l[r], 1);
-        l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    for (int hh = 0; hh < 4; ++hh) m[hh] = NEG_INF, l[hh] = 0.f;
+#pragma unroll
+    for (int j = 0; j < L::VCH; ++j)
+#pragma unroll
+        for (int r = 0; r < 8; ++r) acc[j][r] = 0.f;
+    float* red = reinterpret_cast<float*>(smem + L::RED);
+    const uint32_t sq = base + L::SQ, sp = base + L::SP;
+    const int p0 = c_begin * p.bt, p1 = min(c_end * p.bt, len);
+
+    for (int i = 0; i < n_stages; ++i) {
+        const int s = i % MLA_STAGES;
+        bool live[2];                          // this thread's slots 16 warp + g (+ 8)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            const int sl = i * MLA_SLOTS + 16 * warp + g + 8 * k;
+            live[k] = p0 + sl < p1 && __ldg(table_row + c_begin + sl / p.bt) >= 0;
+        }
+        mbar_wait(full + 8 * s, (i / MLA_STAGES) & 1);
+        __syncwarp();                          // converged for wgmma
+        const uint32_t st = base + s * L::STAGE;
+
+        // S^T [64 slots x 16 heads] = latent . Q^T
+        float sc[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) sc[r] = 0.f;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < L::KSTEPS; ++kk)
+            wgmma_n16<0>(sc, sw128_desc(st + (kk >> 2) * L::CHUNK + (kk & 3) * 32, 1, 64),
+                         sw128_desc(sq + (kk >> 2) * L::QCHUNK + (kk & 3) * 32, 1, 64),
+                         kk > 0);
+        wg_commit_wait();
+        reg_fence(sc);
+
+        // online softmax over the stage's slots: a head's maxima meet once
+        float mx[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+            const int hh = 2 * (r >> 2) + (r & 1);
+            sc[r] = live[(r >> 1) & 1] ? sc[r] * p.scale_log2 : NEG_INF;
+            mx[hh] = fmaxf(mx[hh], sc[r]);
+        }
+#pragma unroll
+        for (int hh = 0; hh < 4; ++hh) {
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1)
+                mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(FULL, mx[hh], off));
+            if (g == 0) red[warp * GM + head_of(hh, t)] = mx[hh];
+        }
+        consumers_sync();
+        float alpha[4];
+#pragma unroll
+        for (int hh = 0; hh < 4; ++hh) {
+            const int h = head_of(hh, t);
+            float mm = fmaxf(fmaxf(red[h], red[GM + h]), fmaxf(red[2 * GM + h], red[3 * GM + h]));
+            mm = fmaxf(m[hh], mm);
+            alpha[hh] = exp2f(m[hh] - mm);
+            m[hh] = mm;
+            l[hh] *= alpha[hh];
+        }
+        // P = hi + lo as wgmma's K-major B: [head][slot]
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+            const int hh = 2 * (r >> 2) + (r & 1), h = head_of(hh, t);
+            const int sl = 16 * warp + g + 8 * ((r >> 1) & 1);
+            const float e = live[(r >> 1) & 1] ? exp2f(sc[r] - m[hh]) : 0.f;
+            l[hh] += e;
+            const __nv_bfloat16 hi = __float2bfloat16(e);
+            const int off = L::SP + sw128(h, sl >> 3) + 2 * (sl & 7);
+            *reinterpret_cast<__nv_bfloat16*>(smem + off) = hi;
+            *reinterpret_cast<__nv_bfloat16*>(smem + off + GM * SW) =
+                __float2bfloat16(e - __bfloat162float(hi));
+        }
+#pragma unroll
+        for (int j = 0; j < L::VCH; ++j)
+#pragma unroll
+            for (int r = 0; r < 8; ++r) acc[j][r] *= alpha[2 * (r >> 2) + (r & 1)];
+        fence_async_smem();
+        consumers_sync();
+
+        // O^T [DV x 16] += V^T . P^T, P = hi + lo
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < MLA_SLOTS / 16; ++kk)
+#pragma unroll
+            for (int j = 0; j < L::VCH; ++j) {
+                const uint64_t v = sw128_desc(st + j * L::CHUNK + kk * 16 * SW, 64, 64);
+                wgmma_n16<1>(acc[j], v, sw128_desc(sp + kk * 32, 1, 64), 1);
+                wgmma_n16<1>(acc[j], v, sw128_desc(sp + GM * SW + kk * 32, 1, 64), 1);
+            }
+        wg_commit_wait();
+#pragma unroll
+        for (int j = 0; j < L::VCH; ++j) reg_fence(acc[j]);
+        if (lane == 0) mbar_arrive(empty + 8 * s);   // the stage is free
     }
-    const int col0 = warp * L::CW + 2 * t;
+
+    // a head's sum over the g lanes, then over the warps
+#pragma unroll
+    for (int hh = 0; hh < 4; ++hh) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) l[hh] += __shfl_xor_sync(FULL, l[hh], off);
+        if (g == 0) red[warp * GM + head_of(hh, t)] = l[hh];
+    }
+    consumers_sync();
+#pragma unroll
+    for (int hh = 0; hh < 4; ++hh) {
+        const int h = head_of(hh, t);
+        l[hh] = red[h] + red[GM + h] + red[2 * GM + h] + red[3 * GM + h];
+    }
     float* part_m = p.part + (int64_t)p.B * p.n_splits * GM * DV;
     float* part_l = part_m + (int64_t)p.B * p.n_splits * GM;
+    const int64_t prow0 = ((int64_t)b * p.n_splits + split) * GM;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = g + 8 * r;
-        if (row >= p.H) continue;
-        if (p.n_splits == 1) {
-            const float inv = 1.0f / fmaxf(l[r], 1e-30f);
-            float* o = p.out + ((int64_t)b * p.H + row) * DV + col0;
+    for (int hh = 0; hh < 4; ++hh) {
+        const int h = head_of(hh, t);
+        if (h >= p.H) continue;
+        const float inv = p.n_splits == 1 ? 1.0f / fmaxf(l[hh], 1e-30f) : 1.f;
+        float* o = p.n_splits == 1 ? p.out + ((int64_t)b * p.H + h) * DV
+                                   : p.part + (prow0 + h) * DV;
 #pragma unroll
-            for (int j = 0; j < L::DBLK; ++j)
-                *reinterpret_cast<float2*>(o + 8 * j) =
-                    make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
-        } else {
-            const int64_t prow = ((int64_t)b * p.n_splits + split) * GM + row;
-            float* o = p.part + prow * DV + col0;
+        for (int j = 0; j < L::VCH; ++j)
 #pragma unroll
-            for (int j = 0; j < L::DBLK; ++j)
-                *reinterpret_cast<float2*>(o + 8 * j) =
-                    make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
-            if (warp == 0 && t == 0) {
-                part_m[prow] = m[r];
-                part_l[prow] = l[r];
-            }
+            for (int k = 0; k < 2; ++k)
+                o[64 * j + 16 * warp + g + 8 * k] = acc[j][4 * (hh >> 1) + 2 * k + (hh & 1)] * inv;
+        if (p.n_splits > 1 && warp == 0 && g == 0) {
+            part_m[prow0 + h] = m[hh];
+            part_l[prow0 + h] = l[hh];
         }
     }
     if (p.n_splits == 1) return;
 
     // the last block of this row merges the partials
     __threadfence();
-    __syncthreads();
+    consumers_sync();
     int* counter = p.counters + b;
-    if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == p.n_splits - 1;
-    __syncthreads();
-    if (!s_last) return;
+    if (tid == 0) *s_last = atomicAdd(counter, 1) == p.n_splits - 1;
+    consumers_sync();
+    if (!*s_last) return;
     __threadfence();
 
     const int n = p.n_splits;
-    float* sf = reinterpret_cast<float*>(big);   // [GM][n] rescale factors
+    float* sf = reinterpret_cast<float*>(smem);  // [GM][n] rescale factors (the ring is idle)
     float* sden = sf + GM * n;                   // [GM] denominators
     for (int h = warp; h < p.H; h += NW) {
         float M = NEG_INF;
-        for (int sp = lane; sp < n; sp += 32)
-            M = fmaxf(M, __ldcg(part_m + ((int64_t)b * n + sp) * GM + h));
+        for (int sp2 = lane; sp2 < n; sp2 += 32)
+            M = fmaxf(M, __ldcg(part_m + ((int64_t)b * n + sp2) * GM + h));
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(FULL, M, off));
         float den = 0.f;
-        for (int sp = lane; sp < n; sp += 32) {
-            const int64_t prow = ((int64_t)b * n + sp) * GM + h;
+        for (int sp2 = lane; sp2 < n; sp2 += 32) {
+            const int64_t prow = ((int64_t)b * n + sp2) * GM + h;
             const float f = exp2f(__ldcg(part_m + prow) - M);
-            sf[h * n + sp] = f;
+            sf[h * n + sp2] = f;
             den += __ldcg(part_l + prow) * f;
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) den += __shfl_xor_sync(FULL, den, off);
         if (lane == 0) sden[h] = den;
     }
-    __syncthreads();
+    consumers_sync();
     constexpr int DV4 = DV / 4;
-    for (int idx = threadIdx.x; idx < p.H * DV4; idx += NT) {
+    for (int idx = tid; idx < p.H * DV4; idx += MLA_CONSUMERS) {
         const int h = idx / DV4, d = 4 * (idx % DV4);
         float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int sp = 0; sp < n; ++sp) {
-            const float f = sf[h * n + sp];
+        for (int sp2 = 0; sp2 < n; ++sp2) {
+            const float f = sf[h * n + sp2];
             const float4 a = __ldcg(reinterpret_cast<const float4*>(
-                p.part + (((int64_t)b * n + sp) * GM + h) * DV + d));
+                p.part + (((int64_t)b * n + sp2) * GM + h) * DV + d));
             num.x += a.x * f;
             num.y += a.y * f;
             num.z += a.z * f;
@@ -1047,28 +1151,73 @@ __global__ void __launch_bounds__(NT) mla_decode_kernel(const MlaParams p) {
         *reinterpret_cast<float4*>(p.out + ((int64_t)b * p.H + h) * DV + d) =
             make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv);
     }
-    if (threadIdx.x == 0) *counter = 0;         // ready for the next launch
+    if (tid == 0) *counter = 0;                  // ready for the next launch
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver once (the library links
+// only the runtime); null if the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &got);
+#else
+        const cudaError_t err =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got);
+#endif
+        return err == cudaSuccess && got == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+    }();
+    return fn;
+}
+
+// The latents [N*bt rows, DK] as boxes of bt rows x 64 columns (128 bytes),
+// 128-byte swizzled.
+template <int DV, int DR>
+cudaError_t mla_map(CUtensorMap* map, const void* lat, int N, int bt) {
+    constexpr int DK = DV + DR;
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)DK, (cuuint64_t)N * bt};
+    const cuuint64_t strides[1] = {(cuuint64_t)DK * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)bt};
+    const cuuint32_t step[2] = {1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(lat),
+                              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int DV, int DR>
-cudaError_t mla_launch(const MlaParams& p, cudaStream_t stream) {
-    const size_t smem = mla_smem_bytes<DV, DR>(p.n_splits);
-    auto kernel = mla_decode_kernel<DV, DR>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t mla_launch(const MlaParams& p, const void* lat, int N, cudaStream_t stream) {
+    CUtensorMap map;
+    cudaError_t err = mla_map<DV, DR>(&map, lat, N, p.bt);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3(p.B, p.n_splits), NT, smem, stream>>>(p);
+    constexpr int smem = MlaLayout<DV, DR>::BYTES;
+    auto kernel = mla_decode_kernel<DV, DR>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(p.B, p.n_splits), MLA_THREADS, smem, stream>>>(map, p);
     return cudaGetLastError();
 }
 
 template <int DV, int DR>
 cudaError_t mla_occupancy(int* blocks) {
-    const size_t smem = mla_smem_bytes<DV, DR>(1);
+    constexpr int smem = MlaLayout<DV, DR>::BYTES;
     auto kernel = mla_decode_kernel<DV, DR>;
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NT, smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, MLA_THREADS, smem);
 }
 
 // f(integral_constant<DV>, integral_constant<DR>) for the instance of
@@ -1083,29 +1232,28 @@ cudaError_t mla_dispatch(int dv, int dr, F&& f) {
 }  // namespace
 
 // q [B,H,dv+dr] bf16 (H <= 16), latents [N,bt,dv+dr] bf16 (one layer,
-// contiguous), tables [B,MB] i32 physical frames (-1 absent), lens [B] i32,
-// out [B,H,dv] f32.  The split plan (n_splits ranges of cps columns) comes
-// from the wrapper; with n_splits > 1, `part` holds B*n_splits*16*(dv + 2)
-// floats and `counters` B ints that are 0 (the kernel leaves them 0).  A
-// plan outside 1 <= n_splits <= MAX_SPLITS, 1 <= cps <= MAX_COLS, H outside
-// 1..16 or widths without an instance return cudaErrorInvalidValue and launch
-// nothing.  Returns the launch's cudaError_t (0 = launched).
+// contiguous, 16-byte aligned), tables [B,MB] i32 physical frames (-1
+// absent), lens [B] i32, out [B,H,dv] f32.  n_splits (from the wrapper)
+// blocks share each row's live columns; with n_splits > 1, `part` holds
+// B*n_splits*16*(dv + 2) floats and `counters` B ints that are 0 (the kernel
+// leaves them 0).  n_splits outside 1..MAX_SPLITS, H outside 1..16, a block
+// size bt that does not divide the 64 slots of a stage into frames of 8 or
+// more, or widths without an instance return cudaErrorInvalidValue and
+// launch nothing.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int mla_decode_launch(const void* q, const void* lat, const void* tables,
                                  const void* lens, void* out, void* part,
                                  void* counters, int B, int H, int dv, int dr, int bt,
-                                 int MB, int n_splits, int cps, float scale,
-                                 void* stream) {
+                                 int MB, int N, int n_splits, float scale, void* stream) {
     if (B == 0) return 0;
-    if (n_splits < 1 || n_splits > MAX_SPLITS || cps < 1 || cps > MAX_COLS ||
-        H < 1 || H > GM)
+    if (n_splits < 1 || n_splits > MAX_SPLITS || H < 1 || H > GM || N < 1 || MB < 1 ||
+        bt < 8 || MLA_SLOTS % bt != 0)
         return (int)cudaErrorInvalidValue;
-    MlaParams p{(const __nv_bfloat16*)q, (const __nv_bfloat16*)lat,
-                (const int*)tables, (const int*)lens, (float*)out, (float*)part,
-                (int*)counters, B, H, bt, MB, n_splits, cps,
+    MlaParams p{(const __nv_bfloat16*)q, (const int*)tables, (const int*)lens,
+                (float*)out, (float*)part, (int*)counters, B, H, bt, MB, n_splits,
                 1.44269504f * scale};
     cudaStream_t st = (cudaStream_t)stream;
     return (int)mla_dispatch(dv, dr, [&](auto v, auto r) {
-        return mla_launch<decltype(v)::value, decltype(r)::value>(p, st);
+        return mla_launch<decltype(v)::value, decltype(r)::value>(p, lat, N, st);
     });
 }
 

@@ -229,16 +229,25 @@ paged_attention.softcap_launches = 0   # the launches of the capped instance
 #: (latent width dv, rope width) pairs K4 has an instance for: Moonlight's
 #: (DeepSeek-V3's too)
 MLA_WIDTHS = ((512, 64),)
-MLA_HEADS = 16      # query heads a block: the M of one mma
+MLA_HEADS = 16      # query heads a block: the N of its wgmma
+MLA_SLOTS = 64      # slots a stage: the M of its wgmma; bt divides it
+
+
+def _mla_split_plan(B: int, MB: int, bt: int, slots: int) -> int:
+    """K4's n_splits from shapes alone: the blocks that share each row's
+    live columns, as many as fit B of them into one wave of ``slots``
+    resident blocks, but no more than two stages' columns a split of the
+    whole table allows, nor ``MAX_SPLITS``.  The kernel cuts each row's
+    ceil(len / bt) live columns into n_splits ranges on the device."""
+    min_cols = max(1, 2 * MLA_SLOTS // bt)
+    want = slots // max(1, B)
+    return max(1, min(want, -(-MB // min_cols), MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)
-def _mla_plan(index: int, B: int, MB: int, bt: int, dv: int, dr: int
-              ) -> Tuple[int, int]:
-    """(n_splits, cols_per_split) of K4 for device ``index``, from shapes
-    alone: as many column ranges as fit B of them into one wave of the
-    kernel's resident blocks, at least four tiles a range, at most
-    ``MAX_COLS`` columns."""
+def _mla_plan(index: int, B: int, MB: int, bt: int, dv: int, dr: int) -> int:
+    """``_mla_split_plan`` for device ``index``: one wave is its SMs times
+    the blocks of K4's (dv, dr) instance that one SM holds."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
         fn = _build.load("paged_attention").mla_decode_blocks_per_sm
@@ -246,12 +255,7 @@ def _mla_plan(index: int, B: int, MB: int, bt: int, dv: int, dr: int
         fn.restype = _I
         _build.check_launch("paged_attention", fn(dv, dr, ctypes.byref(blocks)))
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    min_cols = max(1, -(-4 * TILE // bt))
-    want = sms * max(1, blocks.value) // max(1, B)
-    n_splits = max(1, min(want, -(-MB // min_cols), MAX_SPLITS),
-                   -(-MB // MAX_COLS))
-    cps = -(-MB // n_splits)
-    return -(-MB // cps), cps
+    return _mla_split_plan(B, MB, bt, sms * max(1, blocks.value))
 
 
 @functools.lru_cache(maxsize=None)
@@ -270,7 +274,8 @@ def mla_decode(q: torch.Tensor, slab: torch.Tensor, block_tables: torch.Tensor,
     int32, the newest token included.  Returns softmax(scale q.latent) .
     latent[..., :dv] over each row's live slots, [B,H,dv] float32 (zeros
     for a row with none).  bfloat16 on the card (the widths of
-    ``MLA_WIDTHS``); a CPU tensor takes the plain version."""
+    ``MLA_WIDTHS``, bt a divisor of ``MLA_SLOTS`` from 8 up); a CPU tensor
+    takes the plain version."""
     B, H, dk = q.shape
     if not q.is_cuda:
         return mla_decode_ref(q, slab, block_tables, seq_lens, scale=scale,
@@ -282,7 +287,8 @@ def mla_decode(q: torch.Tensor, slab: torch.Tensor, block_tables: torch.Tensor,
                         f"{q.dtype}/{slab.dtype}")
     if ((dv, dk - dv) not in MLA_WIDTHS or slab.shape[2:] != (1, dk)
             or H > MLA_HEADS or block_tables.shape[0] != B
-            or seq_lens.shape != (B,) or MB == 0):
+            or seq_lens.shape != (B,) or MB == 0 or N == 0
+            or bt < 8 or MLA_SLOTS % bt):
         raise ValueError("mla_decode: unsupported shapes "
                          f"q{tuple(q.shape)} slab{tuple(slab.shape)} "
                          f"tables{tuple(block_tables.shape)} dv {dv}")
@@ -296,7 +302,7 @@ def mla_decode(q: torch.Tensor, slab: torch.Tensor, block_tables: torch.Tensor,
     if B == 0:
         return torch.empty((0, H, dv), dtype=torch.float32, device=q.device)
     index = q.device.index
-    n_splits, cps = _mla_plan(index, B, MB, bt, dv, dk - dv)
+    n_splits = _mla_plan(index, B, MB, bt, dv, dk - dv)
     out = torch.empty((B, H, dv), dtype=torch.float32, device=q.device)
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream().cuda_stream
@@ -307,7 +313,7 @@ def mla_decode(q: torch.Tensor, slab: torch.Tensor, block_tables: torch.Tensor,
         code = _mla_launcher()(
             q.data_ptr(), slab.data_ptr(), block_tables.data_ptr(),
             seq_lens.data_ptr(), out.data_ptr(), partials, counters,
-            B, H, dv, dk - dv, bt, MB, n_splits, cps, float(scale), stream)
+            B, H, dv, dk - dv, bt, MB, N, n_splits, float(scale), stream)
     _build.check_launch("paged_attention", code)
     mla_decode.launches += 1
     return out

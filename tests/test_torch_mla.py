@@ -195,6 +195,55 @@ def test_plain_mla_decode_is_gather_softmax():
         assert torch.allclose(got[b], p @ lat[:, :dv], atol=1e-5)
 
 
+def _k4_columns(n_splits, MB, bt, seq_len):
+    """The block-table columns [begin, end) of each of K4's blocks of a row
+    of length ``seq_len``, as csrc/paged_attention.cu computes them on the
+    device: its ceil(seq_len / bt) live columns cut into n_splits ranges."""
+    live = min(MB, -(-seq_len // bt)) if seq_len > 0 else 0
+    per = -(-live // n_splits)
+    return [(min(s * per, live), min(min(s * per, live) + per, live))
+            for s in range(n_splits)]
+
+
+# (B, MB, bt): the Moonlight cell (batch 64, 385 columns) and its smoke
+# shapes, one long row, the small card-test tables, other block sizes
+K4_PLANS = [(64, 385, 16), (64, 320, 16), (16, 8, 16), (1, 1024, 16),
+            (1, 512, 16), (3, 40, 16), (2, 8, 16), (5, 64, 16), (128, 385, 16),
+            (1, 4, 8), (4, 100, 32), (2, 3, 64)]
+H100_SLOTS = 132          # one wave of K4: 132 SMs, one block an SM
+
+
+@pytest.mark.parametrize("B,MB,bt", K4_PLANS)
+def test_k4_split_plan_fills_one_wave(B, MB, bt):
+    """n_splits from shapes alone: B rows of them fit one wave (or one
+    block a row where B alone exceeds it), never more than the table's
+    columns two stages at a time allow; the cell's shape takes two."""
+    n = paged_ops._mla_split_plan(B, MB, bt, H100_SLOTS)
+    assert 1 <= n <= paged_ops.MAX_SPLITS
+    assert B * n <= max(H100_SLOTS, B)
+    assert n <= max(1, -(-MB * bt // (2 * paged_ops.MLA_SLOTS)))
+    if (B, MB) in ((64, 385), (64, 320)):
+        assert n == 2
+
+
+@pytest.mark.parametrize("B,MB,bt", K4_PLANS)
+def test_k4_splits_share_the_live_columns(B, MB, bt):
+    """Every live column of a row in exactly one block's range, in order,
+    none past the row's length or the table, no range longer than
+    ceil(live / n_splits): at the cell's 4 112 tokens its two blocks take 129
+    and 128 of the 257 live columns, none of the 128 dead ones."""
+    n = paged_ops._mla_split_plan(B, MB, bt, H100_SLOTS)
+    for seq_len in sorted({0, 1, bt - 1, bt, bt + 1, 4112, MB * bt // 2 + 3,
+                           MB * bt - 1, MB * bt, MB * bt + 5}):
+        ranges = _k4_columns(n, MB, bt, seq_len)
+        cols = [c for lo, hi in ranges for c in range(lo, hi)]
+        live = min(MB, -(-seq_len // bt)) if seq_len > 0 else 0
+        assert cols == list(range(live))
+        assert max(hi - lo for lo, hi in ranges) == -(-live // n)
+    if (B, MB, bt) == (64, 385, 16):
+        assert [hi - lo for lo, hi in _k4_columns(n, MB, bt, 4112)] == [129, 128]
+
+
 def test_latent_write_and_scatter_pooled():
     """The prefill scatter and the token write through pool-local frames
     land where the flattened pools' global frames say; unmapped rows store
@@ -287,20 +336,36 @@ def card():
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("B,H,dv,dr,MB,N,dead", [
-    (2, 16, 512, 64, 8, 32, False), (3, 16, 512, 64, 40, 128, True),
-    (64, 16, 512, 64, 24, 64 * 24, False), (2, 4, 512, 64, 8, 24, True),
-    (1, 16, 512, 64, 512, 512, False)])
-def test_card_k4_matches_plain(card, B, H, dv, dr, MB, N, dead):
+@pytest.mark.parametrize("B,H,dv,dr,MB,N,dead,lens,bt", [
+    (2, 16, 512, 64, 8, 32, False, None, 16),
+    (3, 16, 512, 64, 40, 128, True, None, 16),
+    (64, 16, 512, 64, 24, 64 * 24, False, None, 16),
+    (2, 4, 512, 64, 8, 24, True, None, 16),
+    (1, 16, 512, 64, 512, 512, False, None, 16),
+    # the Moonlight cell's shape: equal rows of 4 112 that leave the table's
+    # last quarter dead; then ragged rows of 1-6 144, some shorter than a
+    # 64-slot stage; then a row that ends inside a stage beside a dead row
+    (64, 16, 512, 64, 385, 64 * 385, False, 4112, 16),
+    (64, 16, 512, 64, 385, 64 * 385, False, (1, 6144), 16),
+    (2, 16, 512, 64, 70, 140, True, 1000, 16),
+    # the other block sizes a stage divides into: 2 and 8 frames a stage
+    (3, 16, 512, 64, 40, 128, True, None, 32),
+    (5, 16, 512, 64, 64, 400, False, None, 8)])
+def test_card_k4_matches_plain(card, B, H, dv, dr, MB, N, dead, lens, bt):
+    """K4 within 5e-5 of its plain version, one launch, the combine's
+    counters back at 0.  ``lens``: None draws each row's length from 1 to
+    the table's MB * bt slots, an int gives every row that length, a pair
+    (lo, hi) draws from lo to hi."""
     gen = torch.Generator(device=card).manual_seed(B * MB)
-    bt = 16
     q = torch.randn(B, H, dv + dr, generator=gen, device=card).bfloat16()
     slab = torch.randn(N, bt, 1, dv + dr, generator=gen,
                        device=card).bfloat16()
     perm = torch.randperm(N, generator=gen, device=card)[:B * MB]
     tables = perm.view(B, MB).int().contiguous()
-    lens = torch.randint(1, MB * bt + 1, (B,), generator=gen,
-                         device=card).int()
+    lo, hi = lens if isinstance(lens, tuple) else (1, MB * bt)
+    lens = (torch.full((B,), lens, dtype=torch.int32, device=card)
+            if isinstance(lens, int) else
+            torch.randint(lo, hi + 1, (B,), generator=gen, device=card).int())
     if dead:
         tables[-1] = -1
     before = paged_ops.mla_decode.launches
