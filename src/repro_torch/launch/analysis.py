@@ -63,6 +63,7 @@ from .specs import (MISS_BUDGET, MUTATION_BUDGET, PREFETCH_DEGREE,
 
 # --- hardware constants (NVIDIA H100 SXM5 80 GB datasheet) ------------------
 PEAK_FLOPS = 989e12          # bf16 FLOP/s a GPU, dense tensor cores
+PEAK_FLOPS_F32 = 67e12       # float32 FLOP/s a GPU, outside the tensor cores
 HBM_BW = 3.35e12             # bytes/s a GPU
 LINK_BW = 450e9              # bytes/s a GPU, each direction (NVLink 4: 900 GB/s both)
 HBM_BYTES = 80 * 2 ** 30     # device memory a GPU (80 GiB)

@@ -65,9 +65,9 @@ from ..models.transformer import gather_vocab, vocab_split
 from ..pagedpt.blocktable import (CoherenceMode, eager_sync_bytes,
                                   numapte_fetch_bytes)
 from .mesh import make_debug_mesh
-from .specs import (_coherence_prologue, build_serve_step, grid_sampler,
+from .specs import (build_serve_step, coherence_rounds, grid_sampler,
                     kv_split, make_rules, prefill_on_grid, shard_params,
-                    split_leaves, state_split, timed, elapsed_ms)
+                    split_leaves, state_split, elapsed_ms)
 
 
 def _sync(device: torch.device) -> None:
@@ -207,13 +207,7 @@ def serve(arch: str, *, n_requests: int = 16, prompt_len: int = 32,
         """Prologue rounds for what one step's budgets left queued, then
         the replica check."""
         nonlocal mismatches
-        launched = 0
-        while kv.coherence_pending():
-            before = pte_gather.launches
-            with timed(timings, device):
-                _coherence_prologue(coherence, pods, kv.replicas,
-                                    *kv.coherence_inputs())
-            launched += pte_gather.launches - before
+        launched = coherence_rounds(coherence, pods, kv, timings)
         if check_replicas:
             mismatches += kv.replica_mismatches(full=coherence == "eager")
         return launched

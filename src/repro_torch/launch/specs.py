@@ -75,6 +75,7 @@ from ..models.transformer import (DecodeState, decode_step, prefill,
 from ..optim import adamw_init, adamw_update
 from ..optim.adamw import decays
 from ..kernels.pte_gather.ops import pte_gather
+from ..pagedpt.blocktable import ENTRIES_PER_TABLE, BlockTableSpec
 from ..pagedpt.coherence import eager_sync, numapte_prologue
 from .mesh import make_debug_mesh
 
@@ -329,9 +330,9 @@ def gather_params(tree: PyTree, grid: Pods) -> PyTree:
 
     return tree_map_with_path(one, tree)
 
-#: the prefetch degree of the reference's cells (their per-step budgets,
-#: 1 024 mutations and 256 misses a pod, are ``BlockTableSpec``'s defaults)
-PREFETCH_DEGREE = 3
+#: the prefetch degree of the reference's cells: ``BlockTableSpec``'s
+#: default, which the manager takes
+PREFETCH_DEGREE = BlockTableSpec.prefetch_degree
 
 
 # --------------------------------------------------------------------------- steps
@@ -723,6 +724,21 @@ def _coherence_prologue(mode: str, pods: Pods, entries, sharers, owner,
     return out
 
 
+def coherence_rounds(mode: str, pods: Pods, kv, timer: Optional[List] = None
+                     ) -> int:
+    """Prologue rounds over ``kv``'s replicas (a ``PagedKVManager`` made
+    with ``replicas=True``) until nothing waits for them: what one step's
+    budgets left queued.  With ``timer`` each round is ``timed`` into it.
+    Returns the K3 launches the rounds made."""
+    before = pte_gather.launches
+    while kv.coherence_pending():
+        with (timed(timer, kv.device) if timer is not None
+              else contextlib.nullcontext()):
+            _coherence_prologue(mode, pods, kv.replicas,
+                                *kv.coherence_inputs())
+    return pte_gather.launches - before
+
+
 # --------------------------------------------------------------------------- cells
 @dataclasses.dataclass(frozen=True)
 class PerfOptions:
@@ -848,7 +864,8 @@ def _decode_geometry(cfg: ModelConfig, shape: ShapeSpec,
 
 #: the reference's per-step coherence budgets (``BlockTableSpec``'s
 #: defaults) and its table size
-MUTATION_BUDGET, MISS_BUDGET, TABLE_ENTRIES = 1024, 256, 512
+MUTATION_BUDGET, MISS_BUDGET, TABLE_ENTRIES = (
+    BlockTableSpec.mutation_budget, BlockTableSpec.miss_budget, ENTRIES_PER_TABLE)
 
 
 def _row_share(rows: int, data_size: int) -> int:

@@ -232,3 +232,34 @@ def test_torch_manager_replicas_follow_the_host(mode):
     assert most > 1            # a wave switch outgrew one round's budgets
     if mode == "numapte":
         assert kv.host.counters.fetches > 0
+
+
+@pytest.mark.parametrize("mode", ["eager", "numapte"])
+def test_torch_coherence_rounds_drain_a_wave_switch(mode):
+    """A wave switch (a wave's frees and the next wave's allocations, 8 256
+    mutations) outgrows one step's budgets of 4 x 1 024: ``coherence_rounds``
+    runs a timed round after round until nothing is pending, every replica
+    then agrees with the host, and it returns the K3 launches it made."""
+    from repro_torch.kernels.pte_gather import pte_gather
+    from repro_torch.launch import specs
+    P, B, S, bt = 4, 32, 2048, 16
+    mb = S // bt + 1
+    kv = PagedKVManager(n_frames=2 * B * mb, block_tokens=bt,
+                        max_blocks_per_seq=mb, n_pods=P,
+                        mode=CoherenceMode(mode), n_pools=P, replicas=True,
+                        device="cpu")
+    pods = LoopPods(P, "cpu")
+    for wave in range(2):
+        rows = list(range(B * wave, B * (wave + 1)))
+        for r in rows:
+            kv.start_sequence(r, S, pod=r % B // (B // P))
+        kv.physical_tables(rows)
+        before, timer = pte_gather.launches, []
+        launched = specs.coherence_rounds(mode, pods, kv, timer)
+        assert not kv.coherence_pending()
+        assert launched == pte_gather.launches - before
+        assert kv.replica_mismatches(full=mode == "eager") == 0
+        for r in rows:
+            kv.maybe_extend(r, S + 1)
+            kv.finish_sequence(r)
+    assert len(timer) > 1          # the switch took more than one round

@@ -19,7 +19,7 @@ as the shared-memory instance finds them (lane numbers written into the
 fill vector, the winner read back and balloted bit by bit, the entries of
 ids with no miss written back), and both instances are checked.  It is held bit for bit against the
 plain scan (``fifo_miss_ref``) and the numpy loop on the reference's 25
-trials, on ``chip_smoke.py:fifo_repeats``-style streams and on adversarial
+trials, on ``chipcheck/numa_sim.py:fifo_repeats``-style streams and on adversarial
 ones: one id 32 times, capacities 0, 1, 31, 32 and 33, every length mod 32,
 and constructed windows that need more than 8 rounds (the rounds are
 asserted).  The control stops each window after one round: it must miss on
@@ -136,7 +136,7 @@ def test_torch_fifo_window_reference_trials():
 
 
 def test_torch_fifo_window_repeats():
-    """``chip_smoke.py:fifo_repeats``: a handful of vpns, capacities 0-4."""
+    """``chipcheck/numa_sim.py:fifo_repeats``: a handful of vpns, capacities 0-4."""
     rng = np.random.default_rng(3)
     for k in range(200):
         cap = int(rng.integers(0, 5))

@@ -11,7 +11,7 @@ hi = bf16(x) and lo = bf16(x - hi):
 
 ``_emulate`` computes the same products in float32 torch and is held against
 ``flash_attention_bwd_ref`` within the card's bound (2e-5 of each gradient's
-largest magnitude, ``chip_smoke.py:BWD_TOL_REL``) at a causal GQA shape, a
+largest magnitude, ``chipcheck/common.py:BWD_TOL_REL``) at a causal GQA shape, a
 windowed one and a ragged S, with a float32 dO and with the bf16-valued dO
 of the train step (whose lo half is zero).  The negative control rounds P
 and dS to one bf16 value each, as a kernel without the lo halves would: it

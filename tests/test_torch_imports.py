@@ -65,7 +65,8 @@ def test_torch_port_imports_with_jax_and_repro_blocked():
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
-    str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py")))
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "chipcheck").glob("*.py"),
+                                       *(ROOT / "src" / "repro_torch").rglob("*.py")]))
 def test_torch_sources_name_no_jax_import(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
 

@@ -40,7 +40,7 @@ def _split_columns(n_splits, cps, MB, bt, seq_len, window):
     ``seq_len``, as csrc/paged_attention.cu computes them: the ranges start
     at the window's first column (column 0 without a window) and stop at
     MB.  The kernel's own ranges are held to the plain version on the card
-    (chip_smoke.py)."""
+    (chipcheck/kernels.py)."""
     lo = max(seq_len - window, 0) if window is not None else 0
     base = lo // bt
     return [(base + s * cps, min(base + (s + 1) * cps, MB))

@@ -269,7 +269,7 @@ def test_replay_is_one_decode_span(card):
 @pytest.mark.card
 def test_capture_under_the_profiler(card):
     """``serve()`` captures its step in its warm-up, and under a running
-    ``torch.profiler`` (``chip_smoke.py``'s profile phase) the capture works,
+    ``torch.profiler`` (as ``perfbench/run.py --trace 1``) the capture works,
     the tokens equal the eager run's, and the trace holds every K1 launch
     that ran, the replays' included."""
     kw = dict(n_requests=4, prompt_len=S, gen_len=4, batch=B, n_pods=1,

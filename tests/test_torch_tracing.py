@@ -81,9 +81,7 @@ def serve(cfg, params, prompts) -> Served:
         phys = kv.physical_tables(rows, record=(t % 4 == 0))
         tokens, state, _ = step(params, state, tokens, phys, kv.replicas,
                                 *kv.coherence_inputs())
-        while kv.coherence_pending():
-            specs._coherence_prologue(MODE, grid, kv.replicas,
-                                      *kv.coherence_inputs())
+        specs.coherence_rounds(MODE, grid, kv)
         out.append(tokens.clone())
     return Served(torch.stack(out), state, kv, grid)
 

@@ -5,7 +5,7 @@ staged copy a walk.
 
 On CPU tensors the wrapper takes its plain version (``pte_gather_ref``), so
 these tests run without a GPU; the kernel itself is held against the same
-plain version on the card by ``chip_smoke.py``.  Inputs come from seeded
+plain version on the card by ``chipcheck/walk.py``.  Inputs come from seeded
 numpy generators.
 """
 from __future__ import annotations

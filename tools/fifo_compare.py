@@ -12,12 +12,12 @@ imported instead of this one's; its kernel builds into that checkout's own
 card, in the order A, B, B, A.
 
 Two streams: the largest ``fifo_miss`` call of fig08's 15 runs at
-``--scale 16`` (``chip_smoke.py:NUMA_APP``; recorded once on the numpy
-backend and kept in ``--streams``, so later runs reuse it), and
-``chip_smoke.py:fifo_long_stream`` (2^24 accesses over 2^20 vpns).  For
-each it reports:
+``--scale 16`` (``chipcheck/numa_sim.py:NUMA_APP``; recorded once on the
+numpy backend and kept in ``--streams``, so later runs reuse it), and
+``chipcheck/numa_sim.py:fifo_long_stream`` (2^24 accesses over 2^20 vpns).
+For each it reports:
 
-  ms               device time of the kernel, by ``chip_smoke.py:time_ms``
+  ms               device time of the kernel, by ``chipcheck/common.py:time_ms``
   backend_wall_ms  one whole ``fifo_miss(..., backend="cuda")`` call as the
                    batch engine of that checkout makes it (with its ids,
                    ``dense``, where the checkout takes them), median
@@ -51,14 +51,14 @@ def median_wall_ms(fn, reps: int) -> float:
     return 1e3 * float(np.median(walls))
 
 
-def engine_stream(cs, path: str):
+def engine_stream(sim, path: str):
     """fig08's largest engine call: (arr, TLB entries, capacity)."""
     if os.path.exists(path):
         with np.load(path) as z:
             return z["arr"], z["init"].tolist(), int(z["cap"])
     recorded = []
-    with cs.engine_calls(recorded, keep=True):
-        cs.numa_sim_apps("numpy")
+    with sim.engine_calls(recorded, keep=True):
+        sim.numa_sim_apps("numpy")
     arr, init, cap = max(recorded,
                          key=lambda c: np.unique(c[0]).size + len(c[1]))
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -83,22 +83,23 @@ def main() -> None:
     from repro_torch.kernels.fifo_miss import ops
     if not os.path.abspath(repro_torch.__file__).startswith(src + os.sep):
         sys.exit(f"repro_torch was not imported from {src}")
-    # chip_smoke.py supplies the timer, the streams and the fig08 runs; the
+    # chipcheck supplies the timer, the streams and the fig08 runs; the
     # repro_torch it imports is the one already loaded from --src
     sys.path.insert(1, ROOT)
-    import chip_smoke as cs
+    from chipcheck import numa_sim
+    from chipcheck.common import DEV, time_ms
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     takes_dense = "dense" in inspect.signature(ops.fifo_miss).parameters
-    streams = {"engine_call": engine_stream(cs, args.streams),
-               "long_stream": cs.fifo_long_stream()}
+    streams = {"engine_call": engine_stream(numa_sim, args.streams),
+               "long_stream": numa_sim.fifo_long_stream()}
     for name, (arr, init, cap) in streams.items():
         arr = np.asarray(arr, np.int64)
         fill0, n0, ids = ops.densify(arr, init, cap)
-        f = torch.from_numpy(fill0).to(cs.DEV)
-        i = torch.from_numpy(ids).to(cs.DEV)
+        f = torch.from_numpy(fill0).to(DEV)
+        i = torch.from_numpy(ids).to(DEV)
         kw = ({"dense": np.unique(arr, return_inverse=True)}
               if takes_dense else {})
         reps = 10 if name == "engine_call" else 3
@@ -108,7 +109,7 @@ def main() -> None:
             "src": src, "card": smi, "stream": name, "n": int(arr.size),
             "distinct_ids": int(fill0.size), "capacity": cap,
             "flags_equal": bool(np.array_equal(got, loop)),
-            "ms": cs.time_ms(lambda: ops.fifo_miss_ids(f, n0, i, cap),
+            "ms": time_ms(lambda: ops.fifo_miss_ids(f, n0, i, cap),
                              iters=reps),
             "backend_wall_ms": median_wall_ms(
                 lambda: ops.fifo_miss(arr, init, cap, backend="cuda", **kw),

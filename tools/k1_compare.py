@@ -15,10 +15,10 @@ For three bf16 shapes at Qwen3-14B widths (the serving path's: batch 16,
 1 057 tokens; one sequence of 32 768 tokens; the same with a 4 096-token
 window) it reports, through the public wrapper ``paged_attention``:
 
-  ms           device time of one call, by ``chip_smoke.py:time_ms``
-  max_abs_err  against the plain version (held to ``chip_smoke.py``'s bound)
+  ms           device time of one call, by ``chipcheck/common.py:time_ms``
+  max_abs_err  against the plain version (held to ``chipcheck``'s bound)
   host_us      host time of one wrapper call, back to back, mean of 200
-  bound_ms     ``chip_smoke.py:paged_bound`` for these inputs
+  bound_ms     ``chipcheck/common.py:paged_bound`` for these inputs
 
 ``--splits`` (a port whose wrapper plans split-KV only) repeats ``ms`` and
 ``max_abs_err`` with the plan's split count replaced by each one given.
@@ -71,10 +71,10 @@ def main() -> None:
     from repro_torch.kernels.paged_attention import ops
     if not os.path.abspath(repro_torch.__file__).startswith(src + os.sep):
         sys.exit(f"repro_torch was not imported from {src}")
-    # chip_smoke.py supplies the timer, the inputs and the bound; the
+    # chipcheck supplies the timer, the inputs and the bound; the
     # repro_torch it imports is the one already loaded from --src
     sys.path.insert(1, ROOT)
-    import chip_smoke as cs
+    from chipcheck import common
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -91,22 +91,23 @@ def main() -> None:
 
     bf16 = torch.bfloat16
     cases = {
-        "serve": cs.paged_case(16, 40, 8, 128, 16, 69, 4416, None, bf16,
+        "serve": common.paged_case(16, 40, 8, 128, 16, 69, 4416, None, bf16,
                                lens=np.full(16, 1057)),
-        "long": cs.paged_case(1, 40, 8, 128, 16, 2048, 2048, None, bf16,
+        "long": common.paged_case(1, 40, 8, 128, 16, 2048, 2048, None, bf16,
                               lens=[32768]),
-        "long_window": cs.paged_case(1, 40, 8, 128, 16, 2048, 2048, 4096, bf16,
+        "long_window": common.paged_case(1, 40, 8, 128, 16, 2048, 2048, 4096, bf16,
                                      lens=[32768]),
     }
-    fn, ref, tol = ops.paged_attention, ops.paged_attention_ref, cs.TOL["paged_attention"]
+    fn, ref = ops.paged_attention, ops.paged_attention_ref
+    tol = common.TOL["paged_attention"]
 
     def measure(a, kw):
-        err = cs.max_err(fn(*a, **kw), ref(*a, **kw))
-        cs.check(err <= tol, f"paged_attention |err| {err} > {tol}")
-        return {"ms": cs.time_ms(lambda: fn(*a, **kw)), "max_abs_err": err}
+        err = common.max_err(fn(*a, **kw), ref(*a, **kw))
+        common.check(err <= tol, f"paged_attention |err| {err} > {tol}")
+        return {"ms": common.time_ms(lambda: fn(*a, **kw)), "max_abs_err": err}
 
     for name, (a, kw) in cases.items():
-        t_bytes, t_ops = cs.paged_bound(a, kw)
+        t_bytes, t_ops = common.paged_bound(a, kw)
         emit({"case": name, "shape": [list(t.shape) for t in a],
               "window": kw["window"], **measure(a, kw),
               "host_us": host_us(lambda: fn(*a, **kw)),

@@ -20,7 +20,8 @@ every 4th step, the serve step with the coherence prologue, extra rounds,
 the tokens' copy).  It prints one JSON line (``--out`` also appends it to a
 file): each side's median, mean and 95th percentile step ms, the median of
 the rounds' differences (this minus other) and the share of rounds in which
-this side was faster; and the card.
+this side was faster; and the card.  Both ports need
+``launch/specs.py:coherence_rounds``.
 """
 from __future__ import annotations
 
@@ -87,9 +88,7 @@ def side(pkg: str, conf: dict, params: dict, prompts, batch: int, steps: int,
         tokens, held["state"], _ = serve(params, held["state"], held["tokens"],
                                          phys, kv.replicas,
                                          *kv.coherence_inputs())
-        while kv.coherence_pending():
-            specs._coherence_prologue(dep["mode"], grid, kv.replicas,
-                                      *kv.coherence_inputs())
+        specs.coherence_rounds(dep["mode"], grid, kv)
         tokens.cpu()
         held["tokens"], held["t"] = tokens, t + 1
         return 1e3 * (time.perf_counter() - start)

@@ -11,11 +11,11 @@ imported instead of this one's; its kernels build into that checkout's own
 ``build/``.  To compare two versions, run both in one process list on one
 card, in the order A, B, B, A.
 
-At the serving shape (``chip_smoke.py:WALK_SHAPE``: Qwen3-14B served at
-batch 16, prompt 1024 + 64 generated, 4 pods, numaPTE) it runs ``--waves``
-waves of the serving path's walks with no model in between
-(``chip_smoke.py:walk_wave``), once with ``record`` true and once false, and
-reports for each kind of walk (``first``: a wave's first walk; ``extend``: a
+At the serving shape (``chipcheck/walk.py:WALK_SHAPE``: Qwen3-14B served
+at batch 16, prompt 1024 + 64 generated, 4 pods, numaPTE) it runs
+``--waves`` waves of the serving path's walks with no model in between
+(``chipcheck/walk.py:walk_wave``), once with ``record`` true and once false,
+and reports for each kind of walk (``first``: a wave's first walk; ``extend``: a
 decode step with extensions pending; ``steady``: one with none; ``check``:
 the sync of ``check_device_table`` after the frees):
 
@@ -25,12 +25,12 @@ the sync of ``check_device_table`` after the frees):
   device_ops  kernels and copies of one call of that kind, by name
               (``torch.profiler``; ``record`` false)
 
-and the device time of the walk's device side (``chip_smoke.py:time_ms``)
-for the serving path's inputs (``chip_smoke.py:serving_walk_cases``): the ids
-alone, a wave's first walk and a wave switch.  A port whose ``pte_gather``
-takes no mutation list (before the fused kernel) applies the list with
-``apply_mutations``, one call per drain of ``mutation_budget`` entries, and
-then walks.
+and the device time of the walk's device side
+(``chipcheck/common.py:time_ms``) for the serving path's inputs
+(``chipcheck/walk.py:serving_walk_cases``): the ids alone, a wave's first
+walk and a wave switch.  A port whose ``pte_gather`` takes no mutation list
+(before the fused kernel) applies the list with ``apply_mutations``, one
+call per drain of ``mutation_budget`` entries, and then walks.
 
 Each result is one JSON line on standard output, also appended to ``--out``.
 """
@@ -65,10 +65,11 @@ def main() -> None:
     import repro_torch
     if not os.path.abspath(repro_torch.__file__).startswith(src + os.sep):
         sys.exit(f"repro_torch was not imported from {src}")
-    # chip_smoke.py supplies the shape and the walks; the repro_torch it
+    # chipcheck supplies the shape and the walks; the repro_torch it
     # imports is the one already loaded from --src
     sys.path.insert(1, ROOT)
-    import chip_smoke as cs
+    from chipcheck import walk
+    from chipcheck.common import DEV, time_ms
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -95,7 +96,7 @@ def main() -> None:
             apply_mutations(entries, *(m[i:i + budget] for m in mutations))
         return pte_gather(entries, logical, degree)
 
-    serving = cs.serving_walk_cases()
+    serving = walk.serving_walk_cases()
     (entries, logical, degree, _), _ = serving["first_walk"]
     cases = {"ids_only": (entries.clone(), logical, degree, None),
              "first_walk": serving["first_walk"][0],
@@ -105,11 +106,11 @@ def main() -> None:
         # repeats the same work
         emit({"case": name, "fused": fused, "ids": int(a[1].numel()),
               "mutations": 0 if a[3] is None else int(a[3][0].numel()),
-              "device_ms": cs.time_ms(lambda: device_side(*a))})
+              "device_ms": time_ms(lambda: device_side(*a))})
 
-    ops = cs.walk_device_ops()
+    ops = walk.walk_device_ops()
     for record in (True, False):
-        kv = cs.PagedKVManager(**cs.WALK_SHAPE, device=cs.DEV)
+        kv = walk.PagedKVManager(**walk.WALK_SHAPE, device=DEV)
         times, pending = {}, {}
 
         def call(kind, fn):
@@ -119,10 +120,10 @@ def main() -> None:
             times.setdefault(kind, []).append(1e6 * (time.perf_counter() - t0))
 
         # one wave first, untimed: builds and loads the kernel
-        cs.walk_wave(kv, list(range(16)), record, lambda kind, fn: fn())
+        walk.walk_wave(kv, list(range(16)), record, lambda kind, fn: fn())
         torch.cuda.synchronize()
         for w in range(1, args.waves + 1):
-            cs.walk_wave(kv, list(range(16 * w, 16 * w + 16)), record, call)
+            walk.walk_wave(kv, list(range(16 * w, 16 * w + 16)), record, call)
         torch.cuda.synchronize()
         for kind, us in times.items():
             emit({"record": record, "kind": kind, "calls": len(us),
